@@ -7,20 +7,30 @@ Run from the repository root with no arguments::
 Phases, each printed on its own line; any failure exits non-zero:
 
 1. the card (``nvidia-smi``), torch, CUDA and the TF32 switches;
-2. build the hand-written kernels from ``xcorr_tpu_torch/csrc``;
-3. the fused stage-B kernel (K1) against its plain PyTorch version at the
-   pair-day's shape (8, 2, 529, 8192), at (4, 2, 529, 8192) and at a small
-   one, max |diff| / max |plain| <= 1e-5, with CUDA-event times of both
-   (median of 20 launches after warm-up);
+2. build the hand-written kernels from ``xcorr_tpu_torch/csrc`` (one
+   ``nvcc`` per source, all started together);
+3. every kernel against its plain PyTorch version, max |diff| / max
+   |plain| <= 1e-5, with CUDA-event times of both (median of 20 launches
+   after warm-up) and the card's bound for the same work: K1 at the
+   pair-day's shape (8, 2, 529, 8192), at (4, 2, 529, 8192) and at a
+   small one; K2 (forward and inverse), K3 and K4 at the pair-day's
+   shapes (B = 8, H = 529, N2 = 8192, rows_in = 528, rows_out = 198, with
+   the plan's own w1, T and wi) and at a small one. K3 and K4 run twice
+   on the same inputs and must give the same bits;
 4. ``ops.cc.correlate`` on 16 synthetic 24 h windows at 50 Hz
-   (n = 4,320,000) with the 0-9 h lag window: the four-step path through
-   K1, 2 windows within 1e-6 abs of a float64 numpy oracle, and the time
-   per window split into stage-A product, K1, inverse product and lag
-   slice;
-5. the slice: ``init`` -> ``process(device='cuda')`` (-> ``write`` ->
-   ``read`` where h5py is installed) of one production-geometry pair-day
-   from ``SyntheticClient``: every status 1, the CCF peak on the injected
-   delay, K1 launched, wall seconds and device share.
+   (n = 4,320,000) with the 0-9 h lag window, once per route of the
+   four-step path, each chosen as a user chooses it (no variable: K1;
+   ``XCORR_FFT4_FUSED_INV=1``: K3; ``XCORR_FFT4_FULL=1``: K4): only the
+   route's kernel launched, 2 windows within 1e-6 abs of a float64 numpy
+   oracle, the peak on the injected delay, ms per window and peak working
+   memory; the K1 route's time split into stage-A product, K1, inverse
+   product and lag slice; the monolithic cuFFT route beside them;
+5. the slice, once per route after a first (cold) run on the K1 route:
+   ``init`` -> ``process(device='cuda')`` of one production-geometry
+   pair-day from ``SyntheticClient``: every status 1, all 8 CCF peaks on
+   the injected delay, the CCFs within 1e-6 abs of the K1 route's, the
+   route's kernel launched and no other; wall seconds and device share.
+   On the K1 route also ``write`` -> ``read`` where h5py is installed.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -28,6 +38,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -43,7 +54,7 @@ N = int(WINDOW * FS)                 # 4,320,000 samples per window
 CLIP_LAG = (0.0, 9 * 3600.0)
 DELAY = 4.0                          # s, injected on the first receiver
 PAIR = "IM.H03S1..EDH-IM.H03S2..EDH"
-K1_RTOL = 1e-5                       # K1 vs plain: max|diff| / max|plain|
+K_RTOL = 1e-5                        # kernel vs plain: max|diff| / max|plain|
 CCF_ATOL = 1e-6                      # normalized CCF vs float64 oracle
 SEED = 20140201
 #: the EDH preprocess chain of the production benchmark
@@ -52,6 +63,30 @@ EDH = [("detrend", {"type": "demean"}),
        ("detrend", {"type": "demean"}),
        ("taper", {"type": "cosine", "max_percentage": 0.05,
                   "max_length": 30.0})]
+#: route of the four-step path -> (kernel it launches, environment)
+ROUTES = {"corr": ("fused_corr", {}),
+          "acc": ("fused_corr_acc", {"XCORR_FFT4_FUSED_INV": "1"}),
+          "full": ("fused_corr_full", {"XCORR_FFT4_FULL": "1"})}
+ROUTE_VARS = ("XCORR_FFT4_FULL", "XCORR_FFT4_FUSED_INV")
+#: one H100 SXM's published peaks: HBM bytes/s, float32 FLOP/s outside
+#: the tensor cores
+HBM_BPS = 3.35e12
+FP32_FLOPS = 67e12
+#: the TPU kernel body each kernel replaces
+REPLACES = {
+    "fused_corr": "xcorr_tpu/ops/pallas_fft.py:446",
+    "stageb_fwd": "xcorr_tpu/ops/pallas_fft.py:407",
+    "stageb_inv": "xcorr_tpu/ops/pallas_fft.py:415",
+    "fused_corr_acc": "xcorr_tpu/ops/pallas_fft.py:535",
+    "fused_corr_full": "xcorr_tpu/ops/pallas_fft.py:684",
+}
+SOURCES = {
+    "fused_corr": "xcorr_tpu_torch/csrc/fused_corr.cu",
+    "stageb_fwd": "xcorr_tpu_torch/csrc/stageb.cu",
+    "stageb_inv": "xcorr_tpu_torch/csrc/stageb.cu",
+    "fused_corr_acc": "xcorr_tpu_torch/csrc/fused_corr_acc.cu",
+    "fused_corr_full": "xcorr_tpu_torch/csrc/fused_corr_full.cu",
+}
 
 
 def fail(msg):
@@ -66,6 +101,13 @@ def check(cond, msg):
 
 def phase(i, msg):
     print(f"[phase {i}] {msg}", flush=True)
+
+
+def set_route(route):
+    """Set the route's environment variables as a user would."""
+    for var in ROUTE_VARS:
+        os.environ.pop(var, None)
+    os.environ.update(ROUTES[route][1])
 
 
 def median_ms(fn, reps=20, warmup=3):
@@ -85,14 +127,126 @@ def median_ms(fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
-def k1_inputs(shape, seed):
-    """Seeded stage-A-like planes and a unit-modulus twiddle on the card."""
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(in_bytes, out_bytes, flops):
+    """Least time (ms) of the work on the card, and what bounds it: each
+    input read once and each output written once at the HBM rate, or the
+    float32 operations at the CUDA cores' peak."""
+    t_bytes = (in_bytes + out_bytes) / HBM_BPS
+    t_ops = flops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def stageb_flops(B, H, N2):
+    """Operations of K1 over B*H rows: three length-N2 complex FFTs
+    (5 N log2 N each) and four complex products per element plus the
+    scale."""
+    return B * H * (3 * 5 * N2 * math.log2(N2) + 26 * N2)
+
+
+def kernel_inputs(B, H, N2, rows_in, rows_out, seed, consts=None):
+    """Seeded stage-A-like planes, windows and (unless the plan's
+    ``(w1, wi, T)`` are given) constants of the right shapes, on the
+    card."""
     rng = np.random.default_rng(seed)
-    ax = rng.standard_normal(shape, dtype=np.float32)
-    ay = rng.standard_normal(shape, dtype=np.float32)
-    ph = rng.uniform(0.0, 2 * np.pi, size=shape[2:])
-    T = np.stack([np.cos(ph), np.sin(ph)]).astype(np.float32)
-    return [torch.from_numpy(a).cuda() for a in (ax, ay, T)]
+
+    def cu(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+
+    d = {"ax": cu(rng.standard_normal((B, 2, H, N2), np.float32)),
+         "ay": cu(rng.standard_normal((B, 2, H, N2), np.float32)),
+         "vx": cu(rng.standard_normal((B, rows_in, N2), np.float32)),
+         "vy": cu(rng.standard_normal((B, rows_in, N2), np.float32))}
+    if consts is None:
+        ph = rng.uniform(0.0, 2 * np.pi, size=(H, N2))
+        d["T"] = cu(np.stack([np.cos(ph), np.sin(ph)]))
+        d["w1"] = cu(rng.standard_normal((2 * H, rows_in)) / rows_in ** .5)
+        d["wi"] = cu(rng.standard_normal((rows_out, 2 * H)) / H ** .5)
+    else:
+        d["w1"], d["wi"], d["T"] = consts
+    return d
+
+
+def hold(ff, name, label, args):
+    """One kernel against its plain version: error, times, output."""
+    fn, plain = getattr(ff, name), getattr(ff, name + "_plain")
+    got = fn(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    ms = median_ms(lambda: fn(*args))
+    plain_ms = median_ms(lambda: plain(*args))
+    phase(3, f"{name} {label}: max_abs_err {err:.3e} rel {rel:.3e} "
+             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+    check(rel <= K_RTOL, f"{name} {label} rel err {rel} > {K_RTOL}")
+    return got, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase3_kernels(ff, plan):
+    """Every kernel against its plain version; returns the pair-day
+    shape's record per kernel."""
+    rec = {}
+    H, N2, rows_in, rows_out = plan.half, plan.N2, plan.rows_in, \
+        plan.rows_out
+    # K1: the pair-day's shape (8 windows) first; the record keeps it
+    for shape in [(8, 2, H, N2), (4, 2, H, N2), (2, 2, 24, 256)]:
+        d = kernel_inputs(shape[0], shape[2], shape[3], 8, 5, SEED)
+        _, r = hold(ff, "fused_corr", shape, (d["ax"], d["ay"], d["T"]))
+        B = shape[0]
+        r["bound_ms"], r["bound_by"] = bound(
+            nbytes(d["ax"], d["ay"], d["T"]), nbytes(d["ax"]),
+            stageb_flops(B, shape[2], shape[3]))
+        rec.setdefault("fused_corr", r)
+        del d
+    # K2-K4: the pair-day's shapes with the plan's constants, then small
+    for B, Hs, N2s, ri, ro, consts in [
+            (8, H, N2, rows_in, rows_out, plan.device_consts("cuda")),
+            (2, 24, 256, 8, 5, None)]:
+        d = kernel_inputs(B, Hs, N2s, ri, ro, SEED, consts)
+        label = f"B={B} H={Hs} N2={N2s} rows_in={ri} rows_out={ro}"
+        ax, ay, T, w1, wi, vx, vy = (d[k] for k in (
+            "ax", "ay", "T", "w1", "wi", "vx", "vy"))
+        plane = nbytes(ax)
+        out_rows = B * ro * N2s * 4
+        k1_ops = stageb_flops(B, Hs, N2s)
+        acc_ops = 2 * B * ro * 2 * Hs * N2s
+        fft = 5 * N2s * math.log2(N2s)
+        f, r_fwd = hold(ff, "stageb_fwd", label, (ax, T))
+        r_fwd["bound_ms"], r_fwd["bound_by"] = bound(
+            nbytes(ax, T), plane, B * Hs * (fft + 6 * N2s))
+        g = ff.stageb_fwd(ay, T)
+        _, r_inv = hold(ff, "stageb_inv", label, (f, g, T))
+        r_inv["bound_ms"], r_inv["bound_by"] = bound(
+            nbytes(f, g, T), plane, B * Hs * (fft + 14 * N2s))
+        acc, r_acc = hold(ff, "fused_corr_acc", label, (ax, ay, T, wi))
+        r_acc["bound_ms"], r_acc["bound_by"] = bound(
+            nbytes(ax, ay, T, wi), out_rows, k1_ops + acc_ops)
+        check(torch.equal(acc, ff.fused_corr_acc(ax, ay, T, wi)),
+              f"fused_corr_acc {label}: two launches differ")
+        full, r_full = hold(ff, "fused_corr_full", label,
+                            (vx, vy, w1, T, wi))
+        r_full["bound_ms"], r_full["bound_by"] = bound(
+            nbytes(vx, vy, w1, T, wi), out_rows,
+            k1_ops + acc_ops + 2 * 2 * B * 2 * Hs * ri * N2s)
+        check(torch.equal(full, ff.fused_corr_full(vx, vy, w1, T, wi)),
+              f"fused_corr_full {label}: two launches differ")
+        phase(3, f"K3 and K4 {label}: two launches bit-identical")
+        for name, r in (("stageb_fwd", r_fwd), ("stageb_inv", r_inv),
+                        ("fused_corr_acc", r_acc),
+                        ("fused_corr_full", r_full)):
+            rec.setdefault(name, r)
+        del d, ax, ay, vx, vy, f, g, acc, full
+    for name, r in rec.items():
+        phase(3, f"{name} at the pair-day shape: {r['ms']:.4f} ms, bound "
+                 f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
+                 f"({100 * r['bound_ms'] / r['ms']:.1f}% of bound)")
+    torch.cuda.empty_cache()
+    return rec
 
 
 def f64_oracle(x, y, imin, imax):
@@ -105,9 +259,159 @@ def f64_oracle(x, y, imin, imax):
     return r[idx] / (np.linalg.norm(x) * np.linalg.norm(y))
 
 
-def device_ms(prof):
-    """Device time (ms) of the kernels and copies a profile recorded."""
-    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+def phase4_correlate(ff, cc, fft4, imin, imax):
+    """Day-scale correlate, once per route."""
+    B = 16
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((B, N), generator=gen, device="cuda")
+    shift = int(DELAY * FS)
+    y = torch.roll(x, -shift, dims=1) + \
+        0.5 * torch.randn((B, N), generator=gen, device="cuda")
+    xh = x[:2].double().cpu().numpy()
+    yh = y[:2].double().cpu().numpy()
+    oracle = [f64_oracle(xh[i], yh[i], imin, imax) for i in range(2)]
+
+    def corr():
+        return cc.correlate(x, y, index_min=imin, index_max=imax)
+
+    per_window = {}
+    for route, (kname, _) in ROUTES.items():
+        set_route(route)
+        ff.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = corr()
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        counts = dict(ff.launches)
+        check(counts[kname] == 1 and sum(counts.values()) == 1,
+              f"route {route}: correlate launched {counts}, expected "
+              f"{kname} once")
+        check(tuple(out.shape) == (B, imax - imin), f"shape {out.shape}")
+        check(bool(torch.isfinite(out).all()), "non-finite CCF")
+        oh = out[:2].double().cpu().numpy()
+        err = max(float(np.abs(oh[i] - oracle[i]).max()) for i in range(2))
+        check(err <= CCF_ATOL, f"route {route}: CCF error {err} > "
+                               f"{CCF_ATOL}")
+        peak = int(out[0].argmax()) + imin - (N - 1)
+        check(peak == shift, f"route {route}: peak at lag {peak} samples, "
+                             f"expected {shift}")
+        t_all = median_ms(corr, 10)
+        per_window[route] = t_all / B
+        phase(4, f"route {route} ({kname}): correlate {B} x {N} lags "
+                 f"[{imin}, {imax}) ({imax - imin} per row): max abs vs "
+                 f"f64 {err:.3e}, peak working memory {peak_gb:.2f} GB, "
+                 f"{t_all / B:.4f} ms per window")
+        del out
+
+    set_route("corr")
+    plan = fft4.plan_correlate4(N, imin, imax, normalize=True)
+    w1, wi, t = plan.device_consts(x.device)
+    ax, ay = plan.stage_a(x, w1), plan.stage_a(y, w1)
+    c = ff.fused_corr(ax, ay, t)
+    flat = plan.inverse(c, wi)
+    vx, vy = plan.padded(x), plan.padded(y)
+    t_a = median_ms(lambda: (plan.stage_a(x, w1), plan.stage_a(y, w1)), 10)
+    t_k = median_ms(lambda: ff.fused_corr(ax, ay, t), 10)
+    t_i = median_ms(lambda: plan.inverse(c, wi), 10)
+    t_s = median_ms(lambda: fft4._finish_ccf(flat, x, y, plan.segs_flat,
+                                             True), 10)
+    t_k3 = median_ms(lambda: ff.fused_corr_acc(ax, ay, t, wi), 10)
+    t_k4 = median_ms(lambda: ff.fused_corr_full(vx, vy, w1, t, wi), 10)
+    t_mono = median_ms(lambda: cc.correlate(x, y, index_min=imin,
+                                            index_max=imax,
+                                            method="monolithic"), 10)
+    phase(4, f"ms per window (B={B}, N1={plan.N1}, N2={plan.N2}, "
+             f"H={plan.half}): stage-A {t_a / B:.4f}, K1 {t_k / B:.4f}, "
+             f"inverse {t_i / B:.4f}, lag slice+norm {t_s / B:.4f}; "
+             f"correlate {per_window['corr']:.4f}; monolithic cuFFT "
+             f"{t_mono / B:.4f}")
+    phase(4, f"ms per window: route acc = stage-A {t_a / B:.4f} + K3 "
+             f"{t_k3 / B:.4f} + slice, correlate {per_window['acc']:.4f}; "
+             f"route full = K4 {t_k4 / B:.4f} + slice, correlate "
+             f"{per_window['full']:.4f}")
+    del x, y, ax, ay, c, flat, vx, vy
+    torch.cuda.empty_cache()
+
+
+def phase5_pair_days(xt, ff):
+    """One production-geometry pair-day through process per route;
+    returns each route kernel's launches on its path."""
+    from xcorr_tpu_torch.stream import Channel, Inventory, SyntheticClient
+    from torch.profiler import ProfilerActivity, profile
+    inv = Inventory([
+        Channel("IM", "H03S1", "", "EDH", latitude=-33.6, longitude=-78.8),
+        Channel("IM", "H03S2", "", "EDH", latitude=-33.7, longitude=-78.9),
+    ])
+    client = SyntheticClient(
+        sampling_rate=FS,
+        delays={"IM.H03S1..EDH": DELAY, "IM.H03S2..EDH": 0.0},
+        source_period=600.0, source_amplitude=20.0)
+    launches, ref = {}, None
+    # the first pair-day of the process also pays one-time set-up (the
+    # profiler's start, first calls into scipy and torch); it runs on
+    # the K1 route and is reported apart
+    for run, route in enumerate(["corr", *ROUTES]):
+        kname = ROUTES[route][0]
+        label = f"route {route}" + (" (first, cold)" if run == 0 else "")
+        set_route(route)
+        ds = xt.init(pair=PAIR, starttime="2014-02-01",
+                     endtime="2014-02-02", preprocess={"EDH": EDH},
+                     attrs={"institution": "smoke", "author": "smoke",
+                            "source": "SyntheticClient"},
+                     sampling_rate=FS, window_length=WINDOW,
+                     window_overlap=21.0 / 24.0, clip_lag=CLIP_LAG,
+                     inventory=inv)
+        nwin = ds.dims["time"]
+        check(nwin == 8, f"{nwin} windows per pair-day, expected 8")
+        ff.reset_launches()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            xt.process(ds, client, device="cuda", verb=0)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ff.launches)
+        check(counts[kname] > 0, f"{label}: process never launched {kname}")
+        others = {k: v for k, v in counts.items() if k != kname and v}
+        check(not others, f"{label}: process also launched {others}")
+        launches[kname] = counts[kname]
+        status = ds["status"].values
+        check(bool((status == 1).all()), f"status {status.tolist()}")
+        ccv = ds["cc"].values
+        check(bool(np.isfinite(ccv).all()), "non-finite CCF in the dataset")
+        lag = ds.coords["lag"].values
+        peaks = [float(lag[int(np.argmax(ccv[0, i]))]) for i in range(nwin)]
+        check(all(abs(p - DELAY) < 1.0 / FS + 1e-9 for p in peaks),
+              f"{label}: CCF peaks {peaks} s, injected delay {DELAY} s")
+        if ref is None:
+            ref = ccv
+        diff = float(np.abs(ccv - ref).max())
+        check(diff <= CCF_ATOL, f"{label}: CCFs differ from the K1 "
+                                f"route's by {diff} > {CCF_ATOL}")
+        dev = sum(e.self_device_time_total for e in prof.key_averages()) \
+            / 1e3
+        share = f"{dev / 1e3 / wall:.4f}" if dev > 0 else "not measured"
+        phase(5, f"{label}: pair-day {nwin} windows x "
+                 f"{ccv.shape[-1]} lags: {wall:.2f} s wall, device "
+                 f"{dev:.1f} ms, device share {share}, {kname} launches "
+                 f"{counts[kname]}, max |CCF - K1 route| {diff:.3e}, peaks "
+                 f"at {sorted(set(peaks))} s")
+        if run != 1:
+            continue
+        if importlib.util.find_spec("h5py") is not None:
+            with tempfile.TemporaryDirectory() as tmp:
+                path = xt.write(ds, os.path.join(tmp, "shard.nc"), verb=0)
+                back = xt.read(path)
+                check(back is not None, "read returned None")
+                check(np.array_equal(back["cc"].values, ccv),
+                      "read != written")
+                check(bool((back["status"].values == 1).all()),
+                      "read status")
+            phase(5, "write -> read round trip equal")
+        else:
+            phase(5, "write -> read not run: h5py is not installed")
+    set_route("corr")
+    return launches
 
 
 def main():
@@ -119,9 +423,10 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
     import xcorr_tpu_torch as xt
-    from xcorr_tpu_torch.ops import _build, cc, fft4, fused_fft
-    from xcorr_tpu_torch.stream import Channel, Inventory, SyntheticClient
+    from xcorr_tpu_torch.ops import _build, cc, fft4
+    from xcorr_tpu_torch.ops import fused_fft as ff
     check("jax" not in sys.modules, "the port imported jax")
+    set_route("corr")
     phase(1, f"torch {torch.__version__} cuda {torch.version.cuda} "
              f"device {torch.cuda.get_device_name(0)} "
              f"count {torch.cuda.device_count()}")
@@ -132,7 +437,7 @@ def main():
     phase(2, f"kernels built in {_build.build_seconds:.2f} s "
              f"(load {time.perf_counter() - t0:.2f} s)")
 
-    # -- 3. K1 against its plain version ----------------------------------
+    # -- 3. every kernel against its plain version ------------------------
     # lag window and four-step plan of the production geometry
     ds_geom = xt.init(pair=PAIR, starttime="2014-02-01",
                       endtime="2014-02-01T03:00", preprocess={"EDH": EDH},
@@ -149,138 +454,29 @@ def main():
              f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
              f"float32_matmul_precision="
              f"{torch.get_float32_matmul_precision()}")
-    k1 = {}
-    # the pair-day's shape (8 windows) first: the JSON record keeps it
-    for shape in [(8, 2, plan.half, plan.N2), (4, 2, plan.half, plan.N2),
-                  (2, 2, 24, 256)]:
-        ax, ay, T = k1_inputs(shape, SEED)
-        got = fused_fft.fused_corr(ax, ay, T)
-        torch.cuda.synchronize()
-        want = fused_fft.fused_corr_plain(ax, ay, T)
-        err = (got - want).abs().max().item()
-        rel = err / want.abs().max().item()
-        ms = median_ms(lambda: fused_fft.fused_corr(ax, ay, T))
-        plain_ms = median_ms(lambda: fused_fft.fused_corr_plain(ax, ay, T))
-        phase(3, f"K1 {shape}: max_abs_err {err:.3e} rel {rel:.3e} "
-                 f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        check(rel <= K1_RTOL, f"K1 {shape} rel err {rel} > {K1_RTOL}")
-        k1.setdefault("err", err)
-        k1.setdefault("ms", ms)
-        k1.setdefault("plain_ms", plain_ms)
-        del ax, ay, T, got, want
+    rec = phase3_kernels(ff, plan)
+    # K2 is on no path: its launches are those made in this phase
+    k2 = {k: ff.launches[k] for k in ("stageb_fwd", "stageb_inv")}
 
-    # -- 4. day-scale correlate through the four-step path -----------------
-    B = 16
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    x = torch.randn((B, N), generator=gen, device="cuda")
-    shift = int(DELAY * FS)
-    y = torch.roll(x, -shift, dims=1) + \
-        0.5 * torch.randn((B, N), generator=gen, device="cuda")
-    fused_fft.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    out = cc.correlate(x, y, index_min=imin, index_max=imax)
-    torch.cuda.synchronize()
-    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
-    check(fused_fft.launches == 1,
-          f"correlate launched K1 {fused_fft.launches} times, expected 1")
-    check(tuple(out.shape) == (B, imax - imin), f"shape {out.shape}")
-    check(bool(torch.isfinite(out).all()), "non-finite CCF")
-    xh = x[:2].double().cpu().numpy()
-    yh = y[:2].double().cpu().numpy()
-    oh = out[:2].double().cpu().numpy()
-    err = max(float(np.abs(oh[i] - f64_oracle(xh[i], yh[i], imin, imax))
-                    .max()) for i in range(2))
-    phase(4, f"correlate {B} x {N} lags [{imin}, {imax}) "
-             f"({imax - imin} per row): max abs vs f64 {err:.3e}, "
-             f"peak working memory {peak_gb:.2f} GB")
-    check(err <= CCF_ATOL, f"CCF error {err} > {CCF_ATOL}")
-    peak = int(out[0].argmax()) + imin - (N - 1)
-    check(peak == shift, f"peak at lag {peak} samples, expected {shift}")
+    # -- 4. day-scale correlate, once per route ---------------------------
+    phase4_correlate(ff, cc, fft4, imin, imax)
 
-    w1, wi, t = plan.device_consts(x.device)
-    ax, ay = plan.stage_a(x, w1), plan.stage_a(y, w1)
-    c = fused_fft.fused_corr(ax, ay, t)
-    flat = plan.inverse(c, wi)
-    t_a = median_ms(lambda: (plan.stage_a(x, w1), plan.stage_a(y, w1)), 10)
-    t_k = median_ms(lambda: fused_fft.fused_corr(ax, ay, t), 10)
-    t_i = median_ms(lambda: plan.inverse(c, wi), 10)
-    t_s = median_ms(lambda: fft4._finish_ccf(flat, x, y, plan.segs_flat,
-                                             True), 10)
-    t_all = median_ms(lambda: cc.correlate(x, y, index_min=imin,
-                                           index_max=imax), 10)
-    t_mono = median_ms(lambda: cc.correlate(x, y, index_min=imin,
-                                            index_max=imax,
-                                            method="monolithic"), 10)
-    phase(4, f"ms per window (B={B}, N1={plan.N1}, N2={plan.N2}, "
-             f"H={plan.half}): stage-A {t_a / B:.4f}, K1 {t_k / B:.4f}, "
-             f"inverse {t_i / B:.4f}, lag slice+norm {t_s / B:.4f}; "
-             f"correlate {t_all / B:.4f}; monolithic cuFFT "
-             f"{t_mono / B:.4f}")
-    del x, y, out, ax, ay, c, flat
-    torch.cuda.empty_cache()
-
-    # -- 5. the slice: one production-geometry pair-day ---------------------
-    inv = Inventory([
-        Channel("IM", "H03S1", "", "EDH", latitude=-33.6, longitude=-78.8),
-        Channel("IM", "H03S2", "", "EDH", latitude=-33.7, longitude=-78.9),
-    ])
-    client = SyntheticClient(
-        sampling_rate=FS,
-        delays={"IM.H03S1..EDH": DELAY, "IM.H03S2..EDH": 0.0},
-        source_period=600.0, source_amplitude=20.0)
-    ds = xt.init(pair=PAIR, starttime="2014-02-01", endtime="2014-02-02",
-                 preprocess={"EDH": EDH},
-                 attrs={"institution": "smoke", "author": "smoke",
-                        "source": "SyntheticClient"},
-                 sampling_rate=FS, window_length=WINDOW,
-                 window_overlap=21.0 / 24.0, clip_lag=CLIP_LAG,
-                 inventory=inv)
-    nwin = ds.dims["time"]
-    check(nwin == 8, f"{nwin} windows per pair-day, expected 8")
-    from torch.profiler import ProfilerActivity, profile
-    fused_fft.launches = 0
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        xt.process(ds, client, device="cuda", verb=0)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    main_launches = fused_fft.launches
-    check(main_launches > 0, "process never launched K1")
-    status = ds["status"].values
-    check(bool((status == 1).all()), f"status {status.tolist()}")
-    ccv = ds["cc"].values
-    check(bool(np.isfinite(ccv).all()), "non-finite CCF in the dataset")
-    lag = ds.coords["lag"].values
-    peaks = [float(lag[int(np.argmax(ccv[0, i]))]) for i in range(nwin)]
-    check(all(abs(p - DELAY) < 1.0 / FS + 1e-9 for p in peaks),
-          f"CCF peaks {peaks} s, injected delay {DELAY} s")
-    dev = device_ms(prof)
-    share = (f"{dev / 1e3 / wall:.4f}" if dev > 0 else "not measured")
-    phase(5, f"pair-day {nwin} windows x {ccv.shape[-1]} lags: "
-             f"{wall:.2f} s wall, device {dev:.1f} ms, device share {share}, "
-             f"K1 launches {main_launches}, peaks at {sorted(set(peaks))} s")
-    if importlib.util.find_spec("h5py") is not None:
-        with tempfile.TemporaryDirectory() as tmp:
-            path = xt.write(ds, os.path.join(tmp, "shard.nc"), verb=0)
-            back = xt.read(path)
-            check(back is not None, "read returned None")
-            check(np.array_equal(back["cc"].values, ccv), "read != written")
-            check(bool((back["status"].values == 1).all()), "read status")
-        phase(5, "write -> read round trip equal")
-    else:
-        phase(5, "write -> read not run: h5py is not installed")
+    # -- 5. the slice: one production-geometry pair-day per route ----------
+    launches = {**k2, **phase5_pair_days(xt, ff)}
 
     print(json.dumps({"kernels": [{
-        "name": "fused_corr",
+        "name": name,
         "route": "cuda",
-        "source": "xcorr_tpu_torch/csrc/fused_corr.cu",
-        "replaces": "xcorr_tpu/ops/pallas_fft.py:446",
-        "launches": main_launches,
-        "max_abs_err": k1["err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-    }]}))
+        "source": SOURCES[name],
+        "replaces": REPLACES[name],
+        "launches": launches[name],
+        "max_abs_err": rec[name]["max_abs_err"],
+        "ms": rec[name]["ms"],
+        "plain_ms": rec[name]["plain_ms"],
+        "bound_ms": rec[name]["bound_ms"],
+        "bound_by": rec[name]["bound_by"],
+        "library_ms": None,
+    } for name in ff.KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -67,13 +67,14 @@ def test_fourstep_matches_pallas_reference(reference_plans, n1, window):
 
 
 def test_fourstep_method_on_cpu_uses_plain_stage_b(monkeypatch):
-    monkeypatch.setattr(fused_fft, "launches", 0)
+    monkeypatch.setattr(fused_fft, "launches",
+                        dict.fromkeys(fused_fft.KERNELS, 0))
     x, y = (torch.from_numpy(a) for a in _inputs(5))
     got = tcc.correlate(x, y, index_min=1999, index_max=3000,
                         method="fourstep")
     want = tcc.correlate(x, y, index_min=1999, index_max=3000)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=ATOL)
-    assert fused_fft.launches == 0
+    assert not any(fused_fft.launches.values())
 
 
 @pytest.mark.parametrize("window", WINDOWS + [(0, 3999)], ids=str)
@@ -112,7 +113,7 @@ def test_geometry_is_power_of_two_and_bounded():
 
 
 def test_tf32_off_after_plan_and_checked(monkeypatch):
-    tfft4.plan_correlate4.cache_clear()
+    tfft4._build_plan.cache_clear()
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     plan = tfft4.plan_correlate4(N, 1999, 3000, n1=16)
     assert torch.backends.cuda.matmul.allow_tf32 is False
@@ -122,7 +123,7 @@ def test_tf32_off_after_plan_and_checked(monkeypatch):
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     with pytest.raises(RuntimeError, match="TF32"):
         plan(x, y)
-    tfft4.plan_correlate4.cache_clear()
+    tfft4._build_plan.cache_clear()
 
 
 def test_plan_rejects_bad_inputs():

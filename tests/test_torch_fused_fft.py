@@ -68,10 +68,11 @@ def test_plain_matches_pallas_reference(pallas_interpret, H, N2):
 
 
 def test_wrapper_takes_plain_route_on_cpu(monkeypatch):
-    monkeypatch.setattr(fused_fft, "launches", 0)
+    monkeypatch.setattr(fused_fft, "launches",
+                        dict.fromkeys(fused_fft.KERNELS, 0))
     ax, ay, T = (torch.from_numpy(a) for a in _inputs(2, 5, 64, 640))
     got = fused_fft.fused_corr(ax, ay, T)
-    assert fused_fft.launches == 0
+    assert not any(fused_fft.launches.values())
     torch.testing.assert_close(got, fused_fft.fused_corr_plain(ax, ay, T),
                                rtol=0, atol=0)
 
@@ -125,10 +126,10 @@ def test_kernel_matches_plain_on_card(cuda_device, shape):
     B, _, H, N2 = shape
     ax, ay, T = (torch.from_numpy(a).to(cuda_device)
                  for a in _inputs(B, H, N2, 2 * (H - 1) * N2))
-    before = fused_fft.launches
+    before = fused_fft.launches["fused_corr"]
     got = fused_fft.fused_corr(ax, ay, T)
     torch.cuda.synchronize()
-    assert fused_fft.launches == before + 1
+    assert fused_fft.launches["fused_corr"] == before + 1
     want = fused_fft.fused_corr_plain(ax, ay, T)
     assert ((got - want).abs().max() <= RTOL_OF_MAX
             * want.abs().max()).item()

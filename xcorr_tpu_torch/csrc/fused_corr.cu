@@ -12,11 +12,10 @@
 //
 // Design. One block per row holds the x and y rows as complex float32 in
 // dynamic shared memory (2 x 64 KB at N2 = 8192) plus the twiddle table
-// (32 KB). The forward transforms are in-place radix-2
-// decimation-in-frequency, whose output is bit-reversed; the cross
-// spectrum is formed in that order, and a decimation-in-time inverse
-// takes it back to natural order, so no permutation pass is needed.
-// Plain float32 FMAs on the CUDA cores.
+// (32 KB) and runs xcorr::corr_row (fft_row.cuh): radix-2 DIF forward
+// (bit-reversed out), the cross spectrum in that order, DIT inverse back
+// to natural order, so no permutation pass is needed. Plain float32 FMAs
+// on the CUDA cores.
 //
 // Bound. Per 24 h window (H = 529, N2 = 8192) the kernel reads ~69 MB of
 // stage-A planes and up to ~35 MB of T (L2 serves the rows shared by the
@@ -26,63 +25,11 @@
 
 #include <cuda_runtime.h>
 
+#include "fft_row.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// a * conj(b)
-__device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
-  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
-}
-
-// In-place radix-2 decimation-in-frequency FFT of two rows at once
-// (natural order in, bit-reversed order out). Stage s pairs i and i + h,
-// h = n >> (s + 1), with twiddle W_{2h}^j = tw[j << s].
-__device__ void dif_fft2(float2* x, float2* y, const float2* tw, int n,
-                         int log2n) {
-  for (int s = 0; s < log2n; ++s) {
-    const int lh = log2n - 1 - s;  // log2(h)
-    const int h = 1 << lh;
-    for (int t = threadIdx.x; t < (n >> 1); t += blockDim.x) {
-      const int j = t & (h - 1);
-      const int i = ((t >> lh) << (lh + 1)) + j;
-      const float2 w = tw[j << s];
-      float2 u = x[i], v = x[i + h];
-      x[i] = make_float2(u.x + v.x, u.y + v.y);
-      x[i + h] = cmul(make_float2(u.x - v.x, u.y - v.y), w);
-      u = y[i];
-      v = y[i + h];
-      y[i] = make_float2(u.x + v.x, u.y + v.y);
-      y[i + h] = cmul(make_float2(u.x - v.x, u.y - v.y), w);
-    }
-    __syncthreads();
-  }
-}
-
-// In-place radix-2 decimation-in-time inverse FFT, unscaled (bit-reversed
-// order in, natural order out): the stages of dif_fft2 in reverse order
-// with conjugate twiddles.
-__device__ void dit_ifft(float2* x, const float2* tw, int n, int log2n) {
-  for (int s = log2n - 1; s >= 0; --s) {
-    const int lh = log2n - 1 - s;
-    const int h = 1 << lh;
-    for (int t = threadIdx.x; t < (n >> 1); t += blockDim.x) {
-      const int j = t & (h - 1);
-      const int i = ((t >> lh) << (lh + 1)) + j;
-      const float2 u = x[i];
-      const float2 v = cmul_conj(x[i + h], tw[j << s]);
-      x[i] = make_float2(u.x + v.x, u.y + v.y);
-      x[i + h] = make_float2(u.x - v.x, u.y - v.y);
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(xcorr::kRowThreads)
 fused_corr_kernel(const float* __restrict__ ax, const float* __restrict__ ay,
                   const float* __restrict__ T, const float2* __restrict__ tw,
                   float* __restrict__ out, int H, int n, int log2n) {
@@ -99,27 +46,9 @@ fused_corr_kernel(const float* __restrict__ ax, const float* __restrict__ ay,
   const float* t_re = T + static_cast<size_t>(k1) * n;
   const float* t_im = t_re + static_cast<size_t>(H) * n;
 
-  for (int k = threadIdx.x; k < (n >> 1); k += blockDim.x) ws[k] = tw[k];
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const float2 t = make_float2(t_re[k], t_im[k]);
-    xs[k] = cmul(make_float2(ax[re + k], ax[im + k]), t);
-    ys[k] = cmul(make_float2(ay[re + k], ay[im + k]), t);
-  }
-  __syncthreads();
-
-  dif_fft2(xs, ys, ws, n, log2n);
-  for (int k = threadIdx.x; k < n; k += blockDim.x)
-    xs[k] = cmul_conj(xs[k], ys[k]);
-  __syncthreads();
-  dit_ifft(xs, ws, n, log2n);
-
-  const float scale = 1.0f / static_cast<float>(n);
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const float2 t = make_float2(t_re[k], t_im[k]);
-    const float2 c = cmul_conj(xs[k], t);
-    out[re + k] = c.x * scale;
-    out[im + k] = c.y * scale;
-  }
+  xcorr::load_twiddles(ws, tw, n);
+  xcorr::corr_row(ax + re, ax + im, ay + re, ay + im, t_re, t_im, out + re,
+                  out + im, xs, ys, ws, n, log2n);
 }
 
 }  // namespace
@@ -134,8 +63,7 @@ extern "C" int xc_fused_corr(const void* ax, const void* ay, const void* T,
   cudaError_t err = cudaFuncSetAttribute(
       fused_corr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = n / 2 < kThreads ? (n / 2 < 32 ? 32 : n / 2) : kThreads;
-  fused_corr_kernel<<<B * H, threads, smem,
+  fused_corr_kernel<<<B * H, xcorr::row_threads(n), smem,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ax), static_cast<const float*>(ay),
       static_cast<const float*>(T), static_cast<const float2*>(tw),

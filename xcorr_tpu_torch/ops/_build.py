@@ -3,11 +3,13 @@ r"""
 =================================================================
 
 Compiles every ``xcorr_tpu_torch/csrc/*.cu`` with ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface, loaded with
+(one ``nvcc`` per source, all started together) and links them into one
+shared library with a plain C interface, loaded with
 :mod:`ctypes`. The library lands in ``build/xcorr_tpu_torch/`` beside the
-package, under a name keyed by a hash of the sources and flags, so an
-edited kernel rebuilds and an unchanged one is reused. Nothing is built
-when a module is imported: the first launch builds.
+package, under a name keyed by a hash of the flags and of every source the
+build reads (the ``*.cu`` files and the ``*.cuh`` headers they include),
+so an edited kernel or header rebuilds and an unchanged one is reused.
+Nothing is built when a module is imported: the first launch builds.
 """
 
 from __future__ import annotations
@@ -21,13 +23,13 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load", "build_seconds"]
+__all__ = ["load", "build_seconds", "sources", "hashed_files"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "xcorr_tpu_torch"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC")
+          "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -49,19 +51,64 @@ def _nvcc() -> str:
     return path
 
 
+def sources() -> list:
+    """The translation units ``nvcc`` compiles."""
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def hashed_files() -> list:
+    """Every file the build reads: the sources and the headers."""
+    return sorted([*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")])
+
+
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in sorted(_CSRC.glob("*.cu")):
+    for src in hashed_files():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD / f"libxcorr_kernels-{h.hexdigest()[:16]}.so"
 
 
+#: C entry points and their argument kinds in order: buffers (p), ints
+#: (i), then the stream (p). Every function returns a CUDA error code.
+_SIGNATURES = {
+    "xc_fused_corr": "pppppiiiip",
+    "xc_stageb_fwd": "ppppiiiip",
+    "xc_stageb_inv": "pppppiiiip",
+    "xc_fused_corr_acc": "ppppppppiiiiiiip",
+    "xc_fused_corr_full": "ppppppppppiiiiiiiip",
+}
+
+
 def _declare(lib):
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.xc_fused_corr.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
-    lib.xc_fused_corr.restype = ci
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+    for name, sig in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [kinds[k] for k in sig]
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _compile(path: Path):
+    """One ``nvcc -c`` per source, all started together, then one link
+    into ``path``."""
+    work = _BUILD / f"objs.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        nvcc = _nvcc()
+        objs = [work / f"{src.stem}.o" for src in sources()]
+        procs = [subprocess.Popen([nvcc, *_FLAGS, "-c", "-o", str(obj),
+                                   str(src)])
+                 for src, obj in zip(sources(), objs)]
+        failed = [p.args for p in procs if p.wait() != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed: {failed}")
+        tmp = work / path.name
+        subprocess.run([nvcc, *_FLAGS, "-shared", "-o", str(tmp),
+                        *map(str, objs)], check=True)
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def load():
@@ -72,12 +119,7 @@ def load():
             path = _library_path()
             if not path.exists():
                 t0 = time.perf_counter()
-                _BUILD.mkdir(parents=True, exist_ok=True)
-                tmp = path.with_suffix(f".{os.getpid()}.tmp")
-                cmd = [_nvcc(), *_FLAGS, "-o", str(tmp),
-                       *map(str, sorted(_CSRC.glob("*.cu")))]
-                subprocess.run(cmd, check=True)
-                os.replace(tmp, path)
+                _compile(path)
                 build_seconds = time.perf_counter() - t0
             _lib = _declare(ctypes.CDLL(str(path)))
         return _lib

@@ -12,9 +12,14 @@ device, never by catching an error:
 * **monolithic**: ``torch.fft.rfft``/``irfft`` at the next cuFFT-fast
   length. Every CPU tensor takes it unless ``method='fourstep'`` is given.
 * **four-step** (:mod:`ops.fft4`): a CUDA float32 batch with
-  ``n >= FOURSTEP_THRESHOLD`` runs the pruned stage-A product, the
-  hand-written stage-B kernel (:mod:`ops.fused_fft`), the pruned inverse
-  product and the lag-window slice.
+  ``n >= FOURSTEP_THRESHOLD`` runs one of three routes through the
+  hand-written kernels of :mod:`ops.fused_fft`, chosen by
+  ``ops.fft4.plan_correlate4`` from the environment on every call:
+  ``"corr"`` (default: stage-A product, K1, pruned-inverse product),
+  ``"acc"`` (``XCORR_FFT4_FUSED_INV=1``: stage-A product, then K3 with
+  the pruned inverse inside) or ``"full"`` (``XCORR_FFT4_FULL=1``, which
+  wins over the other: K4, stage A to pruned rows in one kernel); then
+  the lag-window slice. On the CPU the route's plain version runs.
 
 Normalization by the norm product and the unbiased lag weights apply on
 the clipped lag window only (index math identical to the reference's

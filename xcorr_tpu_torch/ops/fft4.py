@@ -4,27 +4,36 @@ r"""
 
 A hand-decomposed frequency-domain correlation for day-scale windows,
 N = N1 x N2. Counterpart of ``xcorr_tpu/ops/fft4.py``'s fused plan
-(``_build_pallas_corr``'s default branch):
+(``_build_pallas_corr``). Three routes compute the same function, each
+through one of the hand-written kernels of :mod:`ops.fused_fft`:
 
-* **stage A**: the DFT over the slow axis as a real ``torch.matmul``
-  against a pruned ``W1`` (only the ``rows_in`` rows covered by input
-  samples; the zero padding costs nothing), re and im stacked;
-* **stage B**: :func:`ops.fused_fft.fused_corr`, one launch of the
-  hand-written kernel: outer twiddle, length-N2 DFT of both signals,
-  cross spectrum, inverse DFT and conjugate twiddle;
-* **pruned inverse**: a second ``torch.matmul`` computing only the output
-  rows covered by the requested lag window;
-* the lag-window slice and the norm division (:func:`_finish_ccf`).
+* ``"corr"`` (the default; K1): **stage A**, the DFT over the slow axis,
+  as a real ``torch.matmul`` against a pruned ``W1`` (only the
+  ``rows_in`` rows covered by input samples; the zero padding costs
+  nothing), re and im stacked; **stage B** in one launch of
+  :func:`ops.fused_fft.fused_corr` (outer twiddle, length-N2 DFT of both
+  signals, cross spectrum, inverse DFT, conjugate twiddle); the **pruned
+  inverse** as a second ``torch.matmul`` computing only the output rows
+  covered by the requested lag window;
+* ``"acc"`` (K3, ``XCORR_FFT4_FUSED_INV=1``): stage A as above, then
+  stage B and the pruned inverse in :func:`ops.fused_fft.fused_corr_acc`;
+* ``"full"`` (K4, ``XCORR_FFT4_FULL=1``): everything from the padded
+  windows to the pruned rows in :func:`ops.fused_fft.fused_corr_full`;
+
+then the lag-window slice and the norm division (:func:`_finish_ccf`).
+:func:`plan_correlate4` reads the two variables on every call, with the
+JAX package's names and precedence (``XCORR_FFT4_FULL`` first), unless
+the caller names the route.
 
 **Hermitian half-row pruning**: x and y are real, so the time-domain rows
 pair as ``C(N1-k1) = conj(C(k1))``. Stage A and stage B therefore run on
 the first ``H = N1/2 + 1`` rows only, and the mirror rows fold into the
 pruned inverse as the real-ifft weights (2, except 1 at k1 = 0 and N1/2).
 
-Geometry: the kernel holds one row of x and one of y in a block's shared
-memory, so N2 is a power of two no larger than ``fused_fft.MAX_N2``.
-The default ``n1`` makes N2 = 8192 for day-scale windows: at
-n = 4,320,000, n1 = 1056 and N = 8,650,752.
+Geometry: the kernels hold one row of x and one of y in a block's shared
+memory, so N2 is a power of two no larger than ``fused_fft.MAX_N2``, on
+every route. The default ``n1`` makes N2 = 8192 for day-scale windows:
+at n = 4,320,000, n1 = 1056 and N = 8,650,752.
 
 Precision: the products run in full float32. TF32 is switched off for
 matmuls and cuDNN when a plan is built and checked on every call.
@@ -32,15 +41,20 @@ matmuls and cuDNN when a plan is built and checked on every call.
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
 import torch
 
 from .fft import next_fast_len
-from .fused_fft import MAX_N2, check_geometry, fused_corr
+from .fused_fft import (MAX_N2, check_geometry, fused_corr, fused_corr_acc,
+                        fused_corr_full)
 
-__all__ = ["plan_correlate4", "padded_len"]
+__all__ = ["plan_correlate4", "padded_len", "resolve_route", "ROUTES"]
+
+#: the correlation routes: K1, K3 and K4 of ops.fused_fft
+ROUTES = ("corr", "acc", "full")
 
 
 def _default_n1(nn: int) -> int:
@@ -194,16 +208,33 @@ def tf32_enabled() -> bool:
                 or torch.backends.cudnn.allow_tf32)
 
 
+def resolve_route(route=None) -> str:
+    """``route``, or when it is None the environment's: ``"full"`` if
+    ``XCORR_FFT4_FULL=1``, else ``"acc"`` if ``XCORR_FFT4_FUSED_INV=1``,
+    else ``"corr"`` (:class:`FusedPlan` rejects any other name)."""
+    if route is not None:
+        return route
+    if os.environ.get("XCORR_FFT4_FULL", "0") == "1":
+        return "full"
+    if os.environ.get("XCORR_FFT4_FUSED_INV", "0") == "1":
+        return "acc"
+    return "corr"
+
+
 class FusedPlan:
     """The four-step correlation ``plan(x, y) -> ccf`` for one window
-    length and lag window. Host constants are built once; their device
-    copies are made on first use per device.
+    length, lag window and route. Host constants are built once; their
+    device copies are made on first use per device.
 
     x, y: ``(B, n)`` float32 on one device. Output: ``(B, index_max -
     index_min)`` float32 in fftshifted lag order.
     """
 
-    def __init__(self, n, index_min, index_max, n1, normalize):
+    def __init__(self, n, index_min, index_max, n1, normalize,
+                 route="corr"):
+        if route not in ROUTES:
+            raise ValueError(f"route={route!r}: expected one of {ROUTES}")
+        self.route = route
         p = _plan(n, index_min, index_max, n1)
         N1, N2 = p["N1"], p["N2"]
         half = _half_rows(N1)
@@ -235,13 +266,16 @@ class FusedPlan:
             self._dev[key] = c
         return c
 
+    def padded(self, v):
+        """``(B, n)`` -> the zero-padded ``(B, rows_in, N2)`` window."""
+        pad = self.rows_in * self.N2 - self.n
+        return torch.nn.functional.pad(v, (0, pad)).view(
+            v.shape[0], self.rows_in, self.N2)
+
     def stage_a(self, v, w1):
         """``(B, n)`` -> packed ``(B, 2, half, N2)`` slow-axis spectrum."""
-        B = v.shape[0]
-        pad = self.rows_in * self.N2 - self.n
-        A = torch.nn.functional.pad(v, (0, pad)).view(B, self.rows_in,
-                                                      self.N2)
-        return torch.matmul(w1, A).view(B, 2, self.half, self.N2)
+        return torch.matmul(w1, self.padded(v)).view(
+            v.shape[0], 2, self.half, self.N2)
 
     def inverse(self, c, wi):
         """Packed stage-B output -> ``(B, rows_out * N2)`` pruned rows."""
@@ -260,21 +294,37 @@ class FusedPlan:
                 "TF32 was switched back on after the plan was built; the "
                 "four-step products need full float32")
         w1, wi, t = self.device_consts(x.device)
-        c = fused_corr(self.stage_a(x, w1), self.stage_a(y, w1), t)
-        return _finish_ccf(self.inverse(c, wi), x, y, self.segs_flat,
-                           self.normalize)
+        B = x.shape[0]
+        if self.route == "full":
+            out = fused_corr_full(self.padded(x), self.padded(y), w1, t,
+                                  wi).view(B, -1)
+        elif self.route == "acc":
+            out = fused_corr_acc(self.stage_a(x, w1), self.stage_a(y, w1),
+                                 t, wi).view(B, -1)
+        else:
+            c = fused_corr(self.stage_a(x, w1), self.stage_a(y, w1), t)
+            out = self.inverse(c, wi)
+        return _finish_ccf(out, x, y, self.segs_flat, self.normalize)
 
 
-@lru_cache(maxsize=32)
 def plan_correlate4(n: int, index_min: int = None, index_max: int = None,
-                    n1: int = None, normalize: bool = True) -> FusedPlan:
-    """Build the four-step correlation ``f(x, y) -> ccf`` for windows of
-    ``n`` samples. Raises ``ValueError`` when N2 is not a power of two of
-    at most ``fused_fft.MAX_N2``."""
+                    n1: int = None, normalize: bool = True,
+                    route: str = None) -> FusedPlan:
+    """The four-step correlation ``f(x, y) -> ccf`` for windows of ``n``
+    samples, on ``route`` (see :func:`resolve_route`: None reads the
+    environment, on every call). Raises ``ValueError`` when N2 is not a
+    power of two of at most ``fused_fft.MAX_N2``, the geometry every
+    route's kernel takes."""
     nn = 2 * n - 1
     index_min = 0 if index_min is None else index_min
     index_max = nn if index_max is None else index_max
     n1 = n1 or _default_n1(nn)
+    return _build_plan(n, index_min, index_max, n1, normalize,
+                       resolve_route(route))
+
+
+@lru_cache(maxsize=32)
+def _build_plan(n, index_min, index_max, n1, normalize, route):
     # check the geometry before _plan builds its (N1, N2) tables
-    check_geometry(_pick_factors(nn, n1)[1])
-    return FusedPlan(n, index_min, index_max, n1, normalize)
+    check_geometry(_pick_factors(2 * n - 1, n1)[1])
+    return FusedPlan(n, index_min, index_max, n1, normalize, route)

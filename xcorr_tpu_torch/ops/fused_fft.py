@@ -1,26 +1,51 @@
 r"""
-:mod:`ops.fused_fft` -- Fused stage-B correlation kernel (K1)
-=============================================================
+:mod:`ops.fused_fft` -- The hand-written stage-B kernels (K1-K4)
+================================================================
 
-The whole stage B of the four-step correlation (:mod:`ops.fft4`) in one
-launch. For each ``(b, k1)`` row of the packed stage-A planes::
+Counterpart of ``xcorr_tpu/ops/pallas_fft.py``: every Pallas kernel of the
+four-step correlation (:mod:`ops.fft4`) as a CUDA kernel for ``sm_90a``
+(sources in ``xcorr_tpu_torch/csrc``, built at first use by
+:mod:`ops._build`). With ``T = exp(-2πi·k1·n2/N)`` the outer twiddle, for
+each ``(b, k1)`` row of the packed stage-A planes:
 
-    C[b,k1,:] = IDFT_N2( DFT_N2(Ax[b,k1,:]·T[k1,:])
-                         · conj(DFT_N2(Ay[b,k1,:]·T[k1,:])) ) · conj(T[k1,:])
+* **K1** :func:`fused_corr` (``fused_corr.cu``, replaces
+  ``plan_fused_corr``): the whole stage B in one launch, natural order::
 
-with ``T = exp(-2πi·k1·n2/N)`` the outer twiddle, output in natural n2
-order. Replaces the Pallas kernel
-``xcorr_tpu/ops/pallas_fft.py::plan_fused_corr`` (``corr_kernel``).
+      C[b,k1,:] = IDFT_N2( DFT_N2(Ax[b,k1,:]·T[k1,:])
+                           · conj(DFT_N2(Ay[b,k1,:]·T[k1,:])) ) · conj(T[k1,:])
 
-The CUDA kernel (``csrc/fused_corr.cu``) keeps one x row and one y row
-per block in shared memory, so N2 must be a power of two no larger than
-:data:`MAX_N2`; the spectra never reach device memory. It is memory-bound
-(see the source note). :func:`fused_corr_plain` is the same function in
-plain PyTorch: the wrapper takes it for CPU tensors only, and the tests
-and ``chip_smoke.py`` hold the kernel against it.
+* **K2** :func:`stageb_fwd` / :func:`stageb_inv` (``stageb.cu``, replace
+  ``plan_fused_stageb``'s ``fwd_kernel`` / ``inv_kernel``): K1 as two
+  launches. ``fwd`` returns ``DFT_N2(A·T)`` in **bit-reversed** n2 order
+  (the radix-2 DIF output: position p holds frequency ``bitrev(p)``, see
+  :func:`bitrev`); ``inv`` takes two spectra in that order and returns
+  ``IDFT_N2(Fx·conj Fy)·conj T`` in natural order. The TPU kernel's
+  spectrum was in its own ``(k_p, k_q)`` order instead.
+* **K3** :func:`fused_corr_acc` (``fused_corr_acc.cu``, replaces
+  ``plan_fused_corr_acc``): K1 with the pruned inverse product
+  ``wi @ C`` computed in the kernel, ``(B, rows_out, N2)`` out.
+* **K4** :func:`fused_corr_full` (``fused_corr_full.cu``, replaces
+  ``plan_fused_corr_full``): stage A, K1 and the pruned inverse in one
+  kernel, from the zero-padded windows to ``(B, rows_out, N2)``.
 
-Layouts: ``ax``, ``ay`` and the result are ``(B, 2, H, N2)`` float32 with
-re/im on axis 1; ``T`` is ``(2, H, N2)`` float32.
+K3 and K4 split each window's H rows into :func:`groups` fixed k1 groups
+whose partial products a second launch sums in a fixed order: no float
+atomics, so two launches on the same inputs give the same bits (design
+notes in ``csrc/corr_acc.cuh``). Not carried from the TPU: ``ROWS = 8``,
+the VMEM gates, K4's bf16 hi/lo input split and the ``high_block`` /
+Karatsuba precision variants; every kernel computes in float32.
+
+Each kernel keeps its rows in shared memory, so N2 must be a power of two
+no larger than :data:`MAX_N2`. Each has a plain PyTorch version
+(``*_plain``): a wrapper takes it for CPU tensors only, launches the
+kernel (or raises) for CUDA tensors, and adds one to
+``launches[name]`` per launch. The tests and ``chip_smoke.py`` hold each
+kernel against its plain version.
+
+Layouts: stage-A planes, spectra and K1's output are ``(B, 2, H, N2)``
+float32 with re/im on axis 1; ``T`` is ``(2, H, N2)``; ``wi`` the
+``(rows_out, 2H)`` folded inverse matrix (``ops.fft4``); ``w1`` the
+``(2H, rows_in)`` stage-A matrix.
 """
 
 from __future__ import annotations
@@ -30,94 +55,301 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ["fused_corr", "fused_corr_plain", "check_geometry", "MAX_N2",
-           "launches"]
+__all__ = ["fused_corr", "fused_corr_plain", "stageb_fwd",
+           "stageb_fwd_plain", "stageb_inv", "stageb_inv_plain",
+           "fused_corr_acc", "fused_corr_acc_plain", "fused_corr_full",
+           "fused_corr_full_plain", "check_geometry", "bitrev", "groups",
+           "MAX_N2", "KERNELS", "launches", "reset_launches"]
 
 #: largest row length whose x and y rows (complex float32) plus the
 #: twiddle table fit one block's shared memory (160 KB of 227 KB)
 MAX_N2 = 8192
 
-#: kernel launches made by :func:`fused_corr` in this process
-launches = 0
+#: k1 groups per window of K3 and K4: 16 x B blocks fill the card's
+#: 132 SMs in one wave at the pair-day's B = 8
+K_GROUPS = 16
+
+#: kernel names, as ``launches`` counts them
+KERNELS = ("fused_corr", "stageb_fwd", "stageb_inv", "fused_corr_acc",
+           "fused_corr_full")
+
+#: kernel launches made by the wrappers in this process, by kernel name
+launches = dict.fromkeys(KERNELS, 0)
 
 _lock = threading.Lock()
-_twiddles = {}
+_consts = {}
+
+
+def reset_launches():
+    """Set every launch count to 0."""
+    with _lock:
+        for k in KERNELS:
+            launches[k] = 0
 
 
 def check_geometry(N2: int):
-    """Raise ``ValueError`` unless the kernel takes rows of length N2."""
+    """Raise ``ValueError`` unless the kernels take rows of length N2."""
     if N2 < 2 or N2 & (N2 - 1) or N2 > MAX_N2:
         raise ValueError(
-            f"N2={N2}: the fused stage-B kernel takes a power of two "
+            f"N2={N2}: the fused stage-B kernels take a power of two "
             f"between 2 and {MAX_N2}")
 
 
-def fused_corr_plain(ax, ay, T):
-    """:func:`fused_corr` in plain PyTorch (``torch.fft``)."""
-    t = torch.complex(T[0], T[1])
-    x = torch.complex(ax[:, 0], ax[:, 1]) * t
-    y = torch.complex(ay[:, 0], ay[:, 1]) * t
-    s = torch.fft.fft(x, dim=-1) * torch.conj(torch.fft.fft(y, dim=-1))
-    c = torch.fft.ifft(s, dim=-1) * torch.conj(t)
-    return torch.stack([c.real, c.imag], dim=1)
+def groups(H: int):
+    """``(G, S)``: K3 and K4 split a window's H rows into S fixed groups
+    of G rows (the last may be shorter)."""
+    G = -(-H // K_GROUPS)
+    return G, -(-H // G)
 
 
-def _check(ax, ay, T):
-    if ax.dim() != 4 or ax.shape[1] != 2:
-        raise ValueError(f"ax must be (B, 2, H, N2), got {tuple(ax.shape)}")
-    B, _, H, N2 = ax.shape
-    check_geometry(N2)
-    if ay.shape != ax.shape:
-        raise ValueError(f"ay {tuple(ay.shape)} != ax {tuple(ax.shape)}")
-    if T.shape != (2, H, N2):
-        raise ValueError(f"T must be (2, {H}, {N2}), got {tuple(T.shape)}")
-    for name, a in (("ax", ax), ("ay", ay), ("T", T)):
-        if a.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {a.dtype}")
-        if a.device != ax.device:
-            raise ValueError(f"{name} is on {a.device}, ax on {ax.device}")
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+def _cached(key, make):
+    with _lock:
+        v = _consts.get(key)
+        if v is None:
+            v = _consts[key] = make()
+        return v
+
+
+def bitrev(N2: int, device="cpu"):
+    """Index ``p -> bitrev(p)`` over ``log2(N2)`` bits: K2's spectrum
+    holds frequency ``bitrev(p)`` at position ``p``, so
+    ``natural[..., bitrev(N2)] == kernel order``."""
+    def make():
+        bits = N2.bit_length() - 1
+        p = np.arange(N2)
+        r = np.zeros_like(p)
+        for i in range(bits):
+            r |= ((p >> i) & 1) << (bits - 1 - i)
+        return torch.from_numpy(r).to(device)
+    return _cached(("bitrev", N2, str(device)), make)
 
 
 def _inner_twiddles(N2: int, device):
     """``exp(-2πi k/N2)``, k < N2/2, computed in float64, stored as
     interleaved float32 (re, im) pairs on ``device``."""
-    key = (N2, str(device))
-    with _lock:
-        tw = _twiddles.get(key)
-        if tw is None:
-            w = np.exp(-2j * np.pi * np.arange(N2 // 2) / N2)
-            host = np.stack([w.real, w.imag], axis=-1).astype(np.float32)
-            tw = torch.from_numpy(host).to(device)
-            _twiddles[key] = tw
-        return tw
+    def make():
+        w = np.exp(-2j * np.pi * np.arange(N2 // 2) / N2)
+        host = np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+        return torch.from_numpy(host).to(device)
+    return _cached(("tw", N2, str(device)), make)
 
+
+# -- plain versions -----------------------------------------------------
+
+def _cplx(a):
+    return torch.complex(a[:, 0], a[:, 1])
+
+
+def _packed(c):
+    return torch.stack([c.real, c.imag], dim=1)
+
+
+def fused_corr_plain(ax, ay, T):
+    """:func:`fused_corr` in plain PyTorch (``torch.fft``)."""
+    t = torch.complex(T[0], T[1])
+    x = _cplx(ax) * t
+    y = _cplx(ay) * t
+    s = torch.fft.fft(x, dim=-1) * torch.conj(torch.fft.fft(y, dim=-1))
+    return _packed(torch.fft.ifft(s, dim=-1) * torch.conj(t))
+
+
+def stageb_fwd_plain(a, T):
+    """:func:`stageb_fwd` in plain PyTorch: ``torch.fft`` then the
+    bit-reversal index."""
+    t = torch.complex(T[0], T[1])
+    f = torch.fft.fft(_cplx(a) * t, dim=-1)
+    return _packed(f[..., bitrev(a.shape[-1], a.device)])
+
+
+def stageb_inv_plain(fx, fy, T):
+    """:func:`stageb_inv` in plain PyTorch: the spectra back to natural
+    order, then ``torch.fft``."""
+    t = torch.complex(T[0], T[1])
+    s = (_cplx(fx) * torch.conj(_cplx(fy)))[..., bitrev(fx.shape[-1],
+                                                        fx.device)]
+    return _packed(torch.fft.ifft(s, dim=-1) * torch.conj(t))
+
+
+def fused_corr_acc_plain(ax, ay, T, wi):
+    """:func:`fused_corr_acc` in plain PyTorch: K1's plain version, then
+    ``wi @ C`` over the packed axis."""
+    B, _, H, N2 = ax.shape
+    return torch.matmul(wi, fused_corr_plain(ax, ay, T).view(B, 2 * H, N2))
+
+
+def fused_corr_full_plain(vx, vy, w1, T, wi):
+    """:func:`fused_corr_full` in plain PyTorch: the stage-A product,
+    K1's plain version and the pruned inverse product."""
+    B, _, N2 = vx.shape
+    H = w1.shape[0] // 2
+    ax = torch.matmul(w1, vx).view(B, 2, H, N2)
+    ay = torch.matmul(w1, vy).view(B, 2, H, N2)
+    return fused_corr_acc_plain(ax, ay, T, wi)
+
+
+# -- checks --------------------------------------------------------------
+
+def _check_tensors(ref, **tensors):
+    for name, a in tensors.items():
+        if a.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {a.dtype}")
+        if a.device != ref.device:
+            raise ValueError(f"{name} is on {a.device}, not {ref.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_planes(T, **planes):
+    """Packed ``(B, 2, H, N2)`` planes of one shape and their ``T``;
+    returns ``(B, H, N2)``."""
+    first = next(iter(planes.values()))
+    if first.dim() != 4 or first.shape[1] != 2:
+        raise ValueError(
+            f"planes must be (B, 2, H, N2), got {tuple(first.shape)}")
+    B, _, H, N2 = first.shape
+    check_geometry(N2)
+    for name, a in planes.items():
+        if a.shape != first.shape:
+            raise ValueError(
+                f"{name} {tuple(a.shape)} != {tuple(first.shape)}")
+    if T.shape != (2, H, N2):
+        raise ValueError(f"T must be (2, {H}, {N2}), got {tuple(T.shape)}")
+    _check_tensors(first, T=T, **planes)
+    return B, H, N2
+
+
+def _check_wi(wi, H, ref):
+    if wi.dim() != 2 or wi.shape[1] != 2 * H or wi.shape[0] < 1:
+        raise ValueError(
+            f"wi must be (rows_out, {2 * H}), got {tuple(wi.shape)}")
+    _check_tensors(ref, wi=wi)
+    return wi.shape[0]
+
+
+def _device_of(a, name):
+    """``'cpu'`` or ``'cuda'``; anything else raises."""
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {a.device}")
+    return a.device.type
+
+
+def _launch(name, fn, *args):
+    """Call a C entry point, raise on a CUDA error, count the launch."""
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    with _lock:
+        launches[name] += 1
+
+
+def _ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]
+
+
+def _stream(a):
+    return torch.cuda.current_stream(a.device).cuda_stream
+
+
+# -- wrappers ------------------------------------------------------------
 
 def fused_corr(ax, ay, T):
-    """Fused stage-B correlation of the packed planes ``ax``, ``ay``.
-
-    CPU tensors go through :func:`fused_corr_plain`; CUDA tensors launch
-    the kernel (built at first use) or raise. Shapes, dtype, device and
-    contiguity are checked on both.
-    """
-    global launches
-    _check(ax, ay, T)
-    if ax.device.type == "cpu":
+    """K1: fused stage-B correlation of the packed planes ``ax``, ``ay``
+    -> ``(B, 2, H, N2)``."""
+    B, H, N2 = _check_planes(T, ax=ax, ay=ay)
+    if _device_of(ax, "fused_corr") == "cpu":
         return fused_corr_plain(ax, ay, T)
-    if ax.device.type != "cuda":
-        raise ValueError(f"fused_corr runs on cpu or cuda, not {ax.device}")
     from ._build import load
     lib = load()
-    B, _, H, N2 = ax.shape
     out = torch.empty_like(ax)
     tw = _inner_twiddles(N2, ax.device)
-    stream = torch.cuda.current_stream(ax.device).cuda_stream
-    rc = lib.xc_fused_corr(ax.data_ptr(), ay.data_ptr(), T.data_ptr(),
-                           tw.data_ptr(), out.data_ptr(), B, H, N2,
-                           N2.bit_length() - 1, stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_corr kernel launch failed: CUDA error {rc}")
-    with _lock:
-        launches += 1
+    _launch("fused_corr", lib.xc_fused_corr,
+            *_ptrs(ax, ay, T, tw, out), B, H, N2, N2.bit_length() - 1,
+            _stream(ax))
+    return out
+
+
+def stageb_fwd(a, T):
+    """K2 forward: ``DFT_N2(a·T)`` per row, ``(B, 2, H, N2)`` in
+    bit-reversed n2 order (see :func:`bitrev`)."""
+    B, H, N2 = _check_planes(T, a=a)
+    if _device_of(a, "stageb_fwd") == "cpu":
+        return stageb_fwd_plain(a, T)
+    from ._build import load
+    lib = load()
+    out = torch.empty_like(a)
+    tw = _inner_twiddles(N2, a.device)
+    _launch("stageb_fwd", lib.xc_stageb_fwd, *_ptrs(a, T, tw, out), B, H,
+            N2, N2.bit_length() - 1, _stream(a))
+    return out
+
+
+def stageb_inv(fx, fy, T):
+    """K2 inverse: ``IDFT_N2(fx·conj fy)·conj T`` per row of two spectra
+    in :func:`stageb_fwd`'s order, ``(B, 2, H, N2)`` in natural order."""
+    B, H, N2 = _check_planes(T, fx=fx, fy=fy)
+    if _device_of(fx, "stageb_inv") == "cpu":
+        return stageb_inv_plain(fx, fy, T)
+    from ._build import load
+    lib = load()
+    out = torch.empty_like(fx)
+    tw = _inner_twiddles(N2, fx.device)
+    _launch("stageb_inv", lib.xc_stageb_inv, *_ptrs(fx, fy, T, tw, out), B,
+            H, N2, N2.bit_length() - 1, _stream(fx))
+    return out
+
+
+def fused_corr_acc(ax, ay, T, wi):
+    """K3: ``wi @ fused_corr(ax, ay, T)`` over the packed axis, computed
+    in one kernel (plus the fixed-order sum of its group partials) ->
+    ``(B, rows_out, N2)``."""
+    B, H, N2 = _check_planes(T, ax=ax, ay=ay)
+    rows_out = _check_wi(wi, H, ax)
+    if _device_of(ax, "fused_corr_acc") == "cpu":
+        return fused_corr_acc_plain(ax, ay, T, wi)
+    from ._build import load
+    lib = load()
+    G, S = groups(H)
+    kw = dict(dtype=torch.float32, device=ax.device)
+    cscr = torch.empty(B * S * 2 * G * N2, **kw)
+    part = torch.empty(B * S * rows_out * N2, **kw)
+    out = torch.empty((B, rows_out, N2), **kw)
+    tw = _inner_twiddles(N2, ax.device)
+    _launch("fused_corr_acc", lib.xc_fused_corr_acc,
+            *_ptrs(ax, ay, T, tw, wi, cscr, part, out), B, H, G, S,
+            rows_out, N2, N2.bit_length() - 1, _stream(ax))
+    return out
+
+
+def fused_corr_full(vx, vy, w1, T, wi):
+    """K4: the whole four-step correlation of the zero-padded windows
+    ``vx``, ``vy`` (``(B, rows_in, N2)``) -> ``(B, rows_out, N2)``, the
+    same function as :func:`fused_corr_full_plain`."""
+    if vx.dim() != 3 or vy.shape != vx.shape:
+        raise ValueError(
+            f"vx and vy must be one (B, rows_in, N2) shape, got "
+            f"{tuple(vx.shape)} and {tuple(vy.shape)}")
+    B, rows_in, N2 = vx.shape
+    check_geometry(N2)
+    if w1.dim() != 2 or w1.shape[1] != rows_in or w1.shape[0] % 2:
+        raise ValueError(
+            f"w1 must be (2H, {rows_in}), got {tuple(w1.shape)}")
+    H = w1.shape[0] // 2
+    if T.shape != (2, H, N2):
+        raise ValueError(f"T must be (2, {H}, {N2}), got {tuple(T.shape)}")
+    _check_tensors(vx, vx=vx, vy=vy, w1=w1, T=T)
+    rows_out = _check_wi(wi, H, vx)
+    if _device_of(vx, "fused_corr_full") == "cpu":
+        return fused_corr_full_plain(vx, vy, w1, T, wi)
+    from ._build import load
+    lib = load()
+    G, S = groups(H)
+    kw = dict(dtype=torch.float32, device=vx.device)
+    sx = torch.empty(B * S * 2 * G * N2, **kw)
+    sy = torch.empty(B * S * 2 * G * N2, **kw)
+    part = torch.empty(B * S * rows_out * N2, **kw)
+    out = torch.empty((B, rows_out, N2), **kw)
+    tw = _inner_twiddles(N2, vx.device)
+    _launch("fused_corr_full", lib.xc_fused_corr_full,
+            *_ptrs(vx, vy, w1, T, tw, wi, sx, sy, part, out), B, H, G, S,
+            rows_in, rows_out, N2, N2.bit_length() - 1, _stream(vx))
     return out
