@@ -336,7 +336,8 @@ def phase4_correlate(ff, cc, fft4, imin, imax):
 
 def phase5_pair_days(xt, ff):
     """One production-geometry pair-day through process per route;
-    returns each route kernel's launches on its path."""
+    returns each kernel's launches on its route's path. K2 is on no
+    route: every run below checks that it launched no time."""
     from xcorr_tpu_torch.stream import Channel, Inventory, SyntheticClient
     from torch.profiler import ProfilerActivity, profile
     inv = Inventory([
@@ -347,7 +348,7 @@ def phase5_pair_days(xt, ff):
         sampling_rate=FS,
         delays={"IM.H03S1..EDH": DELAY, "IM.H03S2..EDH": 0.0},
         source_period=600.0, source_amplitude=20.0)
-    launches, ref = {}, None
+    launches, ref = dict.fromkeys(ff.KERNELS, 0), None
     # the first pair-day of the process also pays one-time set-up (the
     # profiler's start, first calls into scipy and torch); it runs on
     # the K1 route and is reported apart
@@ -455,14 +456,12 @@ def main():
              f"float32_matmul_precision="
              f"{torch.get_float32_matmul_precision()}")
     rec = phase3_kernels(ff, plan)
-    # K2 is on no path: its launches are those made in this phase
-    k2 = {k: ff.launches[k] for k in ("stageb_fwd", "stageb_inv")}
 
     # -- 4. day-scale correlate, once per route ---------------------------
     phase4_correlate(ff, cc, fft4, imin, imax)
 
     # -- 5. the slice: one production-geometry pair-day per route ----------
-    launches = {**k2, **phase5_pair_days(xt, ff)}
+    launches = phase5_pair_days(xt, ff)
 
     print(json.dumps({"kernels": [{
         "name": name,

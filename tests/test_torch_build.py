@@ -69,6 +69,25 @@ def test_editing_a_file_changes_the_library_name(tmp_path, monkeypatch,
     assert _build._library_path() != before
 
 
+def test_build_dir_of_a_checkout_is_its_build():
+    assert _build.build_dir(PKG) == ROOT / "build" / "xcorr_tpu_torch"
+    assert _build._BUILD == _build.build_dir(PKG)
+
+
+def test_build_dir_of_an_install_is_the_user_cache(tmp_path, monkeypatch):
+    """An installed package (no ``pyproject.toml`` beside it) builds into
+    the user's cache, never into ``site-packages``."""
+    site = tmp_path / "site-packages"
+    (site / "xcorr_tpu_torch").mkdir(parents=True)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    assert (_build.build_dir(site / "xcorr_tpu_torch")
+            == tmp_path / "cache" / "xcorr_tpu_torch")
+    monkeypatch.delenv("XDG_CACHE_HOME")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert (_build.build_dir(site / "xcorr_tpu_torch")
+            == tmp_path / "home" / ".cache" / "xcorr_tpu_torch")
+
+
 def test_every_entry_point_is_declared():
     """Each ``extern "C"`` function of the sources has a ctypes
     signature of the same parameter kinds (p: pointer, i: int)."""

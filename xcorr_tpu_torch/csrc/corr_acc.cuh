@@ -33,18 +33,18 @@ namespace xcorr {
 constexpr int kAccThreads = 1024;  // threads of a K3/K4 block
 constexpr int kBK = 16;            // depth of one product step
 constexpr int kTN = 256;           // columns of a product tile (64 x 4)
-constexpr int kMaxMR = 5;          // rows per thread: tiles of 16..80 rows
+constexpr int kMR = 5;             // rows per thread: tiles of 80 rows
 
-// Shared floats block_gemm takes at the widest tile.
-constexpr int kGemmFloats = kBK * (16 * kMaxMR + kTN);
+// Shared floats one gemm takes.
+constexpr int kGemmFloats = kBK * (16 * kMR + kTN);
 
 // out(m, n) = sum_{k < K} a(m, k) * b(k, n) for m < M, n < N, summed in
-// ascending k with float32 FMAs. Tiles of 16*MR rows x 256 columns; each
-// of the 1024 threads holds an MR x 4 accumulator. Ends on a barrier, so
+// ascending k with float32 FMAs. Tiles of 16*kMR rows x 256 columns; each
+// of the 1024 threads holds a kMR x 4 accumulator. Ends on a barrier, so
 // what `st` wrote to device memory is visible to the whole block.
-template <int MR, class A, class Bm, class St>
-__device__ void block_gemm(int M, int N, int K, A a, Bm b, St st,
-                           float* smem) {
+template <class A, class Bm, class St>
+__device__ void gemm(int M, int N, int K, A a, Bm b, St st, float* smem) {
+  constexpr int MR = kMR;
   constexpr int TM = 16 * MR;
   float* As = smem;             // [kBK][TM]
   float* Bs = smem + kBK * TM;  // [kBK][kTN]
@@ -97,26 +97,6 @@ __device__ void block_gemm(int M, int N, int K, A a, Bm b, St st,
     }
   }
   __syncthreads();
-}
-
-// block_gemm with the tile height of least cost, counting the padded
-// rows computed and the shared loads per FMA (1 + 1/MR of them).
-template <class A, class Bm, class St>
-__device__ void gemm(int M, int N, int K, A a, Bm b, St st, float* smem) {
-  int mr = kMaxMR;
-  float best = 3.0e38f;
-  for (int r = kMaxMR; r >= 1; --r) {
-    const int padded = (M + 16 * r - 1) / (16 * r) * (16 * r);
-    const float cost = padded * (1.0f + 1.0f / r);
-    if (cost < best) best = cost, mr = r;
-  }
-  switch (mr) {
-    case 1: block_gemm<1>(M, N, K, a, b, st, smem); break;
-    case 2: block_gemm<2>(M, N, K, a, b, st, smem); break;
-    case 3: block_gemm<3>(M, N, K, a, b, st, smem); break;
-    case 4: block_gemm<4>(M, N, K, a, b, st, smem); break;
-    default: block_gemm<5>(M, N, K, a, b, st, smem); break;
-  }
 }
 
 // One k1 group of one window: for its g rows k0 .. k0+g-1, the stage-B

@@ -5,10 +5,12 @@ r"""
 Compiles every ``xcorr_tpu_torch/csrc/*.cu`` with ``nvcc`` for ``sm_90a``
 (one ``nvcc`` per source, all started together) and links them into one
 shared library with a plain C interface, loaded with
-:mod:`ctypes`. The library lands in ``build/xcorr_tpu_torch/`` beside the
-package, under a name keyed by a hash of the flags and of every source the
-build reads (the ``*.cu`` files and the ``*.cuh`` headers they include),
-so an edited kernel or header rebuilds and an unchanged one is reused.
+:mod:`ctypes`. The library lands in ``build/xcorr_tpu_torch/`` of the
+source checkout, or in the user's cache directory for an installed
+package (:func:`build_dir`), under a name keyed by a hash of the flags and
+of every source the build reads (the ``*.cu`` files and the ``*.cuh``
+headers they include), so an edited kernel or header rebuilds and an
+unchanged one is reused.
 Nothing is built when a module is imported: the first launch builds.
 """
 
@@ -23,11 +25,24 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load", "build_seconds", "sources", "hashed_files"]
+__all__ = ["load", "build_seconds", "build_dir", "sources", "hashed_files"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
-_BUILD = _PKG.parent / "build" / "xcorr_tpu_torch"
+
+
+def build_dir(pkg: Path = _PKG) -> Path:
+    """Where the library is built: ``build/xcorr_tpu_torch/`` of the
+    source checkout that holds ``pkg`` (beside its ``pyproject.toml``),
+    else, for an installed package, ``xcorr_tpu_torch/`` under the
+    user's cache directory (``$XDG_CACHE_HOME``, default ``~/.cache``)."""
+    if (pkg.parent / "pyproject.toml").is_file():
+        return pkg.parent / "build" / "xcorr_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "xcorr_tpu_torch"
+
+
+_BUILD = build_dir()
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
 
