@@ -8,23 +8,31 @@ Phases, each printed on its own line; any failure exits non-zero:
 
 1. the card (``nvidia-smi``), torch, CUDA and the TF32 switches;
 2. build the hand-written kernels from ``xcorr_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together);
+   ``nvcc`` per source, all started together) and, beside the build,
+   ``nvcc -Xptxas -v`` of K1 for its registers, shared memory and spills
+   at N2 = 8192 and 16384;
 3. every kernel against its plain PyTorch version, max |diff| / max
    |plain| <= 1e-5, with CUDA-event times of both (median of 20 launches
    after warm-up) and the card's bound for the same work: K1 at the
-   pair-day's shape (8, 2, 529, 8192), at (4, 2, 529, 8192) and at a
+   pair-day's shape of its route (8, 2, 265, 16384: n1 = 528), at
+   (4, 2, 265, 16384), at the n1 = 1056 shape (8, 2, 529, 8192) and at a
    small one; K2 (forward and inverse), K3 and K4 at the pair-day's
-   shapes (B = 8, H = 529, N2 = 8192, rows_in = 528, rows_out = 198, with
-   the plan's own w1, T and wi) and at a small one. K3 and K4 run twice
-   on the same inputs and must give the same bits;
+   shapes of the n1 = 1056 plan their routes take (B = 8, H = 529,
+   N2 = 8192, rows_in = 528, rows_out = 198, with that plan's own w1, T
+   and wi) and at a small one. K1, K3 and K4 run twice on the same
+   inputs and must give the same bits. At the two 8-window K1 shapes, K1's
+   phase clock (``xc_fused_corr_phases``): SM cycles per row, phase by
+   phase;
 4. ``ops.cc.correlate`` on 16 synthetic 24 h windows at 50 Hz
    (n = 4,320,000) with the 0-9 h lag window, once per route of the
    four-step path, each chosen as a user chooses it (no variable: K1;
-   ``XCORR_FFT4_FUSED_INV=1``: K3; ``XCORR_FFT4_FULL=1``: K4): only the
-   route's kernel launched, 2 windows within 1e-6 abs of a float64 numpy
-   oracle, the peak on the injected delay, ms per window and peak working
-   memory; the K1 route's time split into stage-A product, K1, inverse
-   product and lag slice; the monolithic cuFFT route beside them;
+   ``XCORR_FFT4_FUSED_INV=1``: K3; ``XCORR_FFT4_FULL=1``: K4), each in
+   its route's default geometry: only the route's kernel launched, 2
+   windows within 1e-6 abs of a float64 numpy oracle, the peak on the
+   injected delay, ms per window and peak working memory; the K1 route's
+   time split into stage-A product, K1, inverse product and lag slice at
+   its default n1 = 528 and at n1 = 1056; the monolithic cuFFT route
+   beside them;
 5. the slice, once per route after a first (cold) run on the K1 route:
    ``init`` -> ``process(device='cuda')`` of one production-geometry
    pair-day from ``SyntheticClient``: every status 1, all 8 CCF peaks on
@@ -40,6 +48,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -171,10 +180,49 @@ def kernel_inputs(B, H, N2, rows_in, rows_out, seed, consts=None):
     return d
 
 
-def hold(ff, name, label, args):
-    """One kernel against its plain version: error, times, output."""
+#: the phases of K1's phase clock (csrc/fused_corr.cu: tick)
+K1_PHASES = ("x in", "x*T", "forward x", "y in, half y*T", "half y*T",
+             "forward y, cross", "inverse", "conj T, out")
+
+
+def k1_phase_clock(fn, ff, d, shape):
+    """K1's SM cycles per row, phase by phase, from its phase-clock entry
+    point ``fn`` (``xc_fused_corr_phases``) on the inputs ``d``."""
+    B, _, H, N2 = shape
+    out = torch.empty_like(d["ax"])
+    tw = ff._k1_twiddles(N2, out.device)
+    clock = torch.zeros(B * H * 8, dtype=torch.int64, device="cuda")
+
+    def run():
+        rc = fn(d["ax"].data_ptr(), d["ay"].data_ptr(), d["T"].data_ptr(),
+                tw.data_ptr(), out.data_ptr(), B, H, N2,
+                N2.bit_length() - 1, torch.cuda.current_stream().cuda_stream,
+                clock.data_ptr())
+        check(rc == 0, f"K1 phase clock launch failed: CUDA error {rc}")
+
+    clock_ms = median_ms(run)  # what the clock costs, beside K1's time
+    clock.zero_()
+    run()
+    torch.cuda.synchronize()
+    per_row = clock.view(-1, 8).sum(0).double().cpu().numpy() / (B * H)
+    sm = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                         "--format=csv,noheader"], capture_output=True,
+                        text=True).stdout.strip()
+    phase(3, f"fused_corr {shape} phase clock, SM cycles per row: "
+             + ", ".join(f"{k} {v:.0f}" for k, v in zip(K1_PHASES, per_row))
+             + f"; all {per_row.sum():.0f}; {B * H} rows; SM clock {sm}; "
+               f"the clocked kernel takes {clock_ms:.4f} ms")
+
+
+def hold(ff, name, label, args, rerun=False):
+    """One kernel against its plain version: error, times, output; with
+    ``rerun``, a second launch on the same inputs must give the same
+    bits."""
     fn, plain = getattr(ff, name), getattr(ff, name + "_plain")
     got = fn(*args)
+    if rerun:
+        check(torch.equal(got, fn(*args)),
+              f"{name} {label}: two launches differ")
     torch.cuda.synchronize()
     want = plain(*args)
     err = (got - want).abs().max().item()
@@ -187,25 +235,35 @@ def hold(ff, name, label, args):
     return got, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def phase3_kernels(ff, plan):
+def phase3_kernels(ff, plan, plan_acc, clock_fn):
     """Every kernel against its plain version; returns the pair-day
-    shape's record per kernel."""
+    shape's record per kernel. ``plan`` is the K1 route's plan,
+    ``plan_acc`` the n1 = 1056 plan of the K3 and K4 routes, ``clock_fn``
+    K1's phase-clock entry point."""
     rec = {}
-    H, N2, rows_in, rows_out = plan.half, plan.N2, plan.rows_in, \
-        plan.rows_out
+    H, N2 = plan.half, plan.N2
+    H8, N28, rows_in, rows_out = plan_acc.half, plan_acc.N2, \
+        plan_acc.rows_in, plan_acc.rows_out
     # K1: the pair-day's shape (8 windows) first; the record keeps it
-    for shape in [(8, 2, H, N2), (4, 2, H, N2), (2, 2, 24, 256)]:
+    for shape in [(8, 2, H, N2), (4, 2, H, N2), (8, 2, H8, N28),
+                  (2, 2, 24, 256)]:
         d = kernel_inputs(shape[0], shape[2], shape[3], 8, 5, SEED)
-        _, r = hold(ff, "fused_corr", shape, (d["ax"], d["ay"], d["T"]))
+        _, r = hold(ff, "fused_corr", shape, (d["ax"], d["ay"], d["T"]),
+                    rerun=True)
         B = shape[0]
         r["bound_ms"], r["bound_by"] = bound(
             nbytes(d["ax"], d["ay"], d["T"]), nbytes(d["ax"]),
             stageb_flops(B, shape[2], shape[3]))
+        phase(3, f"fused_corr {shape}: bound {r['bound_ms']:.4f} ms by "
+                 f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% "
+                 f"of bound), two launches bit-identical")
+        if B == 8:
+            k1_phase_clock(clock_fn, ff, d, shape)
         rec.setdefault("fused_corr", r)
         del d
     # K2-K4: the pair-day's shapes with the plan's constants, then small
     for B, Hs, N2s, ri, ro, consts in [
-            (8, H, N2, rows_in, rows_out, plan.device_consts("cuda")),
+            (8, H8, N28, rows_in, rows_out, plan_acc.device_consts("cuda")),
             (2, 24, 256, 8, 5, None)]:
         d = kernel_inputs(B, Hs, N2s, ri, ro, SEED, consts)
         label = f"B={B} H={Hs} N2={N2s} rows_in={ri} rows_out={ro}"
@@ -249,6 +307,31 @@ def phase3_kernels(ff, plan):
     return rec
 
 
+def k1_ptxas(report, ff):
+    """``(log2 N2, summary)`` of K1's instances (without the phase clock)
+    at N2 = 8192 and 16384 from ``nvcc -Xptxas -v``: registers, spills and the block's dynamic
+    shared memory (x spectrum, pass twiddles, exchange buffer)."""
+    out, lg = [], None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '.*fused_corr_kernelILi"
+                      r"(\d+)ELb([01])E", ln)
+        if m:  # the instances without the phase clock
+            lg = int(m.group(1)) if m.group(2) == "0" else None
+            frame = ""
+        elif lg in (13, 14) and "spill" in ln:
+            frame = ln.strip()
+        elif lg in (13, 14) and "Used" in ln:
+            n = 1 << lg
+            smem = 8 * n + 8 * len(ff._k1_twiddles(n, "cpu")) \
+                + 4 * (n + n // 32)
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append((lg, f"{regs} registers, {frame}, {smem} bytes of "
+                            f"dynamic shared memory"))
+            lg = None
+    check(len(out) == 2, "no ptxas report for K1 at N2 = 8192, 16384")
+    return sorted(out)
+
+
 def f64_oracle(x, y, imin, imax):
     """Normalized CCF on the lag window, float64 numpy rfft."""
     n = x.shape[-1]
@@ -260,7 +343,8 @@ def f64_oracle(x, y, imin, imax):
 
 
 def phase4_correlate(ff, cc, fft4, imin, imax):
-    """Day-scale correlate, once per route."""
+    """Day-scale correlate, once per route; the K1 route's split at its
+    default geometry and at n1 = 1056."""
     B = 16
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randn((B, N), generator=gen, device="cuda")
@@ -305,33 +389,55 @@ def phase4_correlate(ff, cc, fft4, imin, imax):
         del out
 
     set_route("corr")
-    plan = fft4.plan_correlate4(N, imin, imax, normalize=True)
-    w1, wi, t = plan.device_consts(x.device)
-    ax, ay = plan.stage_a(x, w1), plan.stage_a(y, w1)
-    c = ff.fused_corr(ax, ay, t)
-    flat = plan.inverse(c, wi)
-    vx, vy = plan.padded(x), plan.padded(y)
-    t_a = median_ms(lambda: (plan.stage_a(x, w1), plan.stage_a(y, w1)), 10)
-    t_k = median_ms(lambda: ff.fused_corr(ax, ay, t), 10)
-    t_i = median_ms(lambda: plan.inverse(c, wi), 10)
-    t_s = median_ms(lambda: fft4._finish_ccf(flat, x, y, plan.segs_flat,
-                                             True), 10)
-    t_k3 = median_ms(lambda: ff.fused_corr_acc(ax, ay, t, wi), 10)
-    t_k4 = median_ms(lambda: ff.fused_corr_full(vx, vy, w1, t, wi), 10)
     t_mono = median_ms(lambda: cc.correlate(x, y, index_min=imin,
                                             index_max=imax,
                                             method="monolithic"), 10)
-    phase(4, f"ms per window (B={B}, N1={plan.N1}, N2={plan.N2}, "
-             f"H={plan.half}): stage-A {t_a / B:.4f}, K1 {t_k / B:.4f}, "
-             f"inverse {t_i / B:.4f}, lag slice+norm {t_s / B:.4f}; "
-             f"correlate {per_window['corr']:.4f}; monolithic cuFFT "
-             f"{t_mono / B:.4f}")
-    phase(4, f"ms per window: route acc = stage-A {t_a / B:.4f} + K3 "
-             f"{t_k3 / B:.4f} + slice, correlate {per_window['acc']:.4f}; "
-             f"route full = K4 {t_k4 / B:.4f} + slice, correlate "
-             f"{per_window['full']:.4f}")
-    del x, y, ax, ay, c, flat, vx, vy
+    # the K1 route split at its default geometry, then at n1 = 1056: what
+    # the geometry brought apart from what the kernel brought
+    for n1 in (None, 1056):
+        plan = fft4.plan_correlate4(N, imin, imax, n1=n1, normalize=True,
+                                    route="corr")
+        w1, wi, t = plan.device_consts(x.device)
+        ax, ay = plan.stage_a(x, w1), plan.stage_a(y, w1)
+        c = ff.fused_corr(ax, ay, t)
+        flat = plan.inverse(c, wi)
+        err = max(float(np.abs(_finish(fft4, plan, flat, x, y)[i]
+                               - oracle[i]).max()) for i in range(2))
+        check(err <= CCF_ATOL, f"route corr n1={plan.N1}: CCF error {err}")
+        t_a = median_ms(lambda: (plan.stage_a(x, w1), plan.stage_a(y, w1)),
+                        10)
+        t_k = median_ms(lambda: ff.fused_corr(ax, ay, t), 10)
+        t_i = median_ms(lambda: plan.inverse(c, wi), 10)
+        t_s = median_ms(lambda: fft4._finish_ccf(flat, x, y, plan.segs_flat,
+                                                 True), 10)
+        t_p = median_ms(lambda: plan(x, y), 10)
+        phase(4, f"route corr, ms per window (B={B}, N1={plan.N1}, "
+                 f"N2={plan.N2}, H={plan.half}, rows_in={plan.rows_in}, "
+                 f"rows_out={plan.rows_out}): stage-A {t_a / B:.4f}, K1 "
+                 f"{t_k / B:.4f}, inverse {t_i / B:.4f}, lag slice+norm "
+                 f"{t_s / B:.4f}; whole plan {t_p / B:.4f}; max abs vs f64 "
+                 f"{err:.3e}; monolithic cuFFT {t_mono / B:.4f}")
+        del ax, ay, c, flat
+    plan = fft4.plan_correlate4(N, imin, imax, normalize=True, route="acc")
+    w1, wi, t = plan.device_consts(x.device)
+    ax, ay = plan.stage_a(x, w1), plan.stage_a(y, w1)
+    vx, vy = plan.padded(x), plan.padded(y)
+    t_a = median_ms(lambda: (plan.stage_a(x, w1), plan.stage_a(y, w1)), 10)
+    t_k3 = median_ms(lambda: ff.fused_corr_acc(ax, ay, t, wi), 10)
+    t_k4 = median_ms(lambda: ff.fused_corr_full(vx, vy, w1, t, wi), 10)
+    phase(4, f"ms per window (N1={plan.N1}, N2={plan.N2}): route acc = "
+             f"stage-A {t_a / B:.4f} + K3 {t_k3 / B:.4f} + slice, correlate "
+             f"{per_window['acc']:.4f}; route full = K4 {t_k4 / B:.4f} + "
+             f"slice, correlate {per_window['full']:.4f}; route corr "
+             f"correlate {per_window['corr']:.4f}")
+    del x, y, ax, ay, vx, vy
     torch.cuda.empty_cache()
+
+
+def _finish(fft4, plan, flat, x, y):
+    """The first two windows' normalized CCFs of a split run, float64."""
+    return fft4._finish_ccf(flat[:2], x[:2], y[:2], plan.segs_flat,
+                            True).double().cpu().numpy()
 
 
 def phase5_pair_days(xt, ff):
@@ -433,10 +539,21 @@ def main():
              f"count {torch.cuda.device_count()}")
 
     # -- 2. build --------------------------------------------------------
+    tmp = tempfile.TemporaryDirectory()
+    ptxas = subprocess.Popen(
+        [_build._nvcc(), *_build._FLAGS, "-Xptxas", "-v", "-c", "-o",
+         os.path.join(tmp.name, "k1.o"),
+         str(_build._CSRC / "fused_corr.cu")],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     t0 = time.perf_counter()
-    _build.load()
+    lib = _build.load()
     phase(2, f"kernels built in {_build.build_seconds:.2f} s "
              f"(load {time.perf_counter() - t0:.2f} s)")
+    report = ptxas.communicate()[1]
+    tmp.cleanup()
+    check(ptxas.returncode == 0, f"nvcc -Xptxas -v of K1 failed: {report}")
+    for lg, line in k1_ptxas(report, ff):
+        phase(2, f"K1 ptxas, N2 = {1 << lg}: {line}")
 
     # -- 3. every kernel against its plain version ------------------------
     # lag window and four-step plan of the production geometry
@@ -449,13 +566,19 @@ def main():
     lag_attrs = ds_geom.coords["lag"].attrs
     imin, imax = int(lag_attrs["index_min"]), int(lag_attrs["index_max"])
     check(int(lag_attrs["npts"]) == N, f"npts {lag_attrs['npts']} != {N}")
-    plan = fft4.plan_correlate4(N, imin, imax, normalize=True)
+    plan = fft4.plan_correlate4(N, imin, imax, normalize=True, route="corr")
+    plan_acc = fft4.plan_correlate4(N, imin, imax, normalize=True,
+                                    route="acc")
+    check((plan.N1, plan.N2, plan_acc.N1, plan_acc.N2)
+          == (528, 16384, 1056, 8192),
+          f"default geometry corr {plan.N1}x{plan.N2}, acc "
+          f"{plan_acc.N1}x{plan_acc.N2}")
     check(not fft4.tf32_enabled(), "TF32 is on after building a plan")
     phase(3, f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
              f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
              f"float32_matmul_precision="
              f"{torch.get_float32_matmul_precision()}")
-    rec = phase3_kernels(ff, plan)
+    rec = phase3_kernels(ff, plan, plan_acc, lib.xc_fused_corr_phases)
 
     # -- 4. day-scale correlate, once per route ---------------------------
     phase4_correlate(ff, cc, fft4, imin, imax)

@@ -17,6 +17,10 @@ from xcorr_tpu_torch.ops import fused_fft
 
 ATOL = 5e-7
 N = 2000
+# a length where the routes' default geometries differ; 1e-6 abs, the
+# repository's bar for normalized CCFs against the float64 oracle
+N_LONG = 100_000
+ATOL_LONG = 1e-6
 # fftshifted lag windows of the 2N-1 lags (zero lag at 1999)
 WINDOWS = [(1999, 3000), (500, 1500), (1500, 2500)]
 
@@ -98,18 +102,69 @@ def test_plan_matches_reference_and_is_slice_contiguous(n1, window):
 def test_geometry_is_power_of_two_and_bounded():
     assert tfft4._pick_factors(3999, 16) == (16, 256)
     assert tfft4._pick_factors(3999, 24) == (24, 256)  # 167 -> 256
-    # production: 24 h at 50 Hz
+    # production: 24 h at 50 Hz. corr (K1, rows up to 16384) takes the
+    # reference's geometry; acc and full (K3, K4: up to 8192) n1 = 1056
     nn = 2 * 4_320_000 - 1
-    n1 = tfft4._default_n1(nn)
-    assert (n1, tfft4._pick_factors(nn, n1)) == (1056, (1056, 8192))
+    for route, n1, N2 in [("corr", 528, 16384), ("acc", 1056, 8192),
+                          ("full", 1056, 8192)]:
+        assert tfft4._default_n1(nn, route) == n1
+        assert tfft4._pick_factors(nn, n1) == (n1, N2)
+        assert tfft4.padded_len(4_320_000, route=route) == 4_325_376
+    assert tfft4._default_n1(nn) == 528
+    assert tfft4._half_rows(528) == 265
     assert tfft4._half_rows(1056) == 529
-    assert tfft4.padded_len(4_320_000) == 528 * 8192
-    # N2 = 32768 > MAX_N2: refused before any table is built
+    assert tfft4.padded_len(4_320_000) == 264 * 16384
+    # N2 = 32768 > every kernel's limit: refused before any table is built
     with pytest.raises(ValueError, match="power of two"):
         tfft4.plan_correlate4(100_000, n1=8)
-    for bad in (250, 3 * 1024, 2 * fused_fft.MAX_N2, 1):
+    for bad in (250, 3 * 1024, 2 * fused_fft.MAX_N2["fused_corr"], 1):
         with pytest.raises(ValueError, match="power of two"):
-            fused_fft.check_geometry(bad)
+            fused_fft.check_geometry(bad, "fused_corr")
+
+
+@pytest.mark.parametrize("route,n1,N2", [("corr", 16, 16384),
+                                         ("acc", 32, 8192),
+                                         ("full", 32, 8192)])
+def test_default_geometry_follows_the_route(route, n1, N2):
+    """At n = 100,000 the routes' defaults differ; the route is resolved
+    before n1 is picked, and a route refuses rows its kernel does not
+    take."""
+    plan = tfft4.plan_correlate4(N_LONG, N_LONG - 1, N_LONG + 999,
+                                 route=route)
+    assert (plan.route, plan.N1, plan.N2) == (route, n1, N2)
+    if route == "corr":
+        assert tfft4.padded_len(N_LONG) == 7 * 16384
+    else:
+        assert tfft4.padded_len(N_LONG, route=route) == 13 * 8192
+        with pytest.raises(ValueError, match="power of two"):
+            tfft4.plan_correlate4(N_LONG, n1=16, route=route)
+
+
+@pytest.mark.parametrize("window", [(90_000, 99_000), (95_000, 105_000),
+                                    (0, 2 * N_LONG - 1)], ids=str)
+def test_corr_route_at_n1_16_matches_reference_and_f64(window):
+    """The corr route at its own geometry (n1 = 16, N2 = 16384; plain
+    stage B on the CPU) against the reference's four-step plan with its
+    XLA stage B (``stageb='fft'``, which picks its own N1 x N2: the
+    function on the lag window is the same) and the float64 oracle."""
+    import jax.numpy as jnp
+    from xcorr_tpu.ops import fft4 as jfft4
+    from xcorr_tpu.util.cc import cc as cc_f64
+    imin, imax = window
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2, N_LONG)).astype(np.float32)
+    y = (np.roll(x, 40, axis=1)
+         + 0.5 * rng.normal(size=(2, N_LONG))).astype(np.float32)
+    plan = tfft4.plan_correlate4(N_LONG, imin, imax, route="corr")
+    assert (plan.N1, plan.N2) == (16, 16384)
+    got = plan(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    ref = jfft4.plan_correlate4(N_LONG, imin, imax, stageb="fft")
+    want = np.asarray(ref(jnp.asarray(x), jnp.asarray(y)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_LONG)
+    oracle = np.stack([cc_f64(x[i].astype(np.float64),
+                              y[i].astype(np.float64),
+                              unbiased=False)[imin:imax] for i in range(2)])
+    np.testing.assert_allclose(got, oracle, rtol=0, atol=ATOL_LONG)
 
 
 def test_tf32_off_after_plan_and_checked(monkeypatch):

@@ -101,7 +101,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         ax = ay = torch.zeros(1, 2, 4, 250)
         T = torch.zeros(2, 4, 250)
     elif bad == "N2_too_long":
-        n2 = 2 * fused_fft.MAX_N2
+        n2 = 2 * fused_fft.MAX_N2["fused_corr"]
         ax = ay = torch.zeros(1, 2, 1, n2)
         T = torch.zeros(2, 1, n2)
     elif bad == "T_shape":
@@ -118,18 +118,79 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         fused_fft.fused_corr(ax, ay, T)
 
 
+def _kernel_args(kernel, N2):
+    """The smallest arguments each wrapper takes, rows of length N2."""
+    z = torch.zeros
+    planes = (z(1, 2, 1, N2), z(1, 2, 1, N2), z(2, 1, N2))
+    return {"fused_corr": planes,
+            "stageb_fwd": planes[1:],
+            "stageb_inv": planes,
+            "fused_corr_acc": planes + (z(1, 2),),
+            "fused_corr_full": (z(1, 1, N2), z(1, 1, N2), z(2, 1),
+                                z(2, 1, N2), z(1, 2))}[kernel]
+
+
+@pytest.mark.parametrize("kernel", fused_fft.KERNELS)
+def test_each_wrapper_refuses_rows_above_its_own_limit(kernel):
+    """K1 takes rows of 16384 (its rows live in registers); K2, K3 and K4
+    hold whole rows in shared memory and stop at 8192."""
+    fn = getattr(fused_fft, kernel)
+    top = fused_fft.MAX_N2[kernel]
+    assert top == (16384 if kernel == "fused_corr" else 8192)
+    assert fn(*_kernel_args(kernel, top)).abs().max().item() == 0.0
+    with pytest.raises(ValueError, match="power of two"):
+        fn(*_kernel_args(kernel, 2 * top))
+    if kernel != "fused_corr":
+        with pytest.raises(ValueError, match="power of two"):
+            fn(*_kernel_args(kernel, 16384))
+
+
+@pytest.mark.parametrize("N2", [2, 32, 64, 2048, 8192, 16384])
+def test_k1_twiddle_table_is_the_thread_maps_lookup(N2):
+    """For every pass of K1's row transform with m = L / r > 1, the table
+    gives W_L^(lo·p) = A[p][lo % a] · B[p][lo / a] for every lo < m and
+    p < r (csrc/fft_reg.cuh), and the block's shared memory (x spectrum,
+    table, padded exchange buffer) fits the card's 227 KB."""
+    tab = fused_fft._k1_twiddles(N2, "cpu").numpy().astype(np.float64)
+    w = tab[:, 0] + 1j * tab[:, 1]
+    passes = fused_fft._k1_passes(N2)
+    assert sum(r for _, r in passes) == N2.bit_length() - 1
+    off = 0
+    for ll, lr in passes:
+        L, r, m = 1 << ll, 1 << lr, 1 << (ll - lr)
+        if m == 1:
+            continue
+        a, nb = min(32, m), m // min(32, m)
+        A = w[off:off + r * a].reshape(r, a)
+        off += r * a
+        B = np.ones((r, 1))
+        if nb > 1:
+            B = w[off:off + r * nb].reshape(r, nb)
+            off += r * nb
+        lo, p = np.arange(m)[None, :], np.arange(r)[:, None]
+        got = A[:, lo[0] % a] * B[:, lo[0] // a]
+        np.testing.assert_allclose(got, np.exp(-2j * np.pi * lo * p / L),
+                                   rtol=0, atol=3e-7)
+    assert off == len(w)
+    assert 8 * N2 + 8 * len(w) + 4 * (N2 + N2 // 32) <= 232448
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 2, 24, 256), (4, 2, 529, 8192)])
+@pytest.mark.parametrize("shape", [(2, 2, 24, 256), (4, 2, 529, 8192),
+                                   (1, 2, 3, 16384), (4, 2, 265, 16384)])
 def test_kernel_matches_plain_on_card(cuda_device, shape):
     """The CUDA kernel against its plain version on the card, at the
-    small shape and the day-scale one."""
+    small shape, the n1 = 1056 day-scale one, one row of 16384 and the
+    n1 = 528 day-scale one; a second launch gives the same bits."""
     B, _, H, N2 = shape
     ax, ay, T = (torch.from_numpy(a).to(cuda_device)
                  for a in _inputs(B, H, N2, 2 * (H - 1) * N2))
     before = fused_fft.launches["fused_corr"]
     got = fused_fft.fused_corr(ax, ay, T)
+    again = fused_fft.fused_corr(ax, ay, T)
     torch.cuda.synchronize()
-    assert fused_fft.launches["fused_corr"] == before + 1
+    assert fused_fft.launches["fused_corr"] == before + 2
+    assert torch.equal(got, again)
     want = fused_fft.fused_corr_plain(ax, ay, T)
     assert ((got - want).abs().max() <= RTOL_OF_MAX
             * want.abs().max()).item()

@@ -88,6 +88,7 @@ def _library_path() -> Path:
 #: (i), then the stream (p). Every function returns a CUDA error code.
 _SIGNATURES = {
     "xc_fused_corr": "pppppiiiip",
+    "xc_fused_corr_phases": "pppppiiiipp",
     "xc_stageb_fwd": "ppppiiiip",
     "xc_stageb_inv": "pppppiiiip",
     "xc_fused_corr_acc": "ppppppppiiiiiiip",

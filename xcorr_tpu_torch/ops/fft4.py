@@ -30,10 +30,16 @@ pair as ``C(N1-k1) = conj(C(k1))``. Stage A and stage B therefore run on
 the first ``H = N1/2 + 1`` rows only, and the mirror rows fold into the
 pruned inverse as the real-ifft weights (2, except 1 at k1 = 0 and N1/2).
 
-Geometry: the kernels hold one row of x and one of y in a block's shared
-memory, so N2 is a power of two no larger than ``fused_fft.MAX_N2``, on
-every route. The default ``n1`` makes N2 = 8192 for day-scale windows:
-at n = 4,320,000, n1 = 1056 and N = 8,650,752.
+Geometry: N2 is a power of two no larger than the route's kernel takes
+(``fused_fft.MAX_N2``): 16384 on ``corr`` (K1 keeps its rows in
+registers), 8192 on ``acc`` and ``full`` (K3 and K4 hold two rows in a
+block's shared memory). The default ``n1`` is the route's own, the
+smallest multiple of 16 that brings N2 down to that limit. At
+n = 4,320,000 (24 h at 50 Hz) ``corr`` takes n1 = 528, N2 = 16384,
+H = 265, rows_in = 264, the reference's geometry; ``acc`` and ``full``
+take n1 = 1056, N2 = 8192, H = 529, rows_in = 528. N = N1·N2 =
+8,650,752 on every route. A smaller N1 shrinks stage A and the pruned
+inverse, dense products over the k1 rows, at the same N.
 
 Precision: the products run in full float32. TF32 is switched off for
 matmuls and cuDNN when a plan is built and checked on every call.
@@ -53,13 +59,16 @@ from .fused_fft import (MAX_N2, check_geometry, fused_corr, fused_corr_acc,
 
 __all__ = ["plan_correlate4", "padded_len", "resolve_route", "ROUTES"]
 
-#: the correlation routes: K1, K3 and K4 of ops.fused_fft
-ROUTES = ("corr", "acc", "full")
+#: the correlation routes and the kernel of ops.fused_fft each launches
+ROUTE_KERNEL = {"corr": "fused_corr", "acc": "fused_corr_acc",
+                "full": "fused_corr_full"}
+ROUTES = tuple(ROUTE_KERNEL)
 
 
-def _default_n1(nn: int) -> int:
-    """Smallest multiple of 16 that brings N2 down to ``MAX_N2``."""
-    rows = -(-nn // MAX_N2)  # ceil(nn / MAX_N2)
+def _default_n1(nn: int, route: str = "corr") -> int:
+    """Smallest multiple of 16 that brings N2 down to the largest row
+    the route's kernel takes."""
+    rows = -(-nn // MAX_N2[ROUTE_KERNEL[route]])  # ceil(nn / max N2)
     return max(16, -(-rows // 16) * 16)
 
 
@@ -69,11 +78,11 @@ def _pick_factors(nn: int, n1: int):
     return n1, next_fast_len(-(-nn // n1), radices=(2,))
 
 
-def padded_len(n: int, n1: int = None) -> int:
+def padded_len(n: int, n1: int = None, route: str = "corr") -> int:
     """Stage-A input length ``rows_in * N2`` for a window of ``n``
-    samples."""
+    samples, in ``route``'s default geometry unless ``n1`` is given."""
     nn = 2 * n - 1
-    _, N2 = _pick_factors(nn, n1 or _default_n1(nn))
+    _, N2 = _pick_factors(nn, n1 or _default_n1(nn, route))
     return -(-n // N2) * N2
 
 
@@ -211,8 +220,11 @@ def tf32_enabled() -> bool:
 def resolve_route(route=None) -> str:
     """``route``, or when it is None the environment's: ``"full"`` if
     ``XCORR_FFT4_FULL=1``, else ``"acc"`` if ``XCORR_FFT4_FUSED_INV=1``,
-    else ``"corr"`` (:class:`FusedPlan` rejects any other name)."""
+    else ``"corr"``. Any name outside :data:`ROUTES` raises
+    ``ValueError``."""
     if route is not None:
+        if route not in ROUTES:
+            raise ValueError(f"route={route!r}: expected one of {ROUTES}")
         return route
     if os.environ.get("XCORR_FFT4_FULL", "0") == "1":
         return "full"
@@ -232,8 +244,8 @@ class FusedPlan:
 
     def __init__(self, n, index_min, index_max, n1, normalize,
                  route="corr"):
-        if route not in ROUTES:
-            raise ValueError(f"route={route!r}: expected one of {ROUTES}")
+        # check the geometry before _plan builds its (N1, N2) tables
+        check_geometry(_pick_factors(2 * n - 1, n1)[1], ROUTE_KERNEL[route])
         self.route = route
         p = _plan(n, index_min, index_max, n1)
         N1, N2 = p["N1"], p["N2"]
@@ -312,19 +324,18 @@ def plan_correlate4(n: int, index_min: int = None, index_max: int = None,
                     route: str = None) -> FusedPlan:
     """The four-step correlation ``f(x, y) -> ccf`` for windows of ``n``
     samples, on ``route`` (see :func:`resolve_route`: None reads the
-    environment, on every call). Raises ``ValueError`` when N2 is not a
-    power of two of at most ``fused_fft.MAX_N2``, the geometry every
-    route's kernel takes."""
+    environment, on every call). The route is resolved first, then
+    ``n1`` defaults to the route's own (:func:`_default_n1`). Raises
+    ``ValueError`` when N2 is not a power of two the route's kernel takes
+    (``fused_fft.MAX_N2``)."""
     nn = 2 * n - 1
     index_min = 0 if index_min is None else index_min
     index_max = nn if index_max is None else index_max
-    n1 = n1 or _default_n1(nn)
-    return _build_plan(n, index_min, index_max, n1, normalize,
-                       resolve_route(route))
+    route = resolve_route(route)
+    n1 = n1 or _default_n1(nn, route)
+    return _build_plan(n, index_min, index_max, n1, normalize, route)
 
 
 @lru_cache(maxsize=32)
 def _build_plan(n, index_min, index_max, n1, normalize, route):
-    # check the geometry before _plan builds its (N1, N2) tables
-    check_geometry(_pick_factors(2 * n - 1, n1)[1])
     return FusedPlan(n, index_min, index_max, n1, normalize, route)

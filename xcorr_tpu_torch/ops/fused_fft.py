@@ -35,12 +35,14 @@ notes in ``csrc/corr_acc.cuh``). Not carried from the TPU: ``ROWS = 8``,
 the VMEM gates, K4's bf16 hi/lo input split and the ``high_block`` /
 Karatsuba precision variants; every kernel computes in float32.
 
-Each kernel keeps its rows in shared memory, so N2 must be a power of two
-no larger than :data:`MAX_N2`. Each has a plain PyTorch version
-(``*_plain``): a wrapper takes it for CPU tensors only, launches the
-kernel (or raises) for CUDA tensors, and adds one to
-``launches[name]`` per launch. The tests and ``chip_smoke.py`` hold each
-kernel against its plain version.
+N2 must be a power of two no larger than the kernel's own
+:data:`MAX_N2`: 16384 for K1, whose rows live in registers between the
+exchanges of its radix passes (``csrc/fft_reg.cuh``), 8192 for K2-K4,
+which hold whole rows in shared memory (``csrc/fft_row.cuh``). Each
+kernel has a plain PyTorch version (``*_plain``): a wrapper takes it for
+CPU tensors only, launches the kernel (or raises) for CUDA tensors, and
+adds one to ``launches[name]`` per launch. The tests and
+``chip_smoke.py`` hold each kernel against its plain version.
 
 Layouts: stage-A planes, spectra and K1's output are ``(B, 2, H, N2)``
 float32 with re/im on axis 1; ``T`` is ``(2, H, N2)``; ``wi`` the
@@ -61,9 +63,11 @@ __all__ = ["fused_corr", "fused_corr_plain", "stageb_fwd",
            "fused_corr_full_plain", "check_geometry", "bitrev", "groups",
            "MAX_N2", "KERNELS", "launches", "reset_launches"]
 
-#: largest row length whose x and y rows (complex float32) plus the
-#: twiddle table fit one block's shared memory (160 KB of 227 KB)
-MAX_N2 = 8192
+#: largest row length per kernel: K1 holds the x spectrum and an
+#: exchange buffer in shared memory (210 KB of 227 KB at 16384); K2-K4
+#: hold the x and y rows plus the twiddle table (160 KB at 8192)
+MAX_N2 = {"fused_corr": 16384, "stageb_fwd": 8192, "stageb_inv": 8192,
+          "fused_corr_acc": 8192, "fused_corr_full": 8192}
 
 #: k1 groups per window of K3 and K4: 16 x B blocks fill the card's
 #: 132 SMs in one wave at the pair-day's B = 8
@@ -87,12 +91,13 @@ def reset_launches():
             launches[k] = 0
 
 
-def check_geometry(N2: int):
-    """Raise ``ValueError`` unless the kernels take rows of length N2."""
-    if N2 < 2 or N2 & (N2 - 1) or N2 > MAX_N2:
+def check_geometry(N2: int, kernel: str):
+    """Raise ``ValueError`` unless ``kernel`` (a name of :data:`KERNELS`)
+    takes rows of length N2."""
+    top = MAX_N2[kernel]
+    if N2 < 2 or N2 & (N2 - 1) or N2 > top:
         raise ValueError(
-            f"N2={N2}: the fused stage-B kernels take a power of two "
-            f"between 2 and {MAX_N2}")
+            f"N2={N2}: {kernel} takes a power of two between 2 and {top}")
 
 
 def groups(H: int):
@@ -122,6 +127,41 @@ def bitrev(N2: int, device="cpu"):
             r |= ((p >> i) & 1) << (bits - 1 - i)
         return torch.from_numpy(r).to(device)
     return _cached(("bitrev", N2, str(device)), make)
+
+
+def _k1_passes(N2: int):
+    """``(log2 L_i, log2 r_i)`` of each radix pass of K1's row transform
+    (``csrc/fft_reg.cuh``): radix 32 but for the last pass, which takes
+    the rest."""
+    lg = N2.bit_length() - 1
+    k = -(-lg // 5)
+    return [(lg - 5 * i, 5 if i < k - 1 else lg - 5 * (k - 1))
+            for i in range(k)]
+
+
+def _k1_twiddles(N2: int, device):
+    """K1's pass twiddles in ``csrc/fft_reg.cuh``'s layout, computed in
+    float64, stored as interleaved float32 (re, im) pairs on ``device``:
+    for each pass with ``m = L / r > 1``, ``A[p][c] = W_L^(c·p)`` for
+    ``c < a = min(32, m)``, then, when ``nb = m / a > 1``,
+    ``B[p][h] = W_L^(a·h·p)`` for ``h < nb``; ``p < r`` throughout."""
+    def make():
+        parts = [np.zeros(0, complex)]
+        for ll, lr in _k1_passes(N2):
+            L, r, m = 1 << ll, 1 << lr, 1 << (ll - lr)
+            if m == 1:
+                continue
+            a = min(32, m)
+            p = np.arange(r)[:, None]
+            cols = [np.arange(a)] + ([a * np.arange(m // a)] if m > a
+                                     else [])
+            for c in cols:
+                parts.append(np.exp(-2j * np.pi * ((p * c) % L) / L)
+                             .ravel())
+        w = np.concatenate(parts)
+        host = np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+        return torch.from_numpy(host).to(device)
+    return _cached(("k1tw", N2, str(device)), make)
 
 
 def _inner_twiddles(N2: int, device):
@@ -199,15 +239,15 @@ def _check_tensors(ref, **tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_planes(T, **planes):
-    """Packed ``(B, 2, H, N2)`` planes of one shape and their ``T``;
-    returns ``(B, H, N2)``."""
+def _check_planes(kernel, T, **planes):
+    """Packed ``(B, 2, H, N2)`` planes of one shape and their ``T``, in
+    ``kernel``'s geometry; returns ``(B, H, N2)``."""
     first = next(iter(planes.values()))
     if first.dim() != 4 or first.shape[1] != 2:
         raise ValueError(
             f"planes must be (B, 2, H, N2), got {tuple(first.shape)}")
     B, _, H, N2 = first.shape
-    check_geometry(N2)
+    check_geometry(N2, kernel)
     for name, a in planes.items():
         if a.shape != first.shape:
             raise ValueError(
@@ -255,13 +295,13 @@ def _stream(a):
 def fused_corr(ax, ay, T):
     """K1: fused stage-B correlation of the packed planes ``ax``, ``ay``
     -> ``(B, 2, H, N2)``."""
-    B, H, N2 = _check_planes(T, ax=ax, ay=ay)
+    B, H, N2 = _check_planes("fused_corr", T, ax=ax, ay=ay)
     if _device_of(ax, "fused_corr") == "cpu":
         return fused_corr_plain(ax, ay, T)
     from ._build import load
     lib = load()
     out = torch.empty_like(ax)
-    tw = _inner_twiddles(N2, ax.device)
+    tw = _k1_twiddles(N2, ax.device)
     _launch("fused_corr", lib.xc_fused_corr,
             *_ptrs(ax, ay, T, tw, out), B, H, N2, N2.bit_length() - 1,
             _stream(ax))
@@ -271,7 +311,7 @@ def fused_corr(ax, ay, T):
 def stageb_fwd(a, T):
     """K2 forward: ``DFT_N2(a·T)`` per row, ``(B, 2, H, N2)`` in
     bit-reversed n2 order (see :func:`bitrev`)."""
-    B, H, N2 = _check_planes(T, a=a)
+    B, H, N2 = _check_planes("stageb_fwd", T, a=a)
     if _device_of(a, "stageb_fwd") == "cpu":
         return stageb_fwd_plain(a, T)
     from ._build import load
@@ -286,7 +326,7 @@ def stageb_fwd(a, T):
 def stageb_inv(fx, fy, T):
     """K2 inverse: ``IDFT_N2(fx·conj fy)·conj T`` per row of two spectra
     in :func:`stageb_fwd`'s order, ``(B, 2, H, N2)`` in natural order."""
-    B, H, N2 = _check_planes(T, fx=fx, fy=fy)
+    B, H, N2 = _check_planes("stageb_inv", T, fx=fx, fy=fy)
     if _device_of(fx, "stageb_inv") == "cpu":
         return stageb_inv_plain(fx, fy, T)
     from ._build import load
@@ -302,7 +342,7 @@ def fused_corr_acc(ax, ay, T, wi):
     """K3: ``wi @ fused_corr(ax, ay, T)`` over the packed axis, computed
     in one kernel (plus the fixed-order sum of its group partials) ->
     ``(B, rows_out, N2)``."""
-    B, H, N2 = _check_planes(T, ax=ax, ay=ay)
+    B, H, N2 = _check_planes("fused_corr_acc", T, ax=ax, ay=ay)
     rows_out = _check_wi(wi, H, ax)
     if _device_of(ax, "fused_corr_acc") == "cpu":
         return fused_corr_acc_plain(ax, ay, T, wi)
@@ -329,7 +369,7 @@ def fused_corr_full(vx, vy, w1, T, wi):
             f"vx and vy must be one (B, rows_in, N2) shape, got "
             f"{tuple(vx.shape)} and {tuple(vy.shape)}")
     B, rows_in, N2 = vx.shape
-    check_geometry(N2)
+    check_geometry(N2, "fused_corr_full")
     if w1.dim() != 2 or w1.shape[1] != rows_in or w1.shape[0] % 2:
         raise ValueError(
             f"w1 must be (2H, {rows_in}), got {tuple(w1.shape)}")
