@@ -9,20 +9,25 @@ Phases, each printed on its own line; any failure exits non-zero:
 1. the card (``nvidia-smi``), torch, CUDA and the TF32 switches;
 2. build the hand-written kernels from ``xcorr_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together) and, beside the build,
-   ``nvcc -Xptxas -v`` of K1 for its registers, shared memory and spills
-   at N2 = 8192 and 16384;
+   ``nvcc -Xptxas -v`` of K1, K3 and K4 for the registers, shared memory
+   and spills of their row chains at N2 = 8192 and 16384 and of K3's and
+   K4's split-TF32 product (``gemm_tf32.cu``); then the count of TF32
+   ``HMMA`` instructions in the built library's SASS (``cuobjdump
+   -sass``), on its own line;
 3. every kernel against its plain PyTorch version, max |diff| / max
    |plain| <= 1e-5, with CUDA-event times of both (median of 20 launches
    after warm-up) and the card's bound for the same work: K1 at the
    pair-day's shape of its route (8, 2, 265, 16384: n1 = 528), at
    (4, 2, 265, 16384), at the n1 = 1056 shape (8, 2, 529, 8192) and at a
-   small one; K2 (forward and inverse), K3 and K4 at the pair-day's
-   shapes of the n1 = 1056 plan their routes take (B = 8, H = 529,
-   N2 = 8192, rows_in = 528, rows_out = 198, with that plan's own w1, T
-   and wi) and at a small one. K1, K3 and K4 run twice on the same
-   inputs and must give the same bits. At the two 8-window K1 shapes, K1's
-   phase clock (``xc_fused_corr_phases``): SM cycles per row, phase by
-   phase;
+   small one; K3 and K4 at the pair-day's shape of their routes (B = 8,
+   H = 265, N2 = 16384, rows_in = 264, rows_out = 99, with the n1 = 528
+   plan's own w1, T and wi), at the n1 = 1056 one (B = 8, H = 529,
+   N2 = 8192, rows_in = 528, rows_out = 198, that plan's constants) and
+   at a small one; K2 (forward and inverse, rows up to 8192) at the
+   n1 = 1056 and the small shapes. K1, K3 and K4 run twice on the same
+   inputs and must give the same bits. At the two 8-window K1 shapes,
+   K1's phase clock (``xc_fused_corr_phases``): SM cycles per row, phase
+   by phase;
 4. ``ops.cc.correlate`` on 16 synthetic 24 h windows at 50 Hz
    (n = 4,320,000) with the 0-9 h lag window, once per route of the
    four-step path, each chosen as a user chooses it (no variable: K1;
@@ -31,8 +36,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    windows within 1e-6 abs of a float64 numpy oracle, the peak on the
    injected delay, ms per window and peak working memory; the K1 route's
    time split into stage-A product, K1, inverse product and lag slice at
-   its default n1 = 528 and at n1 = 1056; the monolithic cuFFT route
-   beside them;
+   its default n1 = 528 and at n1 = 1056; the K3 route's into stage-A
+   product, K3 and lag slice and the K4 route's into K4 and lag slice, at
+   n1 = 528; the monolithic cuFFT route beside them;
 5. the slice, once per route after a first (cold) run on the K1 route:
    ``init`` -> ``process(device='cuda')`` of one production-geometry
    pair-day from ``SyntheticClient``: every status 1, all 8 CCF peaks on
@@ -78,9 +84,10 @@ ROUTES = {"corr": ("fused_corr", {}),
           "full": ("fused_corr_full", {"XCORR_FFT4_FULL": "1"})}
 ROUTE_VARS = ("XCORR_FFT4_FULL", "XCORR_FFT4_FUSED_INV")
 #: one H100 SXM's published peaks: HBM bytes/s, float32 FLOP/s outside
-#: the tensor cores
+#: the tensor cores, dense TF32 FLOP/s on the tensor cores
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 #: the TPU kernel body each kernel replaces
 REPLACES = {
     "fused_corr": "xcorr_tpu/ops/pallas_fft.py:446",
@@ -140,14 +147,20 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(in_bytes, out_bytes, flops):
-    """Least time (ms) of the work on the card, and what bounds it: each
-    input read once and each output written once at the HBM rate, or the
-    float32 operations at the CUDA cores' peak."""
+def bound(in_bytes, out_bytes, flops, product_flops=0.0):
+    """Least time (ms) of the work on the card, what bounds it, and the
+    older float32 form of the bound (ms). The least time is the largest
+    of three: each input read once and each output written once at the
+    HBM rate; the transforms' float32 operations (``flops``) at the CUDA
+    cores' peak; the matrix products' operations (``product_flops``) as
+    three TF32 passes at the tensor cores' peak, as accurate as float32
+    and counted so whatever implements them. The float32 form puts the
+    products at the CUDA cores' peak too."""
     t_bytes = (in_bytes + out_bytes) / HBM_BPS
-    t_ops = flops / FP32_FLOPS
+    t_ops = max(flops / FP32_FLOPS, 3 * product_flops / TF32_FLOPS)
+    t_fp32 = max(t_bytes, (flops + product_flops) / FP32_FLOPS)
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", t_fp32 * 1e3)
 
 
 def stageb_flops(B, H, N2):
@@ -235,15 +248,16 @@ def hold(ff, name, label, args, rerun=False):
     return got, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def phase3_kernels(ff, plan, plan_acc, clock_fn):
+def phase3_kernels(ff, plan, plan_1056, clock_fn):
     """Every kernel against its plain version; returns the pair-day
-    shape's record per kernel. ``plan`` is the K1 route's plan,
-    ``plan_acc`` the n1 = 1056 plan of the K3 and K4 routes, ``clock_fn``
-    K1's phase-clock entry point."""
+    shape's record per kernel. ``plan`` is the n1 = 528 plan every route
+    takes, ``plan_1056`` the n1 = 1056 one (rows of 8192, K2's limit),
+    ``clock_fn`` K1's phase-clock entry point."""
     rec = {}
-    H, N2 = plan.half, plan.N2
-    H8, N28, rows_in, rows_out = plan_acc.half, plan_acc.N2, \
-        plan_acc.rows_in, plan_acc.rows_out
+    H, N2, rows_in, rows_out = plan.half, plan.N2, plan.rows_in, \
+        plan.rows_out
+    H8, N28, rows_in8, rows_out8 = plan_1056.half, plan_1056.N2, \
+        plan_1056.rows_in, plan_1056.rows_out
     # K1: the pair-day's shape (8 windows) first; the record keeps it
     for shape in [(8, 2, H, N2), (4, 2, H, N2), (8, 2, H8, N28),
                   (2, 2, 24, 256)]:
@@ -251,7 +265,7 @@ def phase3_kernels(ff, plan, plan_acc, clock_fn):
         _, r = hold(ff, "fused_corr", shape, (d["ax"], d["ay"], d["T"]),
                     rerun=True)
         B = shape[0]
-        r["bound_ms"], r["bound_by"] = bound(
+        r["bound_ms"], r["bound_by"], _ = bound(
             nbytes(d["ax"], d["ay"], d["T"]), nbytes(d["ax"]),
             stageb_flops(B, shape[2], shape[3]))
         phase(3, f"fused_corr {shape}: bound {r['bound_ms']:.4f} ms by "
@@ -261,10 +275,13 @@ def phase3_kernels(ff, plan, plan_acc, clock_fn):
             k1_phase_clock(clock_fn, ff, d, shape)
         rec.setdefault("fused_corr", r)
         del d
-    # K2-K4: the pair-day's shapes with the plan's constants, then small
-    for B, Hs, N2s, ri, ro, consts in [
-            (8, H8, N28, rows_in, rows_out, plan_acc.device_consts("cuda")),
-            (2, 24, 256, 8, 5, None)]:
+    # K3 and K4 at their pair-day's shape with the plan's constants, then
+    # K2 (rows up to 8192), K3 and K4 at the n1 = 1056 one and a small one
+    for B, Hs, N2s, ri, ro, consts, with_k2 in [
+            (8, H, N2, rows_in, rows_out, plan.device_consts("cuda"), False),
+            (8, H8, N28, rows_in8, rows_out8,
+             plan_1056.device_consts("cuda"), True),
+            (2, 24, 256, 8, 5, None, True)]:
         d = kernel_inputs(B, Hs, N2s, ri, ro, SEED, consts)
         label = f"B={B} H={Hs} N2={N2s} rows_in={ri} rows_out={ro}"
         ax, ay, T, w1, wi, vx, vy = (d[k] for k in (
@@ -272,33 +289,35 @@ def phase3_kernels(ff, plan, plan_acc, clock_fn):
         plane = nbytes(ax)
         out_rows = B * ro * N2s * 4
         k1_ops = stageb_flops(B, Hs, N2s)
-        acc_ops = 2 * B * ro * 2 * Hs * N2s
+        inv_ops = 2 * B * ro * 2 * Hs * N2s
+        a_ops = 2 * 2 * B * 2 * Hs * ri * N2s
         fft = 5 * N2s * math.log2(N2s)
-        f, r_fwd = hold(ff, "stageb_fwd", label, (ax, T))
-        r_fwd["bound_ms"], r_fwd["bound_by"] = bound(
-            nbytes(ax, T), plane, B * Hs * (fft + 6 * N2s))
-        g = ff.stageb_fwd(ay, T)
-        _, r_inv = hold(ff, "stageb_inv", label, (f, g, T))
-        r_inv["bound_ms"], r_inv["bound_by"] = bound(
-            nbytes(f, g, T), plane, B * Hs * (fft + 14 * N2s))
-        acc, r_acc = hold(ff, "fused_corr_acc", label, (ax, ay, T, wi))
-        r_acc["bound_ms"], r_acc["bound_by"] = bound(
-            nbytes(ax, ay, T, wi), out_rows, k1_ops + acc_ops)
-        check(torch.equal(acc, ff.fused_corr_acc(ax, ay, T, wi)),
-              f"fused_corr_acc {label}: two launches differ")
-        full, r_full = hold(ff, "fused_corr_full", label,
-                            (vx, vy, w1, T, wi))
-        r_full["bound_ms"], r_full["bound_by"] = bound(
-            nbytes(vx, vy, w1, T, wi), out_rows,
-            k1_ops + acc_ops + 2 * 2 * B * 2 * Hs * ri * N2s)
-        check(torch.equal(full, ff.fused_corr_full(vx, vy, w1, T, wi)),
-              f"fused_corr_full {label}: two launches differ")
-        phase(3, f"K3 and K4 {label}: two launches bit-identical")
-        for name, r in (("stageb_fwd", r_fwd), ("stageb_inv", r_inv),
-                        ("fused_corr_acc", r_acc),
-                        ("fused_corr_full", r_full)):
+        if with_k2:
+            f, r = hold(ff, "stageb_fwd", label, (ax, T))
+            r["bound_ms"], r["bound_by"], _ = bound(
+                nbytes(ax, T), plane, B * Hs * (fft + 6 * N2s))
+            rec.setdefault("stageb_fwd", r)
+            g = ff.stageb_fwd(ay, T)
+            _, r = hold(ff, "stageb_inv", label, (f, g, T))
+            r["bound_ms"], r["bound_by"], _ = bound(
+                nbytes(f, g, T), plane, B * Hs * (fft + 14 * N2s))
+            rec.setdefault("stageb_inv", r)
+            del f, g
+        for name, args, in_bytes, ops, prods in [
+                ("fused_corr_acc", (ax, ay, T, wi), nbytes(ax, ay, T, wi),
+                 k1_ops, inv_ops),
+                ("fused_corr_full", (vx, vy, w1, T, wi),
+                 nbytes(vx, vy, w1, T, wi), k1_ops, a_ops + inv_ops)]:
+            _, r = hold(ff, name, label, args, rerun=True)
+            r["bound_ms"], r["bound_by"], fp32 = bound(
+                in_bytes, out_rows, ops, prods)
+            phase(3, f"{name} {label}: bound {r['bound_ms']:.4f} ms by "
+                     f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}"
+                     f"% of bound; float32 form {fp32:.4f} ms, "
+                     f"{100 * fp32 / r['ms']:.1f}%), two launches "
+                     f"bit-identical")
             rec.setdefault(name, r)
-        del d, ax, ay, vx, vy, f, g, acc, full
+        del d, ax, ay, vx, vy
     for name, r in rec.items():
         phase(3, f"{name} at the pair-day shape: {r['ms']:.4f} ms, bound "
                  f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
@@ -307,29 +326,77 @@ def phase3_kernels(ff, plan, plan_acc, clock_fn):
     return rec
 
 
-def k1_ptxas(report, ff):
-    """``(log2 N2, summary)`` of K1's instances (without the phase clock)
-    at N2 = 8192 and 16384 from ``nvcc -Xptxas -v``: registers, spills and the block's dynamic
-    shared memory (x spectrum, pass twiddles, exchange buffer)."""
-    out, lg = [], None
+#: translation units whose ``nvcc -Xptxas -v`` phase 2 reports, by the
+#: kernel they hold: the row chain of K1, K3 and K4 (one copy each, from
+#: csrc/corr_rows.cuh) and K3's and K4's split-TF32 product
+PTXAS_UNITS = {"K1": "fused_corr.cu", "K3": "fused_corr_acc.cu",
+               "K4": "fused_corr_full.cu", "K3/K4 product": "gemm_tf32.cu"}
+#: gemm_tf32.cu's dynamic shared memory: two stages of two (hi, lo)
+#: 128 x (32 + 4) A tiles and a 32 x (128 + 8) B tile, float32
+GEMM_SMEM = 2 * (2 * 128 * 36 + 32 * 136) * 4
+
+
+def ptxas_entries(report):
+    """``{mangled entry: (registers, spill line)}`` from ``nvcc -Xptxas
+    -v``."""
+    out, name, frame = {}, None, ""
     for ln in report.splitlines():
-        m = re.search(r"Compiling entry function '.*fused_corr_kernelILi"
-                      r"(\d+)ELb([01])E", ln)
-        if m:  # the instances without the phase clock
-            lg = int(m.group(1)) if m.group(2) == "0" else None
-            frame = ""
-        elif lg in (13, 14) and "spill" in ln:
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name, frame = m.group(1), ""
+        elif name and "spill" in ln:
             frame = ln.strip()
-        elif lg in (13, 14) and "Used" in ln:
-            n = 1 << lg
+        elif name and "Used" in ln:
+            regs = int(re.search(r"Used (\d+) registers", ln).group(1))
+            out[name] = (regs, frame)
+            name = None
+    return out
+
+
+def ptxas_summary(unit, report, ff):
+    """Lines for one unit: the row chain's instances without the phase
+    clock at N2 = 8192 and 16384 (registers, spills, the block's dynamic
+    shared memory: x spectrum, pass twiddles, exchange buffer), or the
+    product's two instances (B in 16-byte copies, as at the pair-day's
+    shapes, or in 4-byte ones)."""
+    lines = []
+    for name, (regs, frame) in sorted(ptxas_entries(report).items()):
+        m = re.search(r"fused_corr_kernelILi(\d+)ELb0E", name)
+        if m and int(m.group(1)) in (13, 14):
+            n = 1 << int(m.group(1))
             smem = 8 * n + 8 * len(ff._k1_twiddles(n, "cpu")) \
                 + 4 * (n + n // 32)
-            regs = re.search(r"Used (\d+) registers", ln).group(1)
-            out.append((lg, f"{regs} registers, {frame}, {smem} bytes of "
-                            f"dynamic shared memory"))
-            lg = None
-    check(len(out) == 2, "no ptxas report for K1 at N2 = 8192, 16384")
-    return sorted(out)
+            lines.append(f"rows, N2 = {n}: {regs} registers, {frame}, "
+                         f"{smem} bytes of dynamic shared memory")
+        m = re.search(r"gemm_tf32_kernelILb([01])E", name)
+        if m:
+            copies = "16-byte" if m.group(1) == "1" else "4-byte"
+            lines.append(f"product, B in {copies} copies: {regs} "
+                         f"registers, {frame}, {GEMM_SMEM} bytes of "
+                         f"dynamic shared memory")
+    check(len(lines) == 2, f"ptxas report of {unit}: {lines}")
+    return lines
+
+
+def tf32_hmma(path, nvcc):
+    """TF32 ``HMMA`` instructions per function in the SASS of the library
+    at ``path`` (``cuobjdump -sass``, beside ``nvcc``), and the distinct
+    HMMA forms."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, forms, fn = {}, set(), None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"\b(HMMA\S*)", ln)
+        if m and fn:
+            forms.add(m.group(1))
+            if "TF32" in m.group(1):
+                counts[fn] = counts.get(fn, 0) + 1
+    return counts, sorted(forms)
 
 
 def f64_oracle(x, y, imin, imax):
@@ -418,19 +485,26 @@ def phase4_correlate(ff, cc, fft4, imin, imax):
                  f"{t_s / B:.4f}; whole plan {t_p / B:.4f}; max abs vs f64 "
                  f"{err:.3e}; monolithic cuFFT {t_mono / B:.4f}")
         del ax, ay, c, flat
+    # the K3 and K4 routes split at their default geometry
     plan = fft4.plan_correlate4(N, imin, imax, normalize=True, route="acc")
     w1, wi, t = plan.device_consts(x.device)
     ax, ay = plan.stage_a(x, w1), plan.stage_a(y, w1)
     vx, vy = plan.padded(x), plan.padded(y)
+    flat = ff.fused_corr_acc(ax, ay, t, wi).view(B, -1)
     t_a = median_ms(lambda: (plan.stage_a(x, w1), plan.stage_a(y, w1)), 10)
     t_k3 = median_ms(lambda: ff.fused_corr_acc(ax, ay, t, wi), 10)
     t_k4 = median_ms(lambda: ff.fused_corr_full(vx, vy, w1, t, wi), 10)
-    phase(4, f"ms per window (N1={plan.N1}, N2={plan.N2}): route acc = "
-             f"stage-A {t_a / B:.4f} + K3 {t_k3 / B:.4f} + slice, correlate "
+    t_s = median_ms(lambda: fft4._finish_ccf(flat, x, y, plan.segs_flat,
+                                             True), 10)
+    phase(4, f"ms per window (B={B}, N1={plan.N1}, N2={plan.N2}, "
+             f"H={plan.half}, rows_in={plan.rows_in}, rows_out="
+             f"{plan.rows_out}): route acc = stage-A {t_a / B:.4f} + K3 "
+             f"{t_k3 / B:.4f} + lag slice+norm {t_s / B:.4f}, correlate "
              f"{per_window['acc']:.4f}; route full = K4 {t_k4 / B:.4f} + "
-             f"slice, correlate {per_window['full']:.4f}; route corr "
-             f"correlate {per_window['corr']:.4f}")
-    del x, y, ax, ay, vx, vy
+             f"lag slice+norm {t_s / B:.4f}, correlate "
+             f"{per_window['full']:.4f}; route corr correlate "
+             f"{per_window['corr']:.4f}")
+    del x, y, ax, ay, vx, vy, flat
     torch.cuda.empty_cache()
 
 
@@ -538,22 +612,33 @@ def main():
              f"device {torch.cuda.get_device_name(0)} "
              f"count {torch.cuda.device_count()}")
 
-    # -- 2. build --------------------------------------------------------
+    # -- 2. build ----------------------------------------------------------
     tmp = tempfile.TemporaryDirectory()
-    ptxas = subprocess.Popen(
+    ptxas = {unit: subprocess.Popen(
         [_build._nvcc(), *_build._FLAGS, "-Xptxas", "-v", "-c", "-o",
-         os.path.join(tmp.name, "k1.o"),
-         str(_build._CSRC / "fused_corr.cu")],
+         os.path.join(tmp.name, f"{i}.o"), str(_build._CSRC / src)],
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for i, (unit, src) in enumerate(PTXAS_UNITS.items())}
     t0 = time.perf_counter()
     lib = _build.load()
     phase(2, f"kernels built in {_build.build_seconds:.2f} s "
              f"(load {time.perf_counter() - t0:.2f} s)")
-    report = ptxas.communicate()[1]
+    for unit, proc in ptxas.items():
+        report = proc.communicate()[1]
+        check(proc.returncode == 0, f"nvcc -Xptxas -v of {unit} failed: "
+                                    f"{report}")
+        for line in ptxas_summary(unit, report, ff):
+            phase(2, f"{unit} ptxas, {line}")
     tmp.cleanup()
-    check(ptxas.returncode == 0, f"nvcc -Xptxas -v of K1 failed: {report}")
-    for lg, line in k1_ptxas(report, ff):
-        phase(2, f"K1 ptxas, N2 = {1 << lg}: {line}")
+    hmma, forms = tf32_hmma(_build._library_path(), _build._nvcc())
+    gemm = {k: v for k, v in hmma.items() if "gemm_tf32_kernel" in k}
+    check(len(gemm) == 2 and min(gemm.values()) > 0,
+          f"TF32 HMMA per product instance: {gemm} (forms {forms})")
+    phase(2, f"TF32 HMMA in the library's SASS: K3's and K4's product "
+             f"(gemm_tf32.cu) {sum(gemm.values())} in {len(gemm)} "
+             f"instances ({', '.join(str(v) for v in gemm.values())}); "
+             f"elsewhere {sum(hmma.values()) - sum(gemm.values())}; HMMA "
+             f"forms {forms}")
 
     # -- 3. every kernel against its plain version ------------------------
     # lag window and four-step plan of the production geometry
@@ -566,19 +651,20 @@ def main():
     lag_attrs = ds_geom.coords["lag"].attrs
     imin, imax = int(lag_attrs["index_min"]), int(lag_attrs["index_max"])
     check(int(lag_attrs["npts"]) == N, f"npts {lag_attrs['npts']} != {N}")
-    plan = fft4.plan_correlate4(N, imin, imax, normalize=True, route="corr")
-    plan_acc = fft4.plan_correlate4(N, imin, imax, normalize=True,
-                                    route="acc")
-    check((plan.N1, plan.N2, plan_acc.N1, plan_acc.N2)
-          == (528, 16384, 1056, 8192),
-          f"default geometry corr {plan.N1}x{plan.N2}, acc "
-          f"{plan_acc.N1}x{plan_acc.N2}")
+    plans = {route: fft4.plan_correlate4(N, imin, imax, normalize=True,
+                                         route=route) for route in ROUTES}
+    check(all((p.N1, p.N2, p.half) == (528, 16384, 265)
+              for p in plans.values()),
+          f"default geometry {[(p.N1, p.N2) for p in plans.values()]}")
+    plan = plans["corr"]
+    plan_1056 = fft4.plan_correlate4(N, imin, imax, n1=1056,
+                                     normalize=True, route="acc")
     check(not fft4.tf32_enabled(), "TF32 is on after building a plan")
     phase(3, f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
              f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
              f"float32_matmul_precision="
              f"{torch.get_float32_matmul_precision()}")
-    rec = phase3_kernels(ff, plan, plan_acc, lib.xc_fused_corr_phases)
+    rec = phase3_kernels(ff, plan, plan_1056, lib.xc_fused_corr_phases)
 
     # -- 4. day-scale correlate, once per route ---------------------------
     phase4_correlate(ff, cc, fft4, imin, imax)

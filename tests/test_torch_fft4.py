@@ -102,14 +102,14 @@ def test_plan_matches_reference_and_is_slice_contiguous(n1, window):
 def test_geometry_is_power_of_two_and_bounded():
     assert tfft4._pick_factors(3999, 16) == (16, 256)
     assert tfft4._pick_factors(3999, 24) == (24, 256)  # 167 -> 256
-    # production: 24 h at 50 Hz. corr (K1, rows up to 16384) takes the
-    # reference's geometry; acc and full (K3, K4: up to 8192) n1 = 1056
+    # production: 24 h at 50 Hz. Every route (K1, K3, K4: rows up to
+    # 16384) takes the reference's geometry
     nn = 2 * 4_320_000 - 1
-    for route, n1, N2 in [("corr", 528, 16384), ("acc", 1056, 8192),
-                          ("full", 1056, 8192)]:
-        assert tfft4._default_n1(nn, route) == n1
-        assert tfft4._pick_factors(nn, n1) == (n1, N2)
-        assert tfft4.padded_len(4_320_000, route=route) == 4_325_376
+    for route in ("corr", "acc", "full"):
+        assert tfft4._default_n1(nn, route) == 528
+        assert tfft4.padded_len(4_320_000, route=route) == 264 * 16384
+    assert tfft4._pick_factors(nn, 528) == (528, 16384)
+    assert tfft4._pick_factors(nn, 1056) == (1056, 8192)
     assert tfft4._default_n1(nn) == 528
     assert tfft4._half_rows(528) == 265
     assert tfft4._half_rows(1056) == 529
@@ -117,27 +117,26 @@ def test_geometry_is_power_of_two_and_bounded():
     # N2 = 32768 > every kernel's limit: refused before any table is built
     with pytest.raises(ValueError, match="power of two"):
         tfft4.plan_correlate4(100_000, n1=8)
-    for bad in (250, 3 * 1024, 2 * fused_fft.MAX_N2["fused_corr"], 1):
-        with pytest.raises(ValueError, match="power of two"):
-            fused_fft.check_geometry(bad, "fused_corr")
+    for kernel in ("fused_corr", "fused_corr_acc", "fused_corr_full"):
+        assert fused_fft.MAX_N2[kernel] == 16384
+        for bad in (250, 3 * 1024, 2 * 16384, 1):
+            with pytest.raises(ValueError, match="power of two"):
+                fused_fft.check_geometry(bad, kernel)
 
 
 @pytest.mark.parametrize("route,n1,N2", [("corr", 16, 16384),
-                                         ("acc", 32, 8192),
-                                         ("full", 32, 8192)])
+                                         ("acc", 16, 16384),
+                                         ("full", 16, 16384)])
 def test_default_geometry_follows_the_route(route, n1, N2):
-    """At n = 100,000 the routes' defaults differ; the route is resolved
-    before n1 is picked, and a route refuses rows its kernel does not
-    take."""
+    """At n = 100,000 every route takes n1 = 16, N2 = 16384; the route is
+    resolved before n1 is picked, and a route refuses rows its kernel
+    does not take (n1 = 8: N2 = 32768)."""
     plan = tfft4.plan_correlate4(N_LONG, N_LONG - 1, N_LONG + 999,
                                  route=route)
     assert (plan.route, plan.N1, plan.N2) == (route, n1, N2)
-    if route == "corr":
-        assert tfft4.padded_len(N_LONG) == 7 * 16384
-    else:
-        assert tfft4.padded_len(N_LONG, route=route) == 13 * 8192
-        with pytest.raises(ValueError, match="power of two"):
-            tfft4.plan_correlate4(N_LONG, n1=16, route=route)
+    assert tfft4.padded_len(N_LONG, route=route) == 7 * 16384
+    with pytest.raises(ValueError, match="power of two"):
+        tfft4.plan_correlate4(N_LONG, n1=8, route=route)
 
 
 @pytest.mark.parametrize("window", [(90_000, 99_000), (95_000, 105_000),

@@ -25,6 +25,10 @@ WINDOWS = [(1999, 3000), (500, 1500), (1500, 2500)]
 ENV = {"acc": "XCORR_FFT4_FUSED_INV", "full": "XCORR_FFT4_FULL"}
 ATOL_REF = {"acc": 5e-7, "full": 2e-6}
 ATOL_ROUTES = 5e-7
+# a length at which every route takes n1 = 16, N2 = 16384; 1e-6 abs, the
+# repository's bar for normalized CCFs against the float64 oracle
+N_LONG = 100_000
+ATOL_LONG = 1e-6
 
 
 @pytest.fixture
@@ -173,14 +177,34 @@ def test_unknown_route_raises(no_route_env):
         tfft4.plan_correlate4(N, 1999, 3000, n1=16, route="einsum")
 
 
-def test_groups_cover_every_row_once():
-    for H in (1, 9, 16, 17, 33, 529):
-        G, S = fused_fft.groups(H)
-        assert S <= fused_fft.K_GROUPS
-        rows = [k for s in range(S) for k in range(s * G, min(H, (s + 1)
-                                                              * G))]
-        assert rows == list(range(H))
-    assert fused_fft.groups(529) == (34, 16)
+@pytest.mark.parametrize("window", [(90_000, 99_000), (95_000, 105_000),
+                                    (0, 2 * N_LONG - 1)], ids=str)
+@pytest.mark.parametrize("route", ["acc", "full"])
+def test_route_at_n1_16_matches_reference_and_f64(no_route_env, route,
+                                                  window):
+    """The acc and full routes at their own geometry (n1 = 16, N2 = 16384;
+    plain versions on the CPU) against the reference's four-step plan with
+    its XLA stage B (``stageb='fft'``, which picks its own N1 x N2: the
+    function on the lag window is the same) and the float64 oracle, as
+    ``tests/test_torch_fft4.py`` holds the corr route."""
+    import jax.numpy as jnp
+    from xcorr_tpu.ops import fft4 as jfft4
+    from xcorr_tpu.util.cc import cc as cc_f64
+    imin, imax = window
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2, N_LONG)).astype(np.float32)
+    y = (np.roll(x, 40, axis=1)
+         + 0.5 * rng.normal(size=(2, N_LONG))).astype(np.float32)
+    plan = tfft4.plan_correlate4(N_LONG, imin, imax, route=route)
+    assert (plan.route, plan.N1, plan.N2) == (route, 16, 16384)
+    got = plan(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    ref = jfft4.plan_correlate4(N_LONG, imin, imax, stageb="fft")
+    want = np.asarray(ref(jnp.asarray(x), jnp.asarray(y)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_LONG)
+    oracle = np.stack([cc_f64(x[i].astype(np.float64),
+                              y[i].astype(np.float64),
+                              unbiased=False)[imin:imax] for i in range(2)])
+    np.testing.assert_allclose(got, oracle, rtol=0, atol=ATOL_LONG)
 
 
 def _acc_inputs(B, H, N2, rows_in, rows_out, seed=0):
@@ -247,11 +271,15 @@ def test_acc_and_full_reject_what_the_kernels_do_not_take(bad):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["fused_corr_acc", "fused_corr_full"])
 @pytest.mark.parametrize("shape", [(2, 24, 256, 8, 5),
-                                   (8, 529, 8192, 528, 198)])
+                                   (8, 529, 8192, 528, 198),
+                                   (1, 3, 16384, 2, 2),
+                                   (4, 265, 16384, 264, 99)])
 def test_kernel_matches_plain_and_repeats_bitwise_on_card(cuda_device,
                                                           kernel, shape):
-    """K3 and K4 against their plain versions (1e-5 of the max), and two
-    launches on the same inputs give the same bits."""
+    """K3 and K4 against their plain versions (1e-5 of the max) at
+    (B, H, N2, rows_in, rows_out): a small shape, the n1 = 1056 day-scale
+    one, one window of three rows of 16384 and half the n1 = 528
+    pair-day; two launches on the same inputs give the same bits."""
     a = {k: torch.from_numpy(v).to(cuda_device)
          for k, v in _acc_inputs(*shape).items()}
     args = ((a["ax"], a["ay"], a["T"], a["wi"]) if kernel == "fused_corr_acc"

@@ -6,86 +6,59 @@
 //   out[b, r, :] = sum_{k1 < H} wi[r, k1]   Re C[b,k1,:]
 //                             + wi[r, H+k1] Im C[b,k1,:]
 //
-// with C the K1 correlation rows (fused_corr.cu). Layout: ax, ay are the
-// packed (B, 2, H, N2) float32 stage-A planes, T is (2, H, N2), wi the
+// with C the K1 correlation rows. Layout: ax, ay are the packed
+// (B, 2, H, N2) float32 stage-A planes, T is (2, H, N2), wi the
 // (rows_out, 2H) folded inverse matrix, out (B, rows_out, N2).
 //
-// Design (corr_acc.cuh). Block (s, b) takes the k1 group s of window b:
-// for each of its G rows the K1 chain in shared memory, the C rows into
-// a device scratch (B, S, 2G, N2), then the product of its 2G columns of
-// wi with them, written once to its partial (B, S, rows_out, N2). A
-// second launch sums the S partials in ascending s. Blocks run group-
-// fastest, so one window's groups share its T and wi rows in L2. The TPU
-// kept the accumulator in VMEM over a sequential k1 sweep and needed no
-// partials; here no float atomics are used and the result does not
-// depend on block order. Not carried: ROWS = 8 (the sublane tile), the
-// VMEM gate and the bf16 hi/lo products; every product is float32.
+// Bound. At the pair-day's shape (B = 8, H = 265, N2 = 16384, rows_out =
+// 99): 591 MB in and 52 MB out, 0.192 ms at 3.35 TB/s; 8.2 GFLOP of
+// transforms (0.122 ms at 67 TFLOP/s) and 13.75 GFLOP of product (0.083
+// ms as three TF32 passes at 495 TFLOP/s): bound by bytes.
 //
-// Bound. Per 24 h window (H = 529, N2 = 8192, rows_out = 198): 69.3 MB
-// in and 6.5 MB out, ~1 GFLOP of transforms and 3.43 GFLOP of product:
-// compute-bound on paper (~0.066 ms at 67 TFLOP/s). The design adds the
-// C scratch (34.7 MB written and read) and S partials (S x 6.5 MB
-// written and read) per window.
+// Design. Launches in stream order:
+//
+// 1. the row chain of corr_rows.cuh (K1's: rows in registers, N2 up to
+//    16384) writes C into cscr, a scratch of the planes' shape: the only
+//    device scratch, one plane of 2 H N2 floats per window (278 MB per
+//    pair-day);
+// 2. the split-TF32 product of gemm_tf32.cu, out[b] = wi @ C[b] over the
+//    packed axis (wi split into hi and lo first, in `split`, 420 KB):
+//    each output is one complete sum in ascending k.
+//
+// The TPU kept the (rows_out, N2) accumulator in VMEM over a sequential
+// k1 sweep. A Hopper SM has 227 KB of shared memory, and a window's C
+// (34.7 MB) or accumulator (6.5 MB) outgrows even a 16-block cluster's,
+// so one of them passes through device memory. C does: its round trip
+// (556 MB, 0.166 ms) is what the design adds to the bound, and it keeps
+// every sum in one block, in order, with no partial planes and no
+// atomics: two launches on the same inputs give the same bits. Not
+// carried: ROWS = 8 (the sublane tile) and the VMEM gate.
 
 #include <cuda_runtime.h>
 
-#include "corr_acc.cuh"
-
-namespace {
-
-__global__ void __launch_bounds__(xcorr::kAccThreads)
-fused_corr_acc_kernel(const float* __restrict__ ax,
-                      const float* __restrict__ ay,
-                      const float* __restrict__ T,
-                      const float2* __restrict__ tw,
-                      const float* __restrict__ wi, float* __restrict__ cscr,
-                      float* __restrict__ part, int H, int G, int rows_out,
-                      int n, int log2n) {
-  extern __shared__ float2 smem[];
-  float2* ws = smem;
-  float2* work = smem + n / 2;
-
-  const int s = blockIdx.x, S = gridDim.x, b = blockIdx.y;
-  const int k0 = s * G;
-  const int g = min(G, H - k0);
-  const size_t re = (static_cast<size_t>(2 * b) * H + k0) * n;
-  const size_t im = re + static_cast<size_t>(H) * n;
-  const size_t blk = static_cast<size_t>(b) * S + s;
-  float* cs = cscr + blk * 2 * G * n;
-
-  xcorr::load_twiddles(ws, tw, n);
-  __syncthreads();
-  xcorr::group_corr_acc(ax + re, ax + im, ay + re, ay + im, T, ws, wi, cs,
-                        part + blk * rows_out * n, H, k0, g, rows_out, n,
-                        log2n, work);
-}
-
-}  // namespace
+#include "corr_rows.cuh"
+#include "gemm_tf32.cuh"
 
 // Launch on `stream`; return the first CUDA error (0 on success). The
-// caller guarantees n = 2^log2n with 2 <= n <= 8192, S = ceil(H / G),
-// contiguous float32 buffers of the documented shapes, cscr of
-// B*S*2G*n floats and part of B*S*rows_out*n floats.
+// caller guarantees n = 2^log2n with 2 <= n <= 16384, tw from
+// _k1_twiddles(n), contiguous float32 buffers of the documented shapes,
+// cscr of the planes' shape and split of split_floats(rows_out, 2H)
+// floats.
 extern "C" int xc_fused_corr_acc(const void* ax, const void* ay,
                                  const void* T, const void* tw,
-                                 const void* wi, void* cscr, void* part,
-                                 void* out, int B, int H, int G, int S,
-                                 int rows_out, int n, int log2n,
-                                 void* stream) {
-  const int smem = xcorr::acc_smem_bytes(n);
+                                 const void* wi, void* cscr, void* split,
+                                 void* out, int B, int H, int rows_out,
+                                 int n, int log2n, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_corr_acc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_corr_acc_kernel<<<dim3(S, B), xcorr::kAccThreads, smem, st>>>(
-      static_cast<const float*>(ax), static_cast<const float*>(ay),
-      static_cast<const float*>(T), static_cast<const float2*>(tw),
-      static_cast<const float*>(wi), static_cast<float*>(cscr),
-      static_cast<float*>(part), H, G, rows_out, n, log2n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return xcorr::launch_sum_partials(
-      static_cast<const float*>(part), static_cast<float*>(out), B, S,
-      static_cast<size_t>(rows_out) * n, st);
+  float* sp = static_cast<float*>(split);
+  int err = corr_rows(ax, ay, T, tw, cscr, B, H, n, log2n, st);
+  if (err == 0)
+    err = xcorr::split_tf32(static_cast<const float*>(wi), rows_out, 2 * H,
+                            sp, st);
+  if (err != 0) return err;
+  return xcorr::gemm_tf32(sp, rows_out, 2 * H,
+                          static_cast<const float*>(cscr),
+                          2 * static_cast<size_t>(H) * n,
+                          static_cast<float*>(out),
+                          static_cast<size_t>(rows_out) * n, n, B, st);
 }

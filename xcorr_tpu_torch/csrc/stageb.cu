@@ -16,7 +16,7 @@
 //
 // Design. One block per row, the row in dynamic shared memory (64 KB at
 // N2 = 8192) beside the twiddle table (32 KB). The transforms are
-// fft_row.cuh's, so the arithmetic is K1's.
+// fft_row.cuh's radix-2 stages.
 //
 // Bound. Memory: per 24 h window (H = 529, N2 = 8192) fwd reads 34.7 MB
 // and writes 34.7 MB per signal, inv reads 69.3 MB and writes 34.7 MB

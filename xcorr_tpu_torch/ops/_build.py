@@ -91,8 +91,8 @@ _SIGNATURES = {
     "xc_fused_corr_phases": "pppppiiiipp",
     "xc_stageb_fwd": "ppppiiiip",
     "xc_stageb_inv": "pppppiiiip",
-    "xc_fused_corr_acc": "ppppppppiiiiiiip",
-    "xc_fused_corr_full": "ppppppppppiiiiiiiip",
+    "xc_fused_corr_acc": "ppppppppiiiiip",
+    "xc_fused_corr_full": "ppppppppppiiiiiip",
 }
 
 

@@ -31,18 +31,19 @@ the first ``H = N1/2 + 1`` rows only, and the mirror rows fold into the
 pruned inverse as the real-ifft weights (2, except 1 at k1 = 0 and N1/2).
 
 Geometry: N2 is a power of two no larger than the route's kernel takes
-(``fused_fft.MAX_N2``): 16384 on ``corr`` (K1 keeps its rows in
-registers), 8192 on ``acc`` and ``full`` (K3 and K4 hold two rows in a
-block's shared memory). The default ``n1`` is the route's own, the
-smallest multiple of 16 that brings N2 down to that limit. At
-n = 4,320,000 (24 h at 50 Hz) ``corr`` takes n1 = 528, N2 = 16384,
-H = 265, rows_in = 264, the reference's geometry; ``acc`` and ``full``
-take n1 = 1056, N2 = 8192, H = 529, rows_in = 528. N = N1·N2 =
-8,650,752 on every route. A smaller N1 shrinks stage A and the pruned
-inverse, dense products over the k1 rows, at the same N.
+(``fused_fft.MAX_N2``): 16384 on every route (K1, K3 and K4 share a row
+chain that keeps its rows in registers). The default ``n1`` is the
+route's own, the smallest multiple of 16 that brings N2 down to that
+limit. At n = 4,320,000 (24 h at 50 Hz) every route takes n1 = 528,
+N2 = 16384, H = 265, rows_in = 264, rows_out = 99 on the 0-9 h lag
+window: the reference's geometry. A smaller N1 shrinks stage A and the
+pruned inverse, dense products over the k1 rows, at the same N.
 
-Precision: the products run in full float32. TF32 is switched off for
-matmuls and cuDNN when a plan is built and checked on every call.
+Precision: the ``torch.matmul`` products of ``corr`` and ``acc`` run in
+full float32: TF32 is switched off for matmuls and cuDNN when a plan is
+built and checked on every call. K3's and K4's own products run on the
+tensor cores as three TF32 passes (``hi·hi + hi·lo + lo·hi`` with
+``lo = a - hi``), float32-level products held to the same 1e-6 bar.
 """
 
 from __future__ import annotations

@@ -23,23 +23,27 @@ each ``(b, k1)`` row of the packed stage-A planes:
   spectrum was in its own ``(k_p, k_q)`` order instead.
 * **K3** :func:`fused_corr_acc` (``fused_corr_acc.cu``, replaces
   ``plan_fused_corr_acc``): K1 with the pruned inverse product
-  ``wi @ C`` computed in the kernel, ``(B, rows_out, N2)`` out.
+  ``wi @ C``, ``(B, rows_out, N2)`` out, in one call of two launches.
 * **K4** :func:`fused_corr_full` (``fused_corr_full.cu``, replaces
-  ``plan_fused_corr_full``): stage A, K1 and the pruned inverse in one
-  kernel, from the zero-padded windows to ``(B, rows_out, N2)``.
+  ``plan_fused_corr_full``): stage A, K1 and the pruned inverse, from
+  the zero-padded windows to ``(B, rows_out, N2)``, in one call of four
+  launches.
 
-K3 and K4 split each window's H rows into :func:`groups` fixed k1 groups
-whose partial products a second launch sums in a fixed order: no float
-atomics, so two launches on the same inputs give the same bits (design
-notes in ``csrc/corr_acc.cuh``). Not carried from the TPU: ``ROWS = 8``,
-the VMEM gates, K4's bf16 hi/lo input split and the ``high_block`` /
-Karatsuba precision variants; every kernel computes in float32.
+K1, K3 and K4 share one row chain (``csrc/corr_rows.cuh``: rows in
+registers between the exchanges of radix passes, ``csrc/fft_reg.cuh``).
+K3 and K4 write C to a device scratch of the planes' shape and run their
+products (K4's stage A, both pruned inverses) on the tensor cores in
+split TF32 (``csrc/gemm_tf32.cu``: ``hi·hi + hi·lo + lo·hi`` per
+product, float32 accumulation), each output one sum in ascending k: no
+partial planes and no float atomics, so two launches on the same inputs
+give the same bits. Not carried from the TPU: ``ROWS = 8``, the VMEM
+gates and the ``high_block`` / Karatsuba precision variants; K4's bf16
+hi/lo input split becomes the TF32 split.
 
 N2 must be a power of two no larger than the kernel's own
-:data:`MAX_N2`: 16384 for K1, whose rows live in registers between the
-exchanges of its radix passes (``csrc/fft_reg.cuh``), 8192 for K2-K4,
-which hold whole rows in shared memory (``csrc/fft_row.cuh``). Each
-kernel has a plain PyTorch version (``*_plain``): a wrapper takes it for
+:data:`MAX_N2`: 16384 for K1, K3 and K4, 8192 for K2, which holds its
+rows in shared memory (``csrc/fft_row.cuh``). Each kernel has a plain
+PyTorch version (``*_plain``, float32 throughout): a wrapper takes it for
 CPU tensors only, launches the kernel (or raises) for CUDA tensors, and
 adds one to ``launches[name]`` per launch. The tests and
 ``chip_smoke.py`` hold each kernel against its plain version.
@@ -60,18 +64,13 @@ import torch
 __all__ = ["fused_corr", "fused_corr_plain", "stageb_fwd",
            "stageb_fwd_plain", "stageb_inv", "stageb_inv_plain",
            "fused_corr_acc", "fused_corr_acc_plain", "fused_corr_full",
-           "fused_corr_full_plain", "check_geometry", "bitrev", "groups",
-           "MAX_N2", "KERNELS", "launches", "reset_launches"]
+           "fused_corr_full_plain", "check_geometry", "bitrev", "MAX_N2", "KERNELS", "launches", "reset_launches"]
 
-#: largest row length per kernel: K1 holds the x spectrum and an
-#: exchange buffer in shared memory (210 KB of 227 KB at 16384); K2-K4
-#: hold the x and y rows plus the twiddle table (160 KB at 8192)
+#: largest row length per kernel: the row chain of K1, K3 and K4 holds
+#: the x spectrum and an exchange buffer in shared memory (210 KB of
+#: 227 KB at 16384); K2 holds its row in shared memory (fft_row.cuh)
 MAX_N2 = {"fused_corr": 16384, "stageb_fwd": 8192, "stageb_inv": 8192,
-          "fused_corr_acc": 8192, "fused_corr_full": 8192}
-
-#: k1 groups per window of K3 and K4: 16 x B blocks fill the card's
-#: 132 SMs in one wave at the pair-day's B = 8
-K_GROUPS = 16
+          "fused_corr_acc": 16384, "fused_corr_full": 16384}
 
 #: kernel names, as ``launches`` counts them
 KERNELS = ("fused_corr", "stageb_fwd", "stageb_inv", "fused_corr_acc",
@@ -100,11 +99,11 @@ def check_geometry(N2: int, kernel: str):
             f"N2={N2}: {kernel} takes a power of two between 2 and {top}")
 
 
-def groups(H: int):
-    """``(G, S)``: K3 and K4 split a window's H rows into S fixed groups
-    of G rows (the last may be shorter)."""
-    G = -(-H // K_GROUPS)
-    return G, -(-H // G)
+def _split_floats(M: int, K: int) -> int:
+    """Floats of the scratch in which K3 and K4 hold an (M, K) matrix's
+    TF32 hi and lo parts (``csrc/gemm_tf32.cuh``: split_floats): two
+    (M, K4) planes, K4 = K rounded up to a multiple of 4."""
+    return 2 * M * (-(-K // 4) * 4)
 
 
 def _cached(key, make):
@@ -339,24 +338,22 @@ def stageb_inv(fx, fy, T):
 
 
 def fused_corr_acc(ax, ay, T, wi):
-    """K3: ``wi @ fused_corr(ax, ay, T)`` over the packed axis, computed
-    in one kernel (plus the fixed-order sum of its group partials) ->
-    ``(B, rows_out, N2)``."""
+    """K3: ``wi @ fused_corr(ax, ay, T)`` over the packed axis, the row
+    chain then the split-TF32 product -> ``(B, rows_out, N2)``."""
     B, H, N2 = _check_planes("fused_corr_acc", T, ax=ax, ay=ay)
     rows_out = _check_wi(wi, H, ax)
     if _device_of(ax, "fused_corr_acc") == "cpu":
         return fused_corr_acc_plain(ax, ay, T, wi)
     from ._build import load
     lib = load()
-    G, S = groups(H)
     kw = dict(dtype=torch.float32, device=ax.device)
-    cscr = torch.empty(B * S * 2 * G * N2, **kw)
-    part = torch.empty(B * S * rows_out * N2, **kw)
+    cscr = torch.empty_like(ax)
+    split = torch.empty(_split_floats(rows_out, 2 * H), **kw)
     out = torch.empty((B, rows_out, N2), **kw)
-    tw = _inner_twiddles(N2, ax.device)
+    tw = _k1_twiddles(N2, ax.device)
     _launch("fused_corr_acc", lib.xc_fused_corr_acc,
-            *_ptrs(ax, ay, T, tw, wi, cscr, part, out), B, H, G, S,
-            rows_out, N2, N2.bit_length() - 1, _stream(ax))
+            *_ptrs(ax, ay, T, tw, wi, cscr, split, out), B, H, rows_out, N2,
+            N2.bit_length() - 1, _stream(ax))
     return out
 
 
@@ -382,14 +379,14 @@ def fused_corr_full(vx, vy, w1, T, wi):
         return fused_corr_full_plain(vx, vy, w1, T, wi)
     from ._build import load
     lib = load()
-    G, S = groups(H)
     kw = dict(dtype=torch.float32, device=vx.device)
-    sx = torch.empty(B * S * 2 * G * N2, **kw)
-    sy = torch.empty(B * S * 2 * G * N2, **kw)
-    part = torch.empty(B * S * rows_out * N2, **kw)
+    sx = torch.empty((B, 2 * H, N2), **kw)  # stage A of x, then C
+    sy = torch.empty((B, 2 * H, N2), **kw)
+    split = torch.empty(max(_split_floats(2 * H, rows_in),
+                            _split_floats(rows_out, 2 * H)), **kw)
     out = torch.empty((B, rows_out, N2), **kw)
-    tw = _inner_twiddles(N2, vx.device)
+    tw = _k1_twiddles(N2, vx.device)
     _launch("fused_corr_full", lib.xc_fused_corr_full,
-            *_ptrs(vx, vy, w1, T, tw, wi, sx, sy, part, out), B, H, G, S,
+            *_ptrs(vx, vy, w1, T, tw, wi, sx, sy, split, out), B, H,
             rows_in, rows_out, N2, N2.bit_length() - 1, _stream(vx))
     return out
