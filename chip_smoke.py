@@ -17,7 +17,8 @@ Phases, each printed on its own line; any failure exits non-zero:
 3. every kernel against its plain PyTorch version, max |diff| / max
    |plain| <= 1e-5, with CUDA-event times of both (median of 20 launches
    after warm-up) and the card's bound for the same work: K1 at the
-   pair-day's shape of its route (8, 2, 265, 16384: n1 = 528), at
+   device engine's launch shape (32, 2, 265, 16384), at the host engine
+   pair-day's shape (8, 2, 265, 16384: n1 = 528), at
    (4, 2, 265, 16384), at the n1 = 1056 shape (8, 2, 529, 8192) and at a
    small one; K3 and K4 at the pair-day's shape of their routes (B = 8,
    H = 265, N2 = 16384, rows_in = 264, rows_out = 99, with the n1 = 528
@@ -44,10 +45,26 @@ Phases, each printed on its own line; any failure exits non-zero:
    pair-day from ``SyntheticClient``: every status 1, all 8 CCF peaks on
    the injected delay, the CCFs within 1e-6 abs of the K1 route's, the
    route's kernel launched and no other; wall seconds and device share.
-   On the K1 route also ``write`` -> ``read`` where h5py is installed.
+   On the K1 route also ``write`` -> ``read`` where h5py is installed;
+6. the device engine (``parallel.engine.device_process_bulk`` +
+   ``finalize``) at production width: 4 consecutive pair-days of the EDH
+   pair, raw 250 Hz through the production EDH chain of
+   ``xcorr_tpu/scripts/cc.py:79-91`` (remove_sensitivity, 3-20 Hz
+   bandpass, decimate x5, trim, demean, taper) to 50 Hz, 24 h windows,
+   0-9 h lags: one launch of 32 windows, run cold then warm. Every status
+   1, every peak on the injected delay, K1 launched once and nothing
+   else; wall per pair-day, device share (torch.profiler), host->device
+   bytes, peak device memory, the stage timer's report and the device
+   time of the 8 costliest kernels. Day 1 again
+   through the host engine (``process``): CCFs within 1e-6 abs, equal
+   offsets. The BHZ chain's device stages (filters, remove_response with
+   a PAZ, Lanczos 40 -> 50 Hz) on two day-scale windows of 40 Hz noise,
+   float32 on the card against float64 on the CPU, stage by stage; a
+   miniSEED round trip through ``SDSArchive(format="mseed")``.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+The line before the last is the kernels' JSON record (K1's launches from
+phase 6, the others' from their route's phase-5 pair-day); the last line
+is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 import importlib.util
@@ -258,9 +275,10 @@ def phase3_kernels(ff, plan, plan_1056, clock_fn):
         plan.rows_out
     H8, N28, rows_in8, rows_out8 = plan_1056.half, plan_1056.N2, \
         plan_1056.rows_in, plan_1056.rows_out
-    # K1: the pair-day's shape (8 windows) first; the record keeps it
-    for shape in [(8, 2, H, N2), (4, 2, H, N2), (8, 2, H8, N28),
-                  (2, 2, 24, 256)]:
+    # K1: the device engine's launch (32 windows) first, the record keeps
+    # it; then the host engine's pair-day (8 windows)
+    for shape in [(32, 2, H, N2), (8, 2, H, N2), (4, 2, H, N2),
+                  (8, 2, H8, N28), (2, 2, 24, 256)]:
         d = kernel_inputs(shape[0], shape[2], shape[3], 8, 5, SEED)
         _, r = hold(ff, "fused_corr", shape, (d["ax"], d["ay"], d["T"]),
                     rerun=True)
@@ -595,6 +613,182 @@ def phase5_pair_days(xt, ff):
     return launches
 
 
+#: the production EDH chain of xcorr_tpu/scripts/cc.py:79-91 (the
+#: hydrophones' raw 250 Hz -> 50 Hz)
+EDH_PROD = [("merge", {"method": 1, "fill_value": "interpolate",
+                       "interpolation_samples": 0}),
+            ("detrend", {"type": "demean"}),
+            ("remove_sensitivity", {}),
+            ("filter", {"type": "bandpass", "freqmin": 3., "freqmax": 20.}),
+            ("decimate", {"factor": 5}),
+            ("trim", {}),
+            ("detrend", {"type": "demean"}),
+            ("taper", {"type": "cosine", "max_percentage": 0.05,
+                       "max_length": 30.})]
+#: the device stages of the BHZ chain (xcorr_tpu/scripts/cc.py:46-60),
+#: held stage by stage at 40 Hz raw
+BHZ_STAGES = [("filter", {"type": "highpass", "freq": .05}),
+              ("detrend", {"type": "demean"}),
+              ("remove_response", {"output": "VEL"}),
+              ("filter", {"type": "highpass", "freq": 3.}),
+              ("interpolate", {"sampling_rate": 50, "method": "lanczos",
+                               "a": 20}),
+              ("filter", {"type": "lowpass", "freq": 20.}),
+              ("detrend", {"type": "demean"}),
+              ("taper", {"type": "cosine", "max_percentage": 0.05,
+                         "max_length": 30.})]
+RAW_FS = 250.0
+ENGINE_DAYS = 4
+
+
+def phase6_device_engine(xt, ff):
+    """The device engine at production width: 4 consecutive pair-days of
+    the EDH pair at 250 Hz raw through ``device_process_bulk`` +
+    ``finalize`` (one launch of 32 windows), then day 1 through the host
+    engine; the BHZ chain's stages against float64 on the CPU; a miniSEED
+    round trip. Returns K1's launches on the engine's run."""
+    from torch.profiler import ProfilerActivity, profile
+    from xcorr_tpu_torch.parallel.engine import device_process_bulk
+    from xcorr_tpu_torch.stream import (Channel, Inventory, PAZResponse,
+                                        Stream, SyntheticClient)
+    from xcorr_tpu_torch.stream.compile import compile_operations
+    from xcorr_tpu_torch.util.profiler import StageTimer
+    resp = PAZResponse(sensitivity=1.5e9)
+    inv = Inventory([
+        Channel("IM", "H03S1", "", "EDH", latitude=-33.6, longitude=-78.8,
+                response=resp),
+        Channel("IM", "H03S2", "", "EDH", latitude=-33.7, longitude=-78.9,
+                response=resp)])
+    client = SyntheticClient(
+        sampling_rate=RAW_FS,
+        delays={"IM.H03S1..EDH": DELAY, "IM.H03S2..EDH": 0.0},
+        source_period=600.0, source_amplitude=20.0)
+    days = [np.datetime64("2014-02-01") + np.timedelta64(i, "D")
+            for i in range(ENGINE_DAYS)]
+
+    def dataset(day):
+        return xt.init(pair=PAIR, starttime=str(day),
+                       endtime=str(day + np.timedelta64(1, "D")),
+                       preprocess={"EDH": EDH_PROD},
+                       attrs={"institution": "smoke", "author": "smoke",
+                              "source": "SyntheticClient"},
+                       sampling_rate=FS, window_length=WINDOW,
+                       window_overlap=21.0 / 24.0, clip_lag=CLIP_LAG,
+                       inventory=inv)
+
+    k1 = 0
+    for run in ("first, cold", "warm"):
+        dss = [dataset(d) for d in days]
+        nwin = sum(d.dims["time"] for d in dss)
+        check(nwin == 32, f"{nwin} windows in {ENGINE_DAYS} pair-days")
+        timer = StageTimer()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ff.reset_launches()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            finalize, fallback = device_process_bulk(
+                dss, client, inventory=inv, timer=timer, verb=0,
+                device="cuda")
+            finalize()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ff.launches)
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        check(not fallback, f"device engine fell back: {fallback}")
+        check(counts["fused_corr"] == 1 and sum(counts.values()) == 1,
+              f"engine launched {counts}, expected fused_corr once for "
+              f"one pack of 32 windows")
+        k1 = counts["fused_corr"]
+        for d in dss:
+            status = d["status"].values
+            check(bool((status == 1).all()), f"status {status.tolist()}")
+            ccv = d["cc"].values
+            check(bool(np.isfinite(ccv).all()), "non-finite CCF")
+            lag = d.coords["lag"].values
+            peaks = [float(lag[int(np.argmax(ccv[0, i]))])
+                     for i in range(ccv.shape[1])]
+            check(all(abs(p - DELAY) < 1.0 / FS + 1e-9 for p in peaks),
+                  f"engine CCF peaks {peaks} s, injected {DELAY} s")
+        dev = sum(e.self_device_time_total for e in prof.key_averages()) \
+            / 1e3
+        share = f"{dev / 1e3 / wall:.4f}" if dev > 0 else "not measured"
+        h2d = timer.as_dict()["device-dispatch"].get("GB", 0.0)
+        phase(6, f"device engine ({run}): {ENGINE_DAYS} pair-days, {nwin} "
+                 f"windows, 250 Hz raw -> 50 Hz, 1 launch of K1: "
+                 f"{wall:.2f} s wall, {wall / ENGINE_DAYS:.3f} s per "
+                 f"pair-day, device {dev:.1f} ms, device share {share}, "
+                 f"host->device {h2d:.3f} GB, peak device memory "
+                 f"{peak_gb:.2f} GB above {base / 1e9:.2f}; launches "
+                 f"{counts}")
+        for line in timer.report().splitlines():
+            phase(6, f"  {line.strip()}")
+        top = sorted((e for e in prof.key_averages()
+                      if e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)[:8]
+        phase(6, "  device time by kernel, ms (calls): " + "; ".join(
+            f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} "
+            f"({e.count})" for e in top))
+
+    # day 1 through the host engine on the card, same client
+    host = dataset(days[0])
+    t0 = time.perf_counter()
+    xt.process(host, client, inventory=inv, device="cuda", verb=0)
+    torch.cuda.synchronize()
+    host_wall = time.perf_counter() - t0
+    check(bool((host["status"].values == 1).all()), "host engine status")
+    diff = float(np.abs(dss[0]["cc"].values - host["cc"].values).max())
+    check(diff <= CCF_ATOL, f"device engine vs host engine: {diff} > "
+                            f"{CCF_ATOL}")
+    for var in ("pair_offset", "time_offset"):
+        check(np.array_equal(dss[0][var].values, host[var].values),
+              f"{var} differs between the engines")
+    phase(6, f"day 1: device engine vs host engine (process, "
+             f"{host_wall:.2f} s wall): max |CCF diff| {diff:.3e} "
+             f"(bar {CCF_ATOL}), pair_offset and time_offset equal")
+
+    # the BHZ chain's device stages on two day-scale windows of 40 Hz
+    # noise, float32 on the card against float64 on the CPU
+    fs, n = 40.0, int(round((WINDOW * 1.1) * 40.0))
+    paz = PAZResponse(poles=[-0.037 + 0.037j, -0.037 - 0.037j],
+                      zeros=[0j, 0j], gain=1.0, sensitivity=2.5e8)
+    x = np.random.default_rng(SEED).standard_normal((2, n)) * 1e3
+    errs = []
+    for op in BHZ_STAGES:
+        fn, n_out, fs_out = compile_operations([op], x.shape[-1], fs,
+                                               response=paz)
+        want = fn(torch.from_numpy(x)).numpy()
+        got = fn(torch.from_numpy(x).float().cuda()).cpu().double().numpy()
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        errs.append(f"{op[0]}({op[1].get('type', op[1].get('output', ''))}"
+                    f" {fs:g} Hz) {rel:.2e}")
+        x, fs = want, fs_out
+    phase(6, "BHZ chain stage by stage, 2 windows, float32 card vs "
+             "float64 CPU, max rel err: " + "; ".join(errs))
+
+    # miniSEED through the SDS archive on this machine
+    from xcorr_tpu_torch.stream import Stats, Trace
+    from xcorr_tpu_torch.stream.sds import SDSArchive
+    rng = np.random.default_rng(SEED)
+    tr = Trace(np.round(1e4 * rng.standard_normal(int(86400 * FS)))
+               .astype(np.int32),
+               Stats(network="IM", station="H03S1", location="",
+                     channel="EDH", starttime="2014-02-01T00:00:00",
+                     sampling_rate=FS))
+    with tempfile.TemporaryDirectory() as tmp:
+        archive = SDSArchive(tmp, format="mseed")
+        archive.write(Stream([tr]))
+        back = archive.read(tr.id, "2014-02-01T12:00:00")
+        cov = archive.coverage(tr.id, "2014-02-01T12:00:00")
+    check(len(back) == 1 and np.array_equal(back[0].data, tr.data),
+          "miniSEED round trip differs")
+    check(sum(s[2] for s in cov) == tr.stats.npts, f"coverage {cov[:2]}")
+    phase(6, f"miniSEED SDS round trip of {tr.stats.npts} samples equal; "
+             f"header scan covers them in {len(cov)} records")
+    return k1
+
+
 def main():
     # -- 1. the card ---------------------------------------------------
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -671,6 +865,9 @@ def main():
 
     # -- 5. the slice: one production-geometry pair-day per route ----------
     launches = phase5_pair_days(xt, ff)
+
+    # -- 6. the device engine: 4 pair-days in one launch -------------------
+    launches["fused_corr"] = phase6_device_engine(xt, ff)
 
     print(json.dumps({"kernels": [{
         "name": name,

@@ -41,6 +41,55 @@ def list_versions(as_str: bool = True):
     '''        "h5py": _h5py_version(),'''),
 ]
 
+#: the codec's library is built by g++ into the port's build directory,
+#: never by ``make`` into the package directory
+_MSEED = [(
+    '''_DIR = os.path.dirname(os.path.abspath(__file__))
+_LIB_PATH = os.path.join(_DIR, "libxcmseed.so")
+''',
+    '''_DIR = os.path.dirname(os.path.abspath(__file__))
+'''), (
+    '''def _build():
+    subprocess.run(["make", "-C", _DIR, "-s"], check=True)
+
+
+def _load():
+    global _lib
+    if _lib is not None:
+        return _lib
+    if not os.path.exists(_LIB_PATH):
+        _build()
+    lib = ctypes.CDLL(_LIB_PATH)''',
+    '''def _build():
+    """Path of the shared library, built on first use with ``g++`` and
+    the flags of ``xcorr_tpu/native/Makefile`` into the port's build
+    directory (``ops._build.build_dir()``, git-ignored), never into the
+    package; the name carries a hash of ``mseed.cpp``, so an edited
+    source rebuilds."""
+    import hashlib
+    import threading
+    from ..ops._build import build_dir
+    src = os.path.join(_DIR, "mseed.cpp")
+    with open(src, "rb") as f:
+        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    path = build_dir() / f"libxcmseed-{tag}.so"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}"
+        subprocess.run([os.environ.get("CXX", "g++"), "-O3", "-Wall",
+                        "-fPIC", "-std=c++17", "-shared", "-o", tmp, src],
+                       check=True)
+        os.replace(tmp, path)
+    return str(path)
+
+
+def _load():
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(_build())'''),
+]
+
 #: carried module (path under both packages) -> [(old, new), ...]
 CARRIED = {
     "ndlabel/__init__.py": [],
@@ -64,6 +113,9 @@ CARRIED = {
     "stream/duration.py": [],
     "stream/vdms.py": [],
     "stream/running_rms.py": [],
+    "stream/fdsn.py": [],
+    "native/__init__.py": [],
+    "native/mseed.py": _MSEED,
     "io/__init__.py": [],
     "io/netcdf.py": [],
     "io/write.py": [],

@@ -207,16 +207,35 @@ def test_process_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert (ds["status"].values == 0).all()
 
 
-def test_device_engine_not_ported(tmp_path):
+def test_device_engine_runs(tmp_path):
+    """``engine='device'`` runs through both entry points and writes the
+    host engine's shard (CCFs within 5e-6, the device engine's bar in
+    ``tests/test_core.py``); an unknown engine still raises."""
     from xcorr_tpu_torch.core import lazy
-    with pytest.raises(NotImplementedError, match="device engine"):
-        lazy.single_threaded_process(
-            PAIR, "2014-01-01", _init_args(xcorr_tpu_torch),
-            _client(xcorr_tpu_torch), None, str(tmp_path), engine="device")
-    with pytest.raises(NotImplementedError, match="device engine"):
+    day = pd.Timestamp("2014-01-01")
+    assert lazy.single_threaded_process(
+        PAIR, day, _init_args(xcorr_tpu_torch), _client(xcorr_tpu_torch),
+        _inventory(xcorr_tpu_torch), str(tmp_path / "one"),
+        engine="device", device="cpu")
+    assert xcorr_tpu_torch.lazy_process(
+        [PAIR], [day], _init_args(xcorr_tpu_torch),
+        _client(xcorr_tpu_torch), inventory=_inventory(xcorr_tpu_torch),
+        root=str(tmp_path / "bulk"), engine="device", device="cpu",
+        verb=0) == [True]
+    assert xcorr_tpu_torch.lazy_process(
+        [PAIR], [day], _init_args(xcorr_tpu_torch),
+        _client(xcorr_tpu_torch), inventory=_inventory(xcorr_tpu_torch),
+        root=str(tmp_path / "host"), device="cpu", verb=0) == [True]
+    want = xcorr_tpu_torch.read(
+        xcorr_tpu_torch.ncfile(PAIR, day, str(tmp_path / "host")))
+    for root in ("one", "bulk"):
+        got = xcorr_tpu_torch.read(
+            xcorr_tpu_torch.ncfile(PAIR, day, str(tmp_path / root)))
+        _assert_same(got, want, atol=5e-6)
+    with pytest.raises(ValueError, match="engine"):
         xcorr_tpu_torch.lazy_process(
-            [PAIR], ["2014-01-01"], _init_args(xcorr_tpu_torch),
-            _client(xcorr_tpu_torch), root=str(tmp_path), engine="device")
+            [PAIR], [day], _init_args(xcorr_tpu_torch),
+            _client(xcorr_tpu_torch), root=str(tmp_path), engine="gpu")
 
 
 def test_missing_data_flags_like_reference():

@@ -2,15 +2,17 @@ r"""
 xcorr-tpu, PyTorch port
 =======================
 
-The pair-day CCF path of :mod:`xcorr_tpu` in PyTorch, with the fused
-stage-B correlation written by hand in CUDA for NVIDIA Hopper. It imports
-``torch`` and never ``jax``; the JAX package stays the reference.
+The CCF production path of :mod:`xcorr_tpu` in PyTorch, with the kernels
+of the four-step correlation written by hand in CUDA for NVIDIA Hopper.
+It imports ``torch`` and never ``jax``; the JAX package stays the
+reference.
 
 The facade mirrors :mod:`xcorr_tpu`'s: ``init`` -> ``process(ds, client,
-device='cuda')`` -> ``write`` / ``read``, and ``lazy_process`` with the
-host engine. The shard I/O (``io``, ``read``, ``write``, ``lazy_process``)
-needs h5py and is imported on first use, so a machine without h5py can
-still initialize and correlate datasets.
+device='cuda')`` -> ``write`` / ``read``; ``lazy_process`` with the host
+engine or ``engine='device'``; the device engine itself in
+:mod:`.parallel`. The shard I/O (``io``, ``read``, ``write``,
+``lazy_process``) needs h5py and is imported on first use, so a machine
+without h5py can still initialize and correlate datasets.
 """
 
 __version__ = "0.1.0"
@@ -23,6 +25,7 @@ from . import ops  # noqa: F401
 from . import stream  # noqa: F401
 from . import signal  # noqa: F401
 from . import core  # noqa: F401
+from . import parallel  # noqa: F401
 
 from .core import init, process
 from .stream import Client, SyntheticClient, Inventory
@@ -40,7 +43,8 @@ _LAZY = {
     "lazy_processes": (".core.lazy", "lazy_processes"),
 }
 
-__all__ = ["ndlabel", "util", "ops", "stream", "signal", "core", "init",
+__all__ = ["ndlabel", "util", "ops", "stream", "signal", "core",
+           "parallel", "init",
            "process", "Client", "SyntheticClient", "Inventory",
            "__version__", *_LAZY]
 

@@ -3,13 +3,21 @@ r"""
 ========================================================
 
 Batch production (spec: ``xcorr/core/lazy.py:26-369``; port of
-``xcorr_tpu/core/lazy.py``'s host engine): a host thread pool runs one
-(pair, day) shard at a time through :func:`..core.process.process`, whose
-windows correlate as one dense batch on the torch device. Resume
-semantics are identical: a shard whose ``status`` flags are all 1 is
-skipped, fetch failures are flagged -1 and retried on the next run.
+``xcorr_tpu/core/lazy.py``). Two engines:
 
-The device-preprocess engine (``engine='device'``) is not ported yet.
+* ``engine='host'`` (default): a host thread pool runs one (pair, day)
+  shard at a time through :func:`..core.process.process`, whose windows
+  correlate as one dense batch on the torch device;
+* ``engine='device'``: chunks of ``days_per_launch`` (pair, day) tasks go
+  through :func:`..parallel.engine.device_process_bulk` (raw spans
+  shipped once, preprocessing and correlation on the device, up to 32
+  windows per launch), while a writer thread overlaps chunk N's readback
+  and shard writes with chunk N+1's fetches and launches.
+
+Resume semantics are identical: a shard whose ``status`` flags are all 1
+is skipped, fetch failures are flagged -1 and retried on the next run.
+Not ported: the multi-host ``host_slice`` of the campaign (multi-GPU
+slice) and the JAX package's compile cache and heap settings.
 """
 
 from __future__ import annotations
@@ -25,16 +33,14 @@ from ..io.filesystem import ncfile
 from ..io.read import read
 from ..io.write import write
 from .init import init as core_init
-from .process import process as core_process
+from .process import process as core_process, resolve_device
 
 __all__ = ["single_threaded_process", "lazy_processes", "lazy_process"]
 
 
 def _check_engine(engine: str):
-    if engine == "device":
-        raise NotImplementedError("device engine: ROADMAP slice 2")
-    if engine != "host":
-        raise ValueError(f"engine={engine!r}: expected 'host'")
+    if engine not in ("host", "device"):
+        raise ValueError(f"engine={engine!r}: expected 'host' or 'device'")
 
 
 def single_threaded_process(pair: str, time, init_args: dict,
@@ -44,7 +50,10 @@ def single_threaded_process(pair: str, time, init_args: dict,
     """Read-or-init -> process -> write one (pair, day) shard; returns
     True when the shard is complete (reference
     ``xcorr/core/lazy.py:26-82``). ``kwargs`` go to
-    :func:`..core.process.process` (e.g. ``device``)."""
+    :func:`..core.process.process` or, with ``engine='device'``, to
+    :func:`..parallel.engine.device_process` (e.g. ``device``); a chain
+    the device engine cannot run goes to the host engine, as in the JAX
+    package."""
     _check_engine(engine)
     data = None
     time = util.time.to_datetime(time)
@@ -67,8 +76,17 @@ def single_threaded_process(pair: str, time, init_args: dict,
             endtime=time + pd.Timedelta("1D"),
             **{"inventory": inventory, **init_args},
         )
-    core_process(data, client=client, inventory=inventory,
-                 retry_missing=True, verb=verb, **kwargs)
+    if engine == "device":
+        from ..parallel.engine import device_process
+        try:
+            device_process(data, client=client, inventory=inventory,
+                           retry_missing=True, verb=verb, **kwargs)
+        except NotImplementedError:  # chain not device-compilable
+            core_process(data, client=client, inventory=inventory,
+                         retry_missing=True, verb=verb, **kwargs)
+    else:
+        core_process(data, client=client, inventory=inventory,
+                     retry_missing=True, verb=verb, **kwargs)
     if np.any(data["status"].values == 1):
         write(data, nc, verb=verb)
     return bool(np.all(data["status"].values == 1))
@@ -151,18 +169,167 @@ def lazy_processes(pairs: list, times, availability=None, preprocessing=None,
                                               verb=verb)]
 
 
+def _device_bulk_run(pair_days, init_args, client, inventory, root,
+                     days_per_launch: int, verb: int, timer,
+                     force_fresh=False, **kwargs):
+    """Chunked multi-day device orchestration: every ``days_per_launch``
+    gated (pair, day) tasks batch into shared device launches (packed to
+    the engine's 32-window cap), while a writer thread overlaps the
+    readback + shard writes of chunk N with the archive fetches and
+    device launches of chunk N+1."""
+    from ..parallel.engine import device_process_bulk
+
+    results = {}
+    pending = []
+    chunks = [pair_days[i:i + days_per_launch]
+              for i in range(0, len(pair_days), days_per_launch)]
+    with ThreadPoolExecutor(max_workers=2) as writer:
+        for chunk in chunks:
+            try:
+                items = []
+                with timer("init-shards"):
+                    for pair, time in chunk:
+                        # per-TASK isolation: a corrupt existing shard (or
+                        # any read/init error) fails only its own (pair,
+                        # day), not its chunk-mates
+                        try:
+                            nc = ncfile(pair, time, root)
+                            # header-only resume fast-exit (no cc
+                            # decompression); partial shards re-read
+                            data = None if force_fresh else read(
+                                nc, fast=True, verb=0, header_only=True)
+                            if data is not None and \
+                                    np.all(data["status"].values == 1):
+                                results[(pair, time)] = True
+                                continue
+                            if data is not None:
+                                data = read(nc, fast=True, verb=0)
+                            if data is None:
+                                data = core_init(
+                                    pair=pair, starttime=time,
+                                    endtime=time + pd.Timedelta("1D"),
+                                    **{"inventory": inventory,
+                                       **init_args})
+                        except Exception as error:
+                            warnings.warn(f"{pair} {time} failed: {error}",
+                                          UserWarning)
+                            results[(pair, time)] = False
+                            continue
+                        items.append((pair, time, data, nc))
+                if not items:
+                    continue
+                finalize, fallback = device_process_bulk(
+                    [d for _, _, d, _ in items], client,
+                    inventory=inventory, retry_missing=True, timer=timer,
+                    verb=verb - 1 if verb else 0, **kwargs)
+                fb_ids = {id(d) for d in fallback}
+                for pair, time, data, nc in items:
+                    if id(data) not in fb_ids:
+                        continue
+                    # host fallback (chain not device-compilable), with
+                    # per-item isolation: one raising fallback task must
+                    # not discard the launches of its chunk-mates
+                    try:
+                        core_process(data, client=client,
+                                     inventory=inventory,
+                                     retry_missing=True, verb=0, **kwargs)
+                        if np.any(data["status"].values == 1):
+                            write(data, nc, verb=0)
+                        results[(pair, time)] = bool(
+                            np.all(data["status"].values == 1))
+                    except Exception as error:
+                        warnings.warn(f"{pair} {time} failed: {error}",
+                                      UserWarning)
+                        results[(pair, time)] = False
+                dev_items = [it for it in items if id(it[2]) not in fb_ids]
+
+                def flush(finalize=finalize, dev_items=dev_items):
+                    out = {}
+                    by_id = {id(d): (pair, time, d, nc)
+                             for pair, time, d, nc in dev_items}
+                    written = set()
+
+                    def write_one(pair, time, data, nc):
+                        # per-shard isolation: one failed write (disk
+                        # full, transient IO) fails only its own shard.
+                        # Runs in the writer thread, so its wall overlaps
+                        # readbacks
+                        try:
+                            with timer("shard-write"):
+                                if np.any(data["status"].values == 1):
+                                    write(data, nc, verb=0)
+                            out[(pair, time)] = bool(
+                                np.all(data["status"].values == 1))
+                        except Exception as error:
+                            warnings.warn(f"write {nc} failed: {error}",
+                                          UserWarning)
+                            out[(pair, time)] = False
+
+                    # each completed shard goes to a dedicated write
+                    # thread the moment its last rows are read back, so
+                    # the write overlaps the remaining readbacks
+                    with ThreadPoolExecutor(max_workers=1) as wpool:
+                        wjobs = []
+
+                        def on_complete(data):
+                            hit = by_id.get(id(data))
+                            if hit is None:
+                                return
+                            written.add(id(data))
+                            wjobs.append(wpool.submit(write_one, *hit))
+
+                        finalize(on_complete=on_complete)
+                        for f in wjobs:
+                            f.result()
+                    for pair, time, data, nc in dev_items:
+                        if id(data) not in written:
+                            write_one(pair, time, data, nc)
+                    return out
+
+                if dev_items:
+                    # backpressure: each queued flush holds its chunk's
+                    # device results until read back; drain the oldest
+                    # before producing more, so at most ~2 chunks wait
+                    while len(pending) >= 2:
+                        f = pending.pop(0)
+                        try:
+                            results.update(f.result())
+                        except Exception as error:
+                            warnings.warn(f"finalize/write failed: "
+                                          f"{error}", UserWarning)
+                    pending.append(writer.submit(flush))
+            except Exception as error:
+                warnings.warn(f"chunk {chunk[0]}..{chunk[-1]} failed: "
+                              f"{error}", UserWarning)
+        for f in pending:
+            try:
+                results.update(f.result())
+            except Exception as error:
+                warnings.warn(f"finalize/write failed: {error}",
+                              UserWarning)
+    return [results.get(pd_, False) for pd_ in pair_days]
+
+
 def lazy_process(pairs: list, times, init_args: dict, client_args: dict,
                  inventory=None, root: str = None, nworkers: int = None,
-                 download: bool = True, verb: int = 1, **kwargs):
+                 download: bool = True, days_per_launch: int = 8,
+                 verb: int = 1, **kwargs):
     """End-to-end batch run (reference ``xcorr/core/lazy.py:197-369``):
     availability scan -> preprocess verification on one day -> gated
-    (pair, day) fan-out over a thread pool. ``kwargs`` go to
-    :func:`single_threaded_process` and on to
-    :func:`..core.process.process` (``device`` defaults to ``'cuda'``).
+    (pair, day) fan-out. ``kwargs`` go to :func:`single_threaded_process`
+    and on to :func:`..core.process.process` (``device`` defaults to
+    ``'cuda'`` and raises here, before any work, when torch sees no
+    card); with ``engine='device'`` and ``days_per_launch > 1``,
+    chunks of that many (pair, day) tasks run through
+    :func:`_device_bulk_run` instead. ``timer`` (a
+    :class:`..util.profiler.StageTimer`) receives the campaign's stages.
     Multi-host and multi-GPU campaigns are not ported yet."""
     from ..stream.client import Client
 
     _check_engine(kwargs.get("engine", "host"))
+    # a campaign without its device fails here, not task by task
+    resolve_device(kwargs.get("device", "cuda"))
+    timer = kwargs.pop("timer", None) or util.profiler.StageTimer()
     client = client_args if hasattr(client_args, "get_waveforms") else \
         Client(**client_args)
 
@@ -189,9 +356,10 @@ def lazy_process(pairs: list, times, init_args: dict, client_args: dict,
     if verb > 0:
         print(f"Verify waveform availability for {len(receivers)} "
               f"receivers x {len(times)} days")
-    availability = client.verify_waveform_availability(
-        receivers, times, substitute=False, parallel=True,
-        download=download, verb=verb)
+    with timer("availability-scan"):
+        availability = client.verify_waveform_availability(
+            receivers, times, substitute=False, parallel=True,
+            download=download, verb=verb)
 
     # 2. preprocess verification on one fully-available day; no such
     # day means at least one receiver has no usable data at all — fail
@@ -209,13 +377,14 @@ def lazy_process(pairs: list, times, init_args: dict, client_args: dict,
     day = times[int(full_days[0])] + pd.Timedelta("12h")
     if verb > 0:
         print(f"Verify waveform preprocessing on {day}")
-    preprocessing = client.verify_waveform_processing(
-        receivers_chain, day,
-        operations=init_args["preprocess"],
-        inventory=inventory,
-        sampling_rate=init_args.get("sampling_rate"),
-        duration=init_args.get("window_length", 86400.0),
-        parallel=True, verb=verb)
+    with timer("preprocess-verify"):
+        preprocessing = client.verify_waveform_processing(
+            receivers_chain, day,
+            operations=init_args["preprocess"],
+            inventory=inventory,
+            sampling_rate=init_args.get("sampling_rate"),
+            duration=init_args.get("window_length", 86400.0),
+            parallel=True, verb=verb)
 
     # 3. gated fan-out
     pair_days = gated_pair_days(pairs, times, availability=availability,
@@ -231,15 +400,21 @@ def lazy_process(pairs: list, times, init_args: dict, client_args: dict,
             "preprocess gating removed the entire campaign")
     if verb > 0:
         print(f"Scheduling {len(pair_days)} pair-day tasks")
-    tasks = [_make_task(pair, time, init_args, client, inventory,
-                        root, verb=verb - 1 if verb else 0, **kwargs)
-             for pair, time in pair_days]
-    nworkers = nworkers or 4
-    if nworkers > 1:
-        with ThreadPoolExecutor(max_workers=nworkers) as ex:
-            results = list(ex.map(lambda t: t(), tasks))
+    if kwargs.get("engine") == "device" and days_per_launch > 1:
+        bulk_kwargs = {k: v for k, v in kwargs.items() if k != "engine"}
+        results = _device_bulk_run(
+            pair_days, init_args or {}, client, inventory, root,
+            days_per_launch, verb - 1 if verb else 0, timer, **bulk_kwargs)
     else:
-        results = [t() for t in tasks]
+        tasks = [_make_task(pair, time, init_args, client, inventory,
+                            root, verb=verb - 1 if verb else 0, **kwargs)
+                 for pair, time in pair_days]
+        nworkers = nworkers or 4
+        if nworkers > 1:
+            with ThreadPoolExecutor(max_workers=nworkers) as ex:
+                results = list(ex.map(lambda t: t(), tasks))
+        else:
+            results = [t() for t in tasks]
 
     completed = sum(bool(r) for r in results)
     if verb > 0:

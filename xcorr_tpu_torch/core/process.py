@@ -24,7 +24,18 @@ import torch
 from .. import ops, stream as stream_mod, util
 from ..signal.unbias import unbias
 
-__all__ = ["process"]
+__all__ = ["process", "resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device raises when torch
+    sees none (no silent route to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} but torch sees no CUDA device; "
+            "pass device='cpu' to correlate on the host")
+    return device
 
 
 def process(dataset, client, inventory=None, retry_missing: bool = False,
@@ -40,11 +51,7 @@ def process(dataset, client, inventory=None, retry_missing: bool = False,
     ``device`` defaults to ``'cuda'`` and raises when no CUDA device is
     present; pass ``device='cpu'`` to correlate on the host.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} but torch sees no CUDA device; "
-            "pass device='cpu' to correlate on the host")
+    device = resolve_device(device)
     dataset.attrs["history"] = (
         dataset.attrs.get("history", "") +
         f", Process started @ {pd.to_datetime('now')}")

@@ -34,13 +34,29 @@ import torch
 from .fft import next_fast_len
 
 __all__ = ["correlate", "lag_slice_of_circular", "unbiased_weights",
-           "FOURSTEP_THRESHOLD"]
+           "preferred_padded_len", "FOURSTEP_THRESHOLD"]
 
 #: windows at least this long take the four-step route on a CUDA device.
 #: Carried from the reference until a benchmark measures the crossover.
 FOURSTEP_THRESHOLD = 1 << 20
 
 _METHODS = ("auto", "monolithic", "fourstep")
+
+
+def preferred_padded_len(n: int, device="cuda"):
+    """Stage-A length for pre-padded dispatch (:func:`correlate`'s
+    ``pre_padded_n``) of float32 windows of ``n`` samples on ``device``,
+    or ``None`` when the four-step path will not engage (short windows,
+    or a CPU device) and the caller should hand :func:`correlate` plain
+    ``n``-sample windows.
+
+    A caller that materializes its window stacks anyway (the device
+    engine's span pipeline) zero-extends them to this length, so the
+    four-step plan skips its zero-extension copy of every window."""
+    if n < FOURSTEP_THRESHOLD or torch.device(device).type != "cuda":
+        return None
+    from .fft4 import padded_len, resolve_route
+    return padded_len(n, route=resolve_route())
 
 
 def unbiased_weights(npts: int, index_min: int = None, index_max: int = None,
@@ -79,7 +95,7 @@ def lag_slice_of_circular(r, npts: int, nfft: int, index_min: int,
 def correlate(x, y, *, normalize: bool = True, index_min: int = None,
               index_max: int = None, unbiased: bool = False,
               nfft: int = None, clip_weight: float = None,
-              method: str = "auto"):
+              method: str = "auto", pre_padded_n: int = None):
     """Normalized cross-correlation of ``x`` and ``y`` (``(B, n)`` tensors
     on one device), returned on that device.
 
@@ -88,12 +104,25 @@ def correlate(x, y, *, normalize: bool = True, index_min: int = None,
     ``clip_weight``) to the four-step path and everything else to the
     monolithic path; ``'monolithic'`` and ``'fourstep'`` force one. The
     four-step products run in full float32.
+
+    ``pre_padded_n``: the window length ``n`` when ``x``/``y`` are
+    already zero-extended to the four-step stage-A length
+    (``ops.fft4.padded_len(n)`` samples, see
+    :func:`preferred_padded_len`): the four-step plan then skips its
+    zero-extension copy; the monolithic path trims back to ``n``.
     """
     if method not in _METHODS:
         raise ValueError(f"method={method!r}: expected one of {_METHODS}")
     if x.shape != y.shape:
         raise ValueError(f"x {tuple(x.shape)} and y {tuple(y.shape)} differ")
-    n = x.shape[-1]
+    n = x.shape[-1] if pre_padded_n is None else int(pre_padded_n)
+    if pre_padded_n is not None and x.shape[-1] < n:
+        # the lag indices were computed for 2n-1: a shorter input would
+        # select the wrong lags
+        raise ValueError(
+            f"pre_padded_n={n} but the input has only {x.shape[-1]} "
+            "samples; pass the zero-extended buffers "
+            "(ops.fft4.padded_len) or drop pre_padded_n")
     if method == "fourstep" and (unbiased or nfft is not None
                                  or clip_weight is not None):
         raise ValueError(
@@ -106,9 +135,18 @@ def correlate(x, y, *, normalize: bool = True, index_min: int = None,
         and x.device.type == "cuda"
         and x.dtype == torch.float32)
     if use4:
-        from .fft4 import plan_correlate4
-        fn = plan_correlate4(n, index_min, index_max, normalize=normalize)
+        from .fft4 import padded_len, plan_correlate4, resolve_route
+        if pre_padded_n is not None:
+            want = padded_len(n, route=resolve_route())
+            if x.shape[-1] != want:
+                raise ValueError(
+                    f"pre-padded input is {x.shape[-1]} samples; the "
+                    f"four-step plan expects padded_len({n}) = {want}")
+        fn = plan_correlate4(n, index_min, index_max, normalize=normalize,
+                             pre_padded=pre_padded_n is not None)
         return fn(x, y)
+    if pre_padded_n is not None:
+        x, y = x[..., :n], y[..., :n]
     return _correlate_monolithic(
         x, y, normalize=normalize, index_min=index_min,
         index_max=index_max, unbiased=unbiased, nfft=nfft,

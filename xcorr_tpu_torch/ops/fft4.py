@@ -244,7 +244,7 @@ class FusedPlan:
     """
 
     def __init__(self, n, index_min, index_max, n1, normalize,
-                 route="corr"):
+                 route="corr", pre_padded=False):
         # check the geometry before _plan builds its (N1, N2) tables
         check_geometry(_pick_factors(2 * n - 1, n1)[1], ROUTE_KERNEL[route])
         self.route = route
@@ -253,6 +253,9 @@ class FusedPlan:
         half = _half_rows(N1)
         self.n, self.N1, self.N2, self.N = n, N1, N2, p["N"]
         self.rows_in, self.half = p["rows_in"], half
+        #: samples per input row: n, or the stage-A length rows_in * N2
+        #: for a pre-padded plan (the tail beyond n zero)
+        self.width = self.rows_in * N2 if pre_padded else n
         self.normalize = normalize
         self.segs_flat = p["segs_flat"]
         # (2*half, rows_in): [re rows | im rows] of the pruned W1, so ONE
@@ -280,10 +283,12 @@ class FusedPlan:
         return c
 
     def padded(self, v):
-        """``(B, n)`` -> the zero-padded ``(B, rows_in, N2)`` window."""
-        pad = self.rows_in * self.N2 - self.n
-        return torch.nn.functional.pad(v, (0, pad)).view(
-            v.shape[0], self.rows_in, self.N2)
+        """``(B, n)`` -> the zero-padded ``(B, rows_in, N2)`` window; a
+        pre-padded ``(B, rows_in * N2)`` window is only viewed so."""
+        pad = self.rows_in * self.N2 - v.shape[1]
+        if pad:
+            v = torch.nn.functional.pad(v, (0, pad))
+        return v.view(v.shape[0], self.rows_in, self.N2)
 
     def stage_a(self, v, w1):
         """``(B, n)`` -> packed ``(B, 2, half, N2)`` slow-axis spectrum."""
@@ -299,8 +304,8 @@ class FusedPlan:
     def __call__(self, x, y):
         if x.dtype != torch.float32 or y.dtype != torch.float32:
             raise TypeError("the four-step path takes float32 windows")
-        if x.dim() != 2 or x.shape != y.shape or x.shape[1] != self.n:
-            raise ValueError(f"expected two (B, {self.n}) tensors, got "
+        if x.dim() != 2 or x.shape != y.shape or x.shape[1] != self.width:
+            raise ValueError(f"expected two (B, {self.width}) tensors, got "
                              f"{tuple(x.shape)} and {tuple(y.shape)}")
         if tf32_enabled():
             raise RuntimeError(
@@ -322,21 +327,29 @@ class FusedPlan:
 
 def plan_correlate4(n: int, index_min: int = None, index_max: int = None,
                     n1: int = None, normalize: bool = True,
-                    route: str = None) -> FusedPlan:
+                    route: str = None,
+                    pre_padded: bool = False) -> FusedPlan:
     """The four-step correlation ``f(x, y) -> ccf`` for windows of ``n``
     samples, on ``route`` (see :func:`resolve_route`: None reads the
     environment, on every call). The route is resolved first, then
     ``n1`` defaults to the route's own (:func:`_default_n1`). Raises
     ``ValueError`` when N2 is not a power of two the route's kernel takes
-    (``fused_fft.MAX_N2``)."""
+    (``fused_fft.MAX_N2``).
+
+    ``pre_padded=True`` takes ``(B, padded_len(n))`` windows whose tail
+    beyond ``n`` is zero (the JAX package's ``pre_padded``): the plan
+    then skips its zero-extension copy. The norms are unchanged by the
+    zero tail."""
     nn = 2 * n - 1
     index_min = 0 if index_min is None else index_min
     index_max = nn if index_max is None else index_max
     route = resolve_route(route)
     n1 = n1 or _default_n1(nn, route)
-    return _build_plan(n, index_min, index_max, n1, normalize, route)
+    return _build_plan(n, index_min, index_max, n1, normalize, route,
+                       pre_padded)
 
 
 @lru_cache(maxsize=32)
-def _build_plan(n, index_min, index_max, n1, normalize, route):
-    return FusedPlan(n, index_min, index_max, n1, normalize, route)
+def _build_plan(n, index_min, index_max, n1, normalize, route, pre_padded):
+    return FusedPlan(n, index_min, index_max, n1, normalize, route,
+                     pre_padded)

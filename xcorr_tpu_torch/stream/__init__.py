@@ -3,9 +3,11 @@ r"""
 ================================================
 
 Waveform containers, station inventory, the hashed preprocess-operations
-DSL and archive clients, carried from :mod:`xcorr_tpu.stream`. The
-miniSEED codec (``native/``) and the FDSN client are not carried yet:
-SDS archives in HDF5 and the :class:`SyntheticClient` work without them.
+DSL and archive clients, carried from :mod:`xcorr_tpu.stream`, with the
+miniSEED codec (:mod:`xcorr_tpu_torch.native`, built by ``g++`` on first
+use) and the FDSN client (:mod:`.fdsn`) they import, so SDS archives in
+miniSEED and HDF5 both read. :mod:`.compile` is the port's own: the
+preprocess chains of the device engine as PyTorch functions.
 """
 
 from .trace import Trace, Stream, Stats, UTCDateTime
