@@ -60,7 +60,33 @@ Phases, each printed on its own line; any failure exits non-zero:
    offsets. The BHZ chain's device stages (filters, remove_response with
    a PAZ, Lanczos 40 -> 50 Hz) on two day-scale windows of 40 Hz noise,
    float32 on the card against float64 on the CPU, stage by stage; a
-   miniSEED round trip through ``SDSArchive(format="mseed")``.
+   miniSEED round trip through ``SDSArchive(format="mseed")``. Then one
+   BHZ-EDH pair-day, ``IM.H03S1..EDH-IU.RAR.10.BHZ``: the BHZ side raw at
+   40 Hz with a PAZ response through the production BHZ chain of
+   ``xcorr_tpu/scripts/cc.py:46-60`` (``remove_response`` in float32 on
+   the card), through the device engine and the host engine, CCFs within
+   1e-6 abs;
+7. the analysis slice on the card. (a) Full lag width: phase 6's 4
+   pair-days (32 windows x 1.62 M lags, float32) through ``postprocess``
+   (0-9 h lags, the scripts' 3 Hz highpass, no celerity clip) and ``snr``
+   (envelope; signal window at the injected delay, noise at 6-9 h), held
+   to the same calls on the CPU (``cc`` within 1e-5 of its peak; ``snr``,
+   ``s``, ``n`` within 1e-5 relative; ``lag_s_max`` equal), with card ms
+   per pair-day for each stage of the chain. (b) The campaign at the
+   production celerity window: the 8 pairs of ``scripts/cc.py`` for 7
+   days (56 pair-days) built with ``init`` at the production geometry and
+   filled from a seeded generator (noise plus one arrival at
+   distance / 1480 m/s, strong on two runs of windows), one day held at a
+   time; per pair ``scripts.snr.pair_snr`` (``postprocess(clim=(1460,
+   1500))`` + ``snr(envelope=True)``), then ``combine_by_coords`` over the
+   days and ``coincidence_trigger``; per triggered period and pair
+   ``scripts.psd.pair_psd`` (``postprocess(time_lim=period)`` +
+   ``spectrogram(duration=2.5, padding_factor=4)`` to 20 Hz). All held to
+   the same run on the CPU (``snr`` 1e-5 relative, periods identical, PSD
+   within 1e-5 of its max), with wall per pair-day on the card and on the
+   CPU, the device share and the device operations per pair-day, and the
+   last day's card wall taken apart: ``postprocess``, ``snr`` and each
+   stage of the chain on the clipped lag window.
 
 The line before the last is the kernels' JSON record (K1's launches from
 phase 6, the others' from their route's phase-5 pair-day); the last line
@@ -76,8 +102,10 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
+import pandas as pd
 import torch
 
 FS = 50.0
@@ -646,7 +674,8 @@ def phase6_device_engine(xt, ff):
     the EDH pair at 250 Hz raw through ``device_process_bulk`` +
     ``finalize`` (one launch of 32 windows), then day 1 through the host
     engine; the BHZ chain's stages against float64 on the CPU; a miniSEED
-    round trip. Returns K1's launches on the engine's run."""
+    round trip; a BHZ-EDH pair-day on both engines. Returns K1's launches
+    on the engine's run and the warm run's 4 datasets."""
     from torch.profiler import ProfilerActivity, profile
     from xcorr_tpu_torch.parallel.engine import device_process_bulk
     from xcorr_tpu_torch.stream import (Channel, Inventory, PAZResponse,
@@ -786,10 +815,379 @@ def phase6_device_engine(xt, ff):
     check(sum(s[2] for s in cov) == tr.stats.npts, f"coverage {cov[:2]}")
     phase(6, f"miniSEED SDS round trip of {tr.stats.npts} samples equal; "
              f"header scan covers them in {len(cov)} records")
-    return k1
+    bhz_pair_day(xt, ff, resp, paz)
+    return k1, dss
+
+
+BHZ_PAIR = "IM.H03S1..EDH-IU.RAR.10.BHZ"
+
+
+def bhz_pair_day(xt, ff, edh_resp, paz):
+    """One BHZ-EDH pair-day through the device engine and the host engine
+    on the card: the EDH side raw at 250 Hz, the BHZ side raw at 40 Hz
+    with ``paz`` through the production BHZ chain (``remove_response`` in
+    float32 on the card). The synthetic source trains of the two raw rates
+    are not aligned, so the CCFs are noise: the check is the two engines'
+    agreement."""
+    from xcorr_tpu_torch.parallel.engine import device_process_bulk
+    from xcorr_tpu_torch.scripts.cc import default_config
+    from xcorr_tpu_torch.stream import Channel, Inventory, SyntheticClient
+
+    class ClientByChannel(SyntheticClient):
+        """SyntheticClient with the BHZ channels raw at 40 Hz."""
+
+        def __init__(self, **kw):
+            super().__init__(sampling_rate=RAW_FS, **kw)
+            self.bhz = SyntheticClient(sampling_rate=40.0, **kw)
+
+        def _synthesize_day(self, receiver, date):
+            if receiver.endswith(".BHZ"):
+                return self.bhz._synthesize_day(receiver, date)
+            return super()._synthesize_day(receiver, date)
+
+    inv = Inventory([
+        Channel("IM", "H03S1", "", "EDH", latitude=-33.6, longitude=-78.8,
+                response=edh_resp),
+        Channel("IU", "RAR", "10", "BHZ", latitude=-21.2,
+                longitude=-159.8, response=paz)])
+    client = ClientByChannel(delays={"IM.H03S1..EDH": DELAY},
+                             source_period=600.0, source_amplitude=20.0)
+    chains = default_config()[0]["preprocess"]
+
+    def dataset():
+        return xt.init(pair=BHZ_PAIR, starttime="2014-02-01",
+                       endtime="2014-02-02",
+                       preprocess={"EDH": chains["EDH"],
+                                   "BHZ": chains["BHZ"]},
+                       attrs={"institution": "smoke", "author": "smoke",
+                              "source": "SyntheticClient"},
+                       sampling_rate=FS, window_length=WINDOW,
+                       window_overlap=21.0 / 24.0, clip_lag=CLIP_LAG,
+                       inventory=inv)
+
+    dev = dataset()
+    ff.reset_launches()
+    t0 = time.perf_counter()
+    finalize, fallback = device_process_bulk([dev], client, inventory=inv,
+                                             verb=0, device="cuda")
+    finalize()
+    torch.cuda.synchronize()
+    dev_wall = time.perf_counter() - t0
+    check(not fallback, f"BHZ-EDH: device engine fell back: {fallback}")
+    check(ff.launches["fused_corr"] == 1, f"BHZ-EDH: {ff.launches}")
+    host = dataset()
+    t0 = time.perf_counter()
+    xt.process(host, client, inventory=inv, device="cuda", verb=0)
+    torch.cuda.synchronize()
+    host_wall = time.perf_counter() - t0
+    for name, d in (("device", dev), ("host", host)):
+        check(bool((d["status"].values == 1).all()),
+              f"BHZ-EDH {name} engine status {d['status'].values.tolist()}")
+        check(bool(np.isfinite(d["cc"].values).all()),
+              f"BHZ-EDH {name} engine: non-finite CCF")
+    a, b = dev["cc"].values, host["cc"].values
+    diff = float(np.abs(a - b).max())
+    phase(6, f"BHZ-EDH pair-day {BHZ_PAIR} (BHZ 40 Hz raw, PAZ, the "
+             f"production BHZ chain): device engine {dev_wall:.2f} s, host "
+             f"engine {host_wall:.2f} s; max |CCF diff| {diff:.3e} (bar "
+             f"{CCF_ATOL}), max |CCF| {float(np.abs(b).max()):.3e}, rms "
+             f"diff {float(np.sqrt(np.mean((a - b) ** 2))):.3e}")
+    check(diff <= CCF_ATOL, f"BHZ-EDH: device engine vs host engine "
+                            f"{diff} > {CCF_ATOL}")
+
+
+#: the analysis scripts' postprocess filter and celerity window
+HIGHPASS = {"frequency": 3.0, "btype": "highpass", "order": 2}
+CELERITY = (1460.0, 1500.0)
+P7_TOL = 1e-5            # card vs CPU: relative, or of the peak
+ANALYSIS_ATTRS = {"institution": "smoke", "author": "smoke",
+                  "source": "seeded generator"}
+
+
+def device_profile():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def device_ops(prof):
+    """(device ms, kernels, copies) of a profiled run."""
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    copies = sum(e.count for e in events if e.key.startswith("Memcpy")
+                 or e.key.startswith("Memset"))
+    return (sum(e.self_device_time_total for e in events) / 1e3,
+            sum(e.count for e in events) - copies, copies)
+
+
+def timed(fn):
+    """``(fn(), wall seconds)``, the device synchronized at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def rel_err(got, want, peak=False):
+    """max |got - want| over max |want| (``peak``), else elementwise
+    relative."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if peak:
+        return float(np.nanmax(np.abs(got - want)) / np.nanmax(np.abs(want)))
+    return float(np.nanmax(np.abs(got - want) / np.abs(want)))
+
+
+def hold_snr(got, want, label):
+    """An SNR dataset on the card against the CPU's; returns the worst
+    relative error."""
+    err = max(rel_err(got[k].values, want[k].values) for k in
+              ("snr", "s", "n"))
+    check(err <= P7_TOL, f"{label}: snr/s/n relative error {err}")
+    check(np.array_equal(got["lag_s_max"].values, want["lag_s_max"].values),
+          f"{label}: lag_s_max differs")
+    return err
+
+
+def stage_ms(cc, delay):
+    """``[(stage, ms)]``: the warm wall on the card of each stage of
+    postprocess's chain after its selection, each stage fed the previous
+    one's output, and of the envelope that ``snr`` takes of the result.
+    Each wall holds the stage's host work and its copies."""
+    stages = [
+        ("unbias", lambda x: x.signal.unbias()),
+        ("demean", lambda x: x.signal.demean(device="cuda")),
+        ("taper 5 s", lambda x: x.signal.taper(max_length=5.0)),
+        ("timeshift", lambda x: x.signal.timeshift(
+            delay=delay, dim="lag", fast=True, device="cuda")),
+        ("filter", lambda x: x.signal.filter(**HIGHPASS, device="cuda")),
+        ("taper 1.5 s", lambda x: x.signal.taper(max_length=1.5)),
+        ("hilbert (snr)", lambda x: x.signal.hilbert(device="cuda")),
+    ]
+    ms = []
+    for name, fn in stages:
+        y, t = timed(lambda: fn(cc))
+        ms.append((name, 1e3 * t))
+        if name != "hilbert (snr)":
+            cc = y
+    return ms
+
+
+def phase7a_full_width(xt, dss, ndays):
+    """``postprocess`` and ``snr`` of phase 6's pair-days at full lag
+    width on the card, against the CPU; ms per pair-day by stage."""
+    from xcorr_tpu_torch import ndlabel
+    from xcorr_tpu_torch.signal import snr
+    ds = ndlabel.combine_by_coords(dss)
+    shape = ds["cc"].shape
+    kw = {"lag_lim": CLIP_LAG, "filter_kwargs": HIGHPASS}
+
+    def run(device):
+        post = xt.postprocess(ds, device=device, **kw)
+        lag = post.coords["lag"]
+        sn = snr(post["cc"], (lag >= DELAY - 1.0) & (lag <= DELAY + 1.0),
+                 (lag >= 6 * 3600.0) & (lag <= 9 * 3600.0), dim="lag",
+                 extend=True, envelope=True, device=device,
+                 **ANALYSIS_ATTRS)
+        return post, sn
+
+    (post, sn), card = timed(lambda: run("cuda"))
+    (post_c, sn_c), cpu = timed(lambda: run("cpu"))
+    want = post_c["cc"].values
+    check(post["cc"].shape == want.shape == shape,
+          f"postprocessed shape {post['cc'].shape}, {want.shape}, {shape}")
+    check(bool(np.isfinite(post["cc"].values).all()), "non-finite cc")
+    cc_err = rel_err(post["cc"].values, want, peak=True)
+    check(cc_err <= P7_TOL, f"7a: postprocessed cc {cc_err} of the peak")
+    snr_err = hold_snr(sn, sn_c, "7a")
+    lag_max = np.unique(sn["lag_s_max"].values)
+    ms = stage_ms(ds["cc"], -(ds["pair_offset"] + ds["time_offset"]))
+    phase(7, f"7a full width, {ndays} pair-days, cc {shape} float32: "
+             f"postprocess + snr card {card:.2f} s ({card / ndays:.3f} s "
+             f"per pair-day), CPU {cpu:.2f} s ({cpu / ndays:.3f}); card vs "
+             f"CPU: cc {cc_err:.2e} of the peak, snr/s/n {snr_err:.2e} "
+             f"relative, lag_s_max equal ({lag_max.tolist()} s)")
+    phase(7, "7a card ms per pair-day by stage (warm): " + "; ".join(
+        f"{name} {t / ndays:.1f}" for name, t in ms))
+
+
+CAMPAIGN_DAYS = 7
+CAMPAIGN_START = pd.Timestamp("2014-03-01")
+NOISE = 1e-3
+#: (campaign day, first window, last window) of the strong arrivals
+EVENTS = [(1, 1, 6), (4, 2, 5)]
+
+
+def campaign_day(xt, init_args, pairs, dists, iday):
+    """One day's CCF datasets of the production pairs, one per pair:
+    seeded noise plus one 8 Hz Ricker arrival at distance / 1480 m/s per
+    window, 40 times the noise on the windows of ``EVENTS`` and twice it
+    elsewhere; status 1, seeded sub-sample time offsets."""
+    day = CAMPAIGN_START + pd.Timedelta(days=iday)
+    rng = np.random.default_rng([SEED, iday])
+    t = (np.arange(50) - 25) / FS
+    a = (np.pi * 8.0 * t) ** 2
+    wavelet = ((1 - 2 * a) * np.exp(-a)).astype(np.float32)
+    out = []
+    for ip, pair in enumerate(pairs):
+        ds = xt.init(pair=pair, starttime=day,
+                     endtime=day + pd.Timedelta(days=1), **init_args)
+        cc = ds["cc"].values
+        rng.standard_normal(out=cc, dtype=np.float32)
+        cc *= np.float32(NOISE)
+        nt = cc.shape[1]
+        amp = np.full(nt, 2 * NOISE, dtype=np.float32)
+        for d, i0, i1 in EVENTS:
+            if d == iday:
+                amp[i0:i1 + 1] = 40 * NOISE
+        k = int(np.searchsorted(ds.coords["lag"].values,
+                                dists[ip] * 1e3 / 1480.0)) - 25
+        cc[0, :, k:k + wavelet.size] += amp[:, None] * wavelet
+        ds["status"].values[...] = 1
+        ds["distance"].values[...] = dists[ip]
+        ds["time_offset"].values[...] = rng.uniform(-0.01, 0.01, (1, nt))
+        out.append(ds)
+    return out
+
+
+def campaign_split(xt, dss, pair_snr):
+    """One campaign day on the card taken apart, ms per pair-day:
+    ``pair_snr``; the ``postprocess`` it starts with; ``pair_snr`` of the
+    postprocessed dataset, which postprocess hands back as it is, so the
+    SNR alone; each stage of :func:`stage_ms` on the lag window that
+    postprocess clips."""
+    def run(d):
+        return pair_snr(d, celerity=CELERITY, filter_kwargs=HIGHPASS,
+                        attrs=ANALYSIS_ATTRS, device="cuda")
+
+    split = {"pair_snr": 0.0, "postprocess": 0.0, "snr": 0.0}
+    for d in dss:
+        split["pair_snr"] += 1e3 * timed(lambda: run(d))[1]
+        post, t = timed(lambda: xt.postprocess(
+            d, clim=CELERITY, filter_kwargs=HIGHPASS, device="cuda"))
+        split["postprocess"] += 1e3 * t
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # "already postprocessed"
+            split["snr"] += 1e3 * timed(lambda: run(post))[1]
+        lag, kept = d.coords["lag"], post.coords["lag"].values
+        clipped = d["cc"].where((lag >= kept[0]) & (lag <= kept[-1]),
+                                drop=True)
+        check(clipped.shape == post["cc"].shape,
+              f"7b split: clipped {clipped.shape}, {post['cc'].shape}")
+        for name, ms in stage_ms(clipped,
+                                 -(d["pair_offset"] + d["time_offset"])):
+            split[name] = split.get(name, 0.0) + ms
+    return {k: v / len(dss) for k, v in split.items()}
+
+
+def phase7b_campaign(xt):
+    """The SNR -> trigger -> PSD path over 7 days of the 8 production
+    pairs at the production celerity window, card against CPU."""
+    from xcorr_tpu_torch import ndlabel
+    from xcorr_tpu_torch.scripts.cc import default_config
+    from xcorr_tpu_torch.scripts.psd import pair_psd
+    from xcorr_tpu_torch.scripts.snr import pair_snr
+    from xcorr_tpu_torch.signal import coincidence_trigger, trigger_periods
+    init_args, _, pairs, _ = default_config()
+    dists = np.random.default_rng(SEED).uniform(5000.0, 10000.0, len(pairs))
+
+    def snr_day(dss, device):
+        out = [pair_snr(d, celerity=CELERITY, filter_kwargs=HIGHPASS,
+                        attrs=ANALYSIS_ATTRS, device=device) for d in dss]
+        check(all(o is not None for o in out), f"{device}: a pair had no "
+                                               f"data after postprocess")
+        return ndlabel.concat(out, "pair")
+
+    days = {"cuda": [], "cpu": []}
+    wall = {"cuda": 0.0, "cpu": 0.0}
+    dev_ms, kernels, copies, err, first = 0.0, 0, 0, 0.0, None
+    for iday in range(CAMPAIGN_DAYS):
+        dss = campaign_day(xt, init_args, pairs, dists, iday)
+        with device_profile() as prof:
+            card, t = timed(lambda: snr_day(dss, "cuda"))
+        wall["cuda"] += t
+        first = t if first is None else first
+        ms, k, c = device_ops(prof)
+        dev_ms, kernels, copies = dev_ms + ms, kernels + k, copies + c
+        cpu, t = timed(lambda: snr_day(dss, "cpu"))
+        wall["cpu"] += t
+        err = max(err, hold_snr(card, cpu, f"7b day {iday}"))
+        days["cuda"].append(card)
+        days["cpu"].append(cpu)
+        if iday == CAMPAIGN_DAYS - 1:
+            split = campaign_split(xt, dss, pair_snr)
+        del dss
+    npd = CAMPAIGN_DAYS * len(pairs)
+    share = f"{dev_ms / 1e3 / wall['cuda']:.4f}" if dev_ms > 0 \
+        else "not measured"
+    phase(7, f"7b snr, {len(pairs)} pairs x {CAMPAIGN_DAYS} days = {npd} "
+             f"pair-days at clim {CELERITY}: card {wall['cuda']:.2f} s "
+             f"({1e3 * wall['cuda'] / npd:.1f} ms per pair-day; first day "
+             f"{first:.2f} s, profiled), CPU {wall['cpu']:.2f} s "
+             f"({1e3 * wall['cpu'] / npd:.1f} ms per pair-day); device "
+             f"{dev_ms:.1f} ms, share {share}; device operations per "
+             f"pair-day {(kernels + copies) / npd:.1f} (kernels "
+             f"{kernels / npd:.1f}, copies {copies / npd:.1f}); card vs "
+             f"CPU snr/s/n {err:.2e} relative, lag_s_max equal")
+    whole = ("pair_snr", "postprocess", "snr")
+    stages = {k: v for k, v in split.items() if k not in whole}
+    chain = sum(v for k, v in stages.items() if k != "hilbert (snr)")
+    phase(7, f"7b day {CAMPAIGN_DAYS} taken apart on the card (warm, "
+             f"unprofiled), ms per pair-day: pair_snr "
+             f"{split['pair_snr']:.1f}; its postprocess "
+             f"{split['postprocess']:.1f} and snr {split['snr']:.1f}; "
+             f"postprocess's selection and lag clip (by difference) "
+             f"{split['postprocess'] - chain:.1f}; on the clipped window "
+             + "; ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+
+    periods = {}
+    for device in ("cuda", "cpu"):
+        snr_all = ndlabel.combine_by_coords(days[device])
+        ct = coincidence_trigger(snr_all["snr"], thr_on=10.0, dim="time")
+        periods[device] = (trigger_periods(ct) if ct.attrs["nperiods"]
+                           else None, snr_all)
+    want = periods["cpu"][0]
+    check(want is not None and len(want) == len(EVENTS),
+          f"7b: {0 if want is None else len(want)} triggered periods on the "
+          f"CPU, {len(EVENTS)} designed")
+    check(periods["cuda"][0] is not None
+          and periods["cuda"][0].equals(want),
+          f"7b: trigger periods differ: {periods['cuda'][0]} vs {want}")
+
+    wall = {"cuda": 0.0, "cpu": 0.0}
+    err, npsd, shape = 0.0, 0, None
+    for _, row in want.iterrows():
+        start, end = row["start"], row["end"]
+        check(start.normalize() == end.normalize(),
+              f"7b: period {start} - {end} spans days")
+        dss = campaign_day(xt, init_args, pairs, dists,
+                           (start.normalize() - CAMPAIGN_START).days)
+        for ip, pair in enumerate(pairs):
+            out = {}
+            for device in ("cuda", "cpu"):
+                out[device], t = timed(lambda: pair_psd(
+                    dss[ip], pair, start, end, clim=CELERITY,
+                    duration=2.5, padding_factor=4, filter_kwargs=HIGHPASS,
+                    snr=periods[device][1]["snr"], fmax=20.0,
+                    device=device))
+                wall[device] += t
+            check(out["cuda"] is not None and out["cpu"] is not None,
+                  f"7b: no PSD for {pair}")
+            g, w = out["cuda"]["psd"].values, out["cpu"]["psd"].values
+            check(g.shape == w.shape and bool(np.isfinite(g).all()),
+                  f"7b: PSD {g.shape} vs {w.shape}")
+            err = max(err, rel_err(g, w, peak=True))
+            npsd, shape = npsd + 1, g.shape
+        del dss
+    check(err <= P7_TOL, f"7b: PSD {err} of its max")
+    spans = "; ".join(f"{r.start} - {r.end}" for r in want.itertuples())
+    phase(7, f"7b psd: {len(want)} triggered periods ({spans}) "
+             f"identical on card and CPU; {npsd} (pair, period) "
+             f"spectrograms (last {shape}): card {wall['cuda']:.2f} s, CPU "
+             f"{wall['cpu']:.2f} s; card vs CPU PSD {err:.2e} of its max")
 
 
 def main():
+    t_start = time.perf_counter()
     # -- 1. the card ---------------------------------------------------
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     smi = subprocess.run(
@@ -867,7 +1265,18 @@ def main():
     launches = phase5_pair_days(xt, ff)
 
     # -- 6. the device engine: 4 pair-days in one launch -------------------
-    launches["fused_corr"] = phase6_device_engine(xt, ff)
+    t6 = time.perf_counter()
+    launches["fused_corr"], dss = phase6_device_engine(xt, ff)
+
+    # -- 7. the analysis slice: full width, then the campaign --------------
+    t7 = time.perf_counter()
+    phase7a_full_width(xt, dss, ENGINE_DAYS)
+    del dss
+    t7b = time.perf_counter()
+    phase7b_campaign(xt)
+    phase(7, f"command time: phases 1-5 {t6 - t_start:.1f} s, phase 6 "
+             f"{t7 - t6:.1f} s, 7a {t7b - t7:.1f} s, 7b "
+             f"{time.perf_counter() - t7b:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": name,
