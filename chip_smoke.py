@@ -86,7 +86,30 @@ Phases, each printed on its own line; any failure exits non-zero:
    within 1e-5 of its max), with wall per pair-day on the card and on the
    CPU, the device share and the device operations per pair-day, and the
    last day's card wall taken apart: ``postprocess``, ``snr`` and each
-   stage of the chain on the clipped lag window.
+   stage of the chain on the clipped lag window. The Z and R pairs of one
+   receiver share a distance, and so do the three array pairs, whose
+   arrivals carry the delays of a plane wave (250 deg, 1480 m/s) across
+   the H03S triad of ``ARRAY_STATIONS``;
+8. the rest of the analysis tier on the card, each part held to the same
+   calls on the CPU, with card and CPU wall per unit, the device share
+   and the device operations per unit (torch.profiler). In 7b's day loop:
+   (a) ``scripts.beamform.beamform_datasets`` of the three array pairs
+   per day, envelope off and on: ``s_x``, ``s_y``, ``vel``, ``err``
+   within 1e-9 relative and ``doa`` within 1e-9 degrees of the CPU's,
+   the injected wave within 5 deg and 10% on the event windows;
+   (b) ``scripts.plmax.pair_plmax`` of the first day's 8 pair-days with
+   the STFT and with the scaleogram: the spectrogram within 1e-5 of its
+   max, the peak sets equal but for near-ties, counted; (c)
+   ``scripts.swresp.swresp_datasets`` of the two (Z, R) pairs per day:
+   ratio and phase within 1e-3 (relative, rad) on the bins where both
+   spectra exceed 1e-2 of their max. Then (d) the timelapse of the array
+   pairs H10N1-H03S1 and H10N2-H03S2 over 60 days x 4 bands (3-6, 6-9,
+   9-12, 12-20 Hz; 2.5 s, padding 4): ``pair_spectrograms`` and
+   ``correlate_spectrograms`` of all 14,640 cells on the card, cells/s,
+   stack shapes, peak device memory; the CPU makes 12 seeded days'
+   spectrograms per pair (within 1e-5 of their max) and 64 seeded cells
+   of them per (pair, band) (``cc2`` within 1e-5, shifts equal but for
+   near-ties, counted).
 
 The line before the last is the kernels' JSON record (K1's launches from
 phase 6, the others' from their route's phase-5 pair-day); the last line
@@ -1017,19 +1040,20 @@ NOISE = 1e-3
 EVENTS = [(1, 1, 6), (4, 2, 5)]
 
 
-def campaign_day(xt, init_args, pairs, dists, iday):
-    """One day's CCF datasets of the production pairs, one per pair:
-    seeded noise plus one 8 Hz Ricker arrival at distance / 1480 m/s per
-    window, 40 times the noise on the windows of ``EVENTS`` and twice it
-    elsewhere; status 1, seeded sub-sample time offsets."""
+def campaign_day(xt, init_args, pairs, dists, offsets, iday, which=None):
+    """One day's CCF datasets of the production pairs, one per pair (or
+    per index of ``which``): seeded noise plus one 8 Hz Ricker arrival at
+    distance / 1480 m/s + the pair's ``offsets`` (s) per window, 40 times
+    the noise on the windows of ``EVENTS`` and twice it elsewhere; status
+    1, seeded sub-sample time offsets. Each pair-day has its own seed."""
     day = CAMPAIGN_START + pd.Timedelta(days=iday)
-    rng = np.random.default_rng([SEED, iday])
     t = (np.arange(50) - 25) / FS
     a = (np.pi * 8.0 * t) ** 2
     wavelet = ((1 - 2 * a) * np.exp(-a)).astype(np.float32)
     out = []
-    for ip, pair in enumerate(pairs):
-        ds = xt.init(pair=pair, starttime=day,
+    for ip in range(len(pairs)) if which is None else which:
+        rng = np.random.default_rng([SEED, iday, ip])
+        ds = xt.init(pair=pairs[ip], starttime=day,
                      endtime=day + pd.Timedelta(days=1), **init_args)
         cc = ds["cc"].values
         rng.standard_normal(out=cc, dtype=np.float32)
@@ -1040,7 +1064,8 @@ def campaign_day(xt, init_args, pairs, dists, iday):
             if d == iday:
                 amp[i0:i1 + 1] = 40 * NOISE
         k = int(np.searchsorted(ds.coords["lag"].values,
-                                dists[ip] * 1e3 / 1480.0)) - 25
+                                dists[ip] * 1e3 / 1480.0
+                                + offsets[ip])) - 25
         cc[0, :, k:k + wavelet.size] += amp[:, None] * wavelet
         ds["status"].values[...] = 1
         ds["distance"].values[...] = dists[ip]
@@ -1079,16 +1104,49 @@ def campaign_split(xt, dss, pair_snr):
     return {k: v / len(dss) for k, v in split.items()}
 
 
-def phase7b_campaign(xt):
-    """The SNR -> trigger -> PSD path over 7 days of the 8 production
-    pairs at the production celerity window, card against CPU."""
+def campaign_geometry(pairs, inv):
+    """Seeded pair distances (km) and arrival offsets (s) of the campaign:
+    the Z and R pairs of one receiver share a distance, and so do the
+    three array pairs, whose arrivals carry the delays of the plane wave
+    ``WAVE_AZ``, ``WAVE_VEL`` across their H03S receivers, in the local
+    coordinates that ``beamform_datasets`` builds."""
+    from xcorr_tpu_torch.util.receiver import (get_pair_xy_coordinates,
+                                               split_pair)
+    dists = np.random.default_rng(SEED).uniform(5000.0, 10000.0, len(pairs))
+    for iz, ir in SWRESP_PAIRS:
+        dists[ir] = dists[iz]
+    dists[ARRAY_PAIRS] = dists[ARRAY_PAIRS[0]]
+    array = [pairs[i] for i in ARRAY_PAIRS]
+    receivers, x, y = get_pair_xy_coordinates(array, inv, km=False)
+    k = [receivers.index(split_pair(pair)[1]) for pair in array]
+    az = np.radians(WAVE_AZ)
+    offsets = np.zeros(len(pairs))
+    offsets[ARRAY_PAIRS] = ((x[k] - x[k].mean()) * np.sin(az)
+                            + (y[k] - y[k].mean()) * np.cos(az)) / WAVE_VEL
+    return dists, offsets
+
+
+def array_inventory():
+    from xcorr_tpu_torch.stream import Channel, Inventory
+    return Inventory([Channel(*sid.split("."), latitude=lat, longitude=lon)
+                      for sid, (lat, lon) in ARRAY_STATIONS.items()])
+
+
+def phase7b_campaign(xt, p8):
+    """The SNR -> trigger -> PSD path over the campaign days of the 8
+    production pairs at the production celerity window, card against
+    CPU; on the same days, phase 8's beamform (8a), plmax (8b, first day)
+    and swresp (8c), accumulated in ``p8``."""
     from xcorr_tpu_torch import ndlabel
     from xcorr_tpu_torch.scripts.cc import default_config
     from xcorr_tpu_torch.scripts.psd import pair_psd
     from xcorr_tpu_torch.scripts.snr import pair_snr
     from xcorr_tpu_torch.signal import coincidence_trigger, trigger_periods
     init_args, _, pairs, _ = default_config()
-    dists = np.random.default_rng(SEED).uniform(5000.0, 10000.0, len(pairs))
+    inv = array_inventory()
+    dists, offsets = campaign_geometry(pairs, inv)
+    p8.update(init_args=init_args, pairs=pairs, dists=dists,
+              offsets=offsets, inv=inv)
 
     def snr_day(dss, device):
         out = [pair_snr(d, celerity=CELERITY, filter_kwargs=HIGHPASS,
@@ -1101,7 +1159,7 @@ def phase7b_campaign(xt):
     wall = {"cuda": 0.0, "cpu": 0.0}
     dev_ms, kernels, copies, err, first = 0.0, 0, 0, 0.0, None
     for iday in range(CAMPAIGN_DAYS):
-        dss = campaign_day(xt, init_args, pairs, dists, iday)
+        dss = campaign_day(xt, init_args, pairs, dists, offsets, iday)
         with device_profile() as prof:
             card, t = timed(lambda: snr_day(dss, "cuda"))
         wall["cuda"] += t
@@ -1115,6 +1173,12 @@ def phase7b_campaign(xt):
         days["cpu"].append(cpu)
         if iday == CAMPAIGN_DAYS - 1:
             split = campaign_split(xt, dss, pair_snr)
+        t8 = time.perf_counter()
+        phase8a_beamform(dss, iday, p8)
+        if iday == 0:
+            phase8b_plmax(xt, dss, p8)
+        phase8c_swresp(xt, dss, p8)
+        p8["seconds"] += time.perf_counter() - t8
         del dss
     npd = CAMPAIGN_DAYS * len(pairs)
     share = f"{dev_ms / 1e3 / wall['cuda']:.4f}" if dev_ms > 0 \
@@ -1159,7 +1223,7 @@ def phase7b_campaign(xt):
         start, end = row["start"], row["end"]
         check(start.normalize() == end.normalize(),
               f"7b: period {start} - {end} spans days")
-        dss = campaign_day(xt, init_args, pairs, dists,
+        dss = campaign_day(xt, init_args, pairs, dists, offsets,
                            (start.normalize() - CAMPAIGN_START).days)
         for ip, pair in enumerate(pairs):
             out = {}
@@ -1184,6 +1248,375 @@ def phase7b_campaign(xt):
              f"identical on card and CPU; {npsd} (pair, period) "
              f"spectrograms (last {shape}): card {wall['cuda']:.2f} s, CPU "
              f"{wall['cpu']:.2f} s; card vs CPU PSD {err:.2e} of its max")
+
+
+#: the six stations of the production array pairs
+#: (``xcorr_tpu/scripts/cc.py:111-113``), latitude and longitude: the IMS
+#: hydrophone triads H10N, north of Ascension Island, and H03S, south of
+#: the Juan Fernandez Islands, placed to about 100 m
+ARRAY_STATIONS = {
+    "IM.H10N1..EDH": (-7.8445, -14.4690),
+    "IM.H10N2..EDH": (-7.8590, -14.4980),
+    "IM.H10N3..EDH": (-7.8350, -14.4950),
+    "IM.H03S1..EDH": (-33.8220, -78.8130),
+    "IM.H03S2..EDH": (-33.8390, -78.8340),
+    "IM.H03S3..EDH": (-33.8120, -78.8360),
+}
+#: indices in ``default_config``'s pairs: the array pairs
+#: IM.H10N{1,2,3}..EDH-IM.H03S{1,2,3}..EDH; the (Z, R) pairs of RAR with
+#: H10N1 and with H03S1; the timelapse pairs H10N1-H03S1, H10N2-H03S2
+ARRAY_PAIRS = [4, 5, 6]
+SWRESP_PAIRS = [(0, 1), (2, 3)]
+TL_PAIRS = (4, 5)
+#: the plane wave across the H03S triad that 8a recovers: propagation
+#: azimuth (degrees from north) and horizontal velocity (m/s)
+WAVE_AZ, WAVE_VEL = 250.0, 1480.0
+#: swresp's ratio and phase are held on bins where |Y_Z| and |Y_R| both
+#: exceed this share of their window's max, at P7_TOL / SW_LEVEL: a
+#: float32 spectrum within P7_TOL of its max is that much off there
+SW_LEVEL = 1e-2
+#: 8d at the size of VERDICT r5's ask: 60 consecutive days, 4 bands
+TL_DAYS = 60
+TL_BANDS = ((3.0, 6.0), (6.0, 9.0), (9.0, 12.0), (12.0, 20.0))
+TL_SAMPLE_TIMES, TL_SAMPLE_CELLS = 12, 64
+BF_TOL = 1e-9            # beamform card vs CPU: relative, degrees for doa
+
+
+def new_phase8():
+    """Phase 8's accumulators, filled by 7b's day loop and 8d."""
+    return {"seconds": 0.0, "bf": {}, "plm": {}, "sw": {}}
+
+
+def tally(acc, key, card, cpu, prof, units):
+    """Add one profiled card run's wall, device ms and operations, and
+    its CPU twin's wall, to ``acc[key]``."""
+    ms, k, c = device_ops(prof)
+    r = acc.setdefault(key, {"card": 0.0, "cpu": 0.0, "dev_ms": 0.0,
+                             "ops": 0, "units": 0, "err": 0.0})
+    r["card"] += card
+    r["cpu"] += cpu
+    r["dev_ms"] += ms
+    r["ops"] += k + c
+    r["units"] += units
+    return r
+
+
+def tally_line(label, r, unit):
+    share = f"{r['dev_ms'] / 1e3 / r['card']:.4f}" if r["dev_ms"] > 0 \
+        else "not measured"
+    n = r["units"]
+    return (f"{label}: card {1e3 * r['card'] / n:.1f} ms per {unit}, CPU "
+            f"{1e3 * r['cpu'] / n:.1f} ms per {unit} ({n} {unit}s); device "
+            f"{r['dev_ms']:.1f} ms, share {share}, device operations per "
+            f"{unit} {r['ops'] / n:.1f}")
+
+
+def hold_close(got, want, tol, label, angle=False):
+    """``got`` against ``want`` elementwise: relative (absolute for an
+    ``angle`` in degrees, modulo 360), equal where not finite."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    fin = np.isfinite(want)
+    check(np.array_equal(fin, np.isfinite(got))
+          and np.array_equal(got[~fin], want[~fin]),
+          f"{label}: non-finite entries differ")
+    if angle:
+        d = np.abs((got[fin] - want[fin] + 180.0) % 360.0 - 180.0)
+    else:
+        d = np.abs(got[fin] - want[fin]) / np.maximum(np.abs(want[fin]),
+                                                      1e-300)
+    err = float(d.max()) if d.size else 0.0
+    check(err <= tol, f"{label}: {err} > {tol}")
+    return err
+
+
+def phase8a_beamform(dss, iday, p8):
+    """``beamform_datasets`` of one campaign day's three array pairs,
+    envelope off and on, card against CPU; on the ``EVENTS`` windows the
+    injected plane wave must come back."""
+    from xcorr_tpu_torch.scripts.beamform import beamform_datasets
+    arr = [dss[i] for i in ARRAY_PAIRS]
+    for envelope in (False, True):
+        kw = dict(clim=CELERITY, envelope=envelope, attrs=ANALYSIS_ATTRS,
+                  filter_kwargs=HIGHPASS)
+        with device_profile() as prof:
+            card, t = timed(lambda: beamform_datasets(
+                arr, p8["inv"], device="cuda", **kw))
+        cpu, tc = timed(lambda: beamform_datasets(
+            arr, p8["inv"], device="cpu", **kw))
+        check(card is not None and cpu is not None, "8a: no estimate")
+        r = tally(p8["bf"], envelope, t, tc, prof, 1)
+        same = all(np.array_equal(card[v].values, cpu[v].values)
+                   for v in ("s_x", "s_y", "doa", "vel", "err"))
+        r["identical"] = r.get("identical", 0) + same
+        for v in ("s_x", "s_y", "vel", "err"):
+            r["err"] = max(r["err"], hold_close(
+                card[v].values, cpu[v].values, BF_TOL, f"8a {v}"))
+        r["err"] = max(r["err"], hold_close(
+            card["doa"].values, cpu["doa"].values, BF_TOL, "8a doa", True))
+        for d, i0, i1 in EVENTS:
+            if d != iday:
+                continue
+            doa = card["doa"].values[i0:i1 + 1]
+            vel = card["vel"].values[i0:i1 + 1]
+            want = (WAVE_AZ + 180.0) % 360.0
+            ddoa = float(np.abs((doa - want + 180.0) % 360.0 - 180.0).max())
+            dvel = float(np.abs(vel / WAVE_VEL - 1.0).max())
+            check(ddoa < 5.0 and dvel < 0.1,
+                  f"8a day {iday}: event windows doa {doa}, vel {vel}; "
+                  f"injected {want} deg, {WAVE_VEL} m/s")
+            r["wave"] = max(r.get("wave", (0.0, 0.0)), (ddoa, dvel))
+
+
+def tie_count(diff, w, err_abs, md):
+    """How many of the peaks ``diff`` (index tuples present in one
+    device's mask only) are near-ties in ``w``: the peak and the largest
+    other value of its (2·md+1)² window differ by at most 2·err_abs. Any
+    other difference fails."""
+    for p in diff:
+        lead, (i, j) = p[:-2], p[-2:]
+        win = w[lead][max(0, i - md):i + md + 1,
+                      max(0, j - md):j + md + 1].copy()
+        win[min(i, md), min(j, md)] = -np.inf
+        gap = abs(float(w[p]) - float(win.max()))
+        check(gap <= 2 * err_abs, f"8b: peak {p} differs between card and "
+                                  f"CPU by more than a tie ({gap})")
+    return len(diff)
+
+
+def phase8b_plmax(xt, dss, p8):
+    """``pair_plmax`` of one campaign day's 8 pair-days, with the STFT and
+    with the scaleogram, card against CPU: the spectrogram within P7_TOL
+    of its max, the peak sets equal but for near-ties."""
+    from xcorr_tpu_torch.scripts.plmax import pair_plmax
+    from xcorr_tpu_torch.signal import scaleogram, spectrogram
+    md = 25
+    for wavelet in (False, True):
+        kw = dict(clim=CELERITY, min_distance=md, wavelet=wavelet,
+                  duration=2.5, padding_factor=4, filter_kwargs=HIGHPASS)
+        ties = npeaks = 0
+        for d in dss:
+            with device_profile() as prof:
+                dfc, t = timed(lambda: pair_plmax(d, device="cuda", **kw))
+            dfp, tc = timed(lambda: pair_plmax(d, device="cpu", **kw))
+            r = tally(p8["plm"], wavelet, t, tc, prof, 1)
+            check(dfc is not None and dfp is not None, "8b: no peaks")
+            psd = {}
+            for dev in ("cuda", "cpu"):
+                cc = xt.postprocess(d, clim=CELERITY, filter_kwargs=HIGHPASS,
+                                    device=dev)["cc"]
+                psd[dev] = (scaleogram(cc, dim="lag", device=dev) if wavelet
+                            else spectrogram(cc, duration=2.5,
+                                             padding_factor=4, device=dev))
+            g, w = psd["cuda"].values, psd["cpu"].values
+            err = rel_err(g, w, peak=True)
+            check(err <= P7_TOL, f"8b: psd {err} of its max")
+            r["err"] = max(r["err"], err)
+            dims = psd["cpu"].dims
+
+            def index(df):
+                cols = [np.searchsorted(psd["cpu"].coords[k].values,
+                                        df[k].values) for k in dims]
+                return set(zip(*cols))
+            diff = index(dfc) ^ index(dfp)
+            ties += tie_count(diff, w, float(np.abs(g - w).max()), md)
+            npeaks += len(dfp)
+            r["shape"] = g.shape
+        r["ties"] = r.get("ties", 0) + ties
+        r["peaks"] = r.get("peaks", 0) + npeaks
+
+
+def phase8c_swresp(xt, dss, p8):
+    """``swresp_datasets`` of one campaign day's two (Z, R) pairs, card
+    against CPU, on the bins where both spectra are above SW_LEVEL of
+    their max; the errors on the bins where |Y_Z| > 1e-3 of its max are
+    printed, not held."""
+    from xcorr_tpu_torch.scripts.swresp import swresp_datasets
+    kw = dict(clim=CELERITY, attrs=ANALYSIS_ATTRS, filter_kwargs=HIGHPASS)
+    for iz, ir in SWRESP_PAIRS:
+        with device_profile() as prof:
+            card, t = timed(lambda: swresp_datasets(dss[iz], dss[ir],
+                                                    device="cuda", **kw))
+        cpu, tc = timed(lambda: swresp_datasets(dss[iz], dss[ir],
+                                                device="cpu", **kw))
+        r = tally(p8["sw"], "swresp", t, tc, prof, 1)
+        check(card is not None and cpu is not None, "8c: no response")
+        nt, nf = cpu["ratio"].shape
+        mags = []
+        for i in (iz, ir):
+            cc = xt.postprocess(dss[i], clim=CELERITY, filter_kwargs=HIGHPASS,
+                                device="cpu")["cc"].values[0, :nt]
+            Y = np.abs(np.fft.rfft(cc[:, :2 * (nf - 1)], axis=-1))
+            mags.append(Y / Y.max(axis=-1, keepdims=True))
+        keep = (mags[0] > SW_LEVEL) & (mags[1] > SW_LEVEL)
+        loose = mags[0] > 1e-3
+        g, w = card["ratio"].values, cpu["ratio"].values
+        with np.errstate(divide="ignore", invalid="ignore"):
+            dr = np.abs(g - w) / np.abs(w)
+        dp = np.abs(np.angle(np.exp(1j * (card["phase"].values
+                                          - cpu["phase"].values))))
+        bar = P7_TOL / SW_LEVEL
+        check(dr[keep].max() <= bar and dp[keep].max() <= bar,
+              f"8c: ratio {dr[keep].max()}, phase {dp[keep].max()} rad on "
+              f"the held bins, bar {bar}")
+        r["err"] = max(r["err"], float(dr[keep].max()))
+        r["phase"] = max(r.get("phase", 0.0), float(dp[keep].max()))
+        r["loose"] = max(r.get("loose", (0.0, 0.0)),
+                         (float(np.nanmax(dr[loose])),
+                          float(dp[loose].max())))
+        r["held"] = r.get("held", 0) + int(keep.sum())
+        r["bins"] = r.get("bins", 0) + keep.size
+
+
+def phase8_report(p8):
+    for env, r in sorted(p8["bf"].items()):
+        phase(8, tally_line(f"8a beamform, envelope {env}", r, "array-day")
+              + f"; card vs CPU {r['err']:.2e} (bar {BF_TOL}), "
+              f"bit-identical on {r['identical']} of {r['units']} "
+              f"array-days; event windows: doa within {r['wave'][0]:.2f} "
+              f"deg of {(WAVE_AZ + 180.0) % 360.0:g}, vel within "
+              f"{100 * r['wave'][1]:.2f}% of {WAVE_VEL:g} m/s")
+    for wavelet, r in sorted(p8["plm"].items()):
+        name = "scaleogram" if wavelet else "STFT"
+        phase(8, tally_line(f"8b plmax ({name}, {r['shape']} per "
+                            f"pair-day)", r, "pair-day")
+              + f"; card vs CPU psd {r['err']:.2e} of its max; "
+              f"{r['peaks']} peaks, {r['ties']} differ as near-ties")
+    r = p8["sw"]["swresp"]
+    phase(8, tally_line("8c swresp", r, "pair-day")
+          + f"; card vs CPU on {r['held']} of {r['bins']} bins: ratio "
+          f"{r['err']:.2e} relative, phase {r['phase']:.2e} rad (bar "
+          f"{P7_TOL / SW_LEVEL:g}); where |Y_Z| > 1e-3 of its max: ratio "
+          f"{r['loose'][0]:.2e}, phase {r['loose'][1]:.2e} rad")
+
+
+def shift_value(a, b, df, dl):
+    """The normalized 2-D correlation of spectrograms ``a`` and ``b`` at
+    the shift (``df``, ``dl``), in float64 on the host:
+    sum of a[f + df, l + dl] * b[f, l] over the overlap, as
+    ``correlate_spectrograms`` defines its peak and shifts."""
+    a = a / np.linalg.norm(a.astype(np.float64))
+    b = b / np.linalg.norm(b.astype(np.float64))
+    F, L = a.shape
+    return float(np.sum(
+        a[max(df, 0):F + min(df, 0), max(dl, 0):L + min(dl, 0)]
+        * b[max(-df, 0):F + min(-df, 0), max(-dl, 0):L + min(-dl, 0)],
+        dtype=np.float64))
+
+
+def phase8d_timelapse(xt, p8):
+    """The timelapse of two array pairs over TL_DAYS days and TL_BANDS:
+    the spectrogram cache and every cell on the card; on the CPU the
+    spectrograms of TL_SAMPLE_TIMES seeded times and a seeded sample of
+    TL_SAMPLE_CELLS of their cells per (pair, band), held to the card:
+    equal shifts but for near-ties, where the float64 correlation of the
+    CPU's spectrograms at the card's shift and at the CPU's differ by at
+    most 2 P7_TOL; counted."""
+    from xcorr_tpu_torch.scripts.timelapse import (correlate_spectrograms,
+                                                   pair_spectrograms)
+    times = pd.date_range(CAMPAIGN_START, periods=TL_DAYS, freq="1D")
+    iu, ju = np.triu_indices(TL_DAYS)
+    cell_of = {(a, b): k for k, (a, b) in enumerate(zip(iu, ju))}
+    rng = np.random.default_rng([SEED, 8])
+    kw = dict(clim=CELERITY, duration=2.5, padding_factor=4,
+              filter_kwargs=HIGHPASS)
+    gen = [0.0]
+
+    def days(ip, idx):
+        """The pair's datasets of the days ``idx``, made as iterated; the
+        making is timed apart."""
+        for i in idx:
+            t0 = time.perf_counter()
+            ds = campaign_day(xt, p8["init_args"], p8["pairs"], p8["dists"],
+                              p8["offsets"], int(i), which=[ip])[0]
+            gen[0] += time.perf_counter() - t0
+            yield ds
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cache = {"card": 0.0, "dev_ms": 0.0, "ops": 0}
+    cells = {"card": 0.0, "dev_ms": 0.0, "ops": 0, "n": 0}
+    err = {"spec": 0.0, "cc2": 0.0}
+    shapes, ties = {}, 0
+    for ip in TL_PAIRS:
+        gen[0] = 0.0
+        with device_profile() as prof:
+            (specs, freq), t = timed(lambda: pair_spectrograms(
+                days(ip, range(TL_DAYS)), times, device="cuda", **kw))
+        ms, k, c = device_ops(prof)
+        cache["card"] += t - gen[0]
+        cache["dev_ms"] += ms
+        cache["ops"] += k + c
+        check(all(s is not None for s in specs), "8d: a day had no data")
+        sample = np.sort(rng.choice(TL_DAYS, TL_SAMPLE_TIMES, replace=False))
+        cpu_specs, _ = pair_spectrograms(days(ip, sample), times[sample],
+                                         device="cpu", **kw)
+        for k, i in enumerate(sample):
+            err["spec"] = max(err["spec"], rel_err(specs[i], cpu_specs[k],
+                                                   peak=True))
+        la, lb = np.triu_indices(TL_SAMPLE_TIMES)
+        pick = np.sort(rng.choice(la.size, TL_SAMPLE_CELLS, replace=False))
+        la, lb = la[pick], lb[pick]
+        for f0, f1 in TL_BANDS:
+            sel = (freq >= f0) & (freq <= f1)
+            stack = np.stack([s[sel] for s in specs])
+            shapes[(f0, f1)] = stack.shape
+            with device_profile() as prof:
+                (pk, df_, dl_), t = timed(lambda: correlate_spectrograms(
+                    stack, iu, ju, device="cuda"))
+            ms, k, c = device_ops(prof)
+            cells["card"] += t
+            cells["dev_ms"] += ms
+            cells["ops"] += k + c
+            cells["n"] += iu.size
+            cstack = np.stack([s[sel] for s in cpu_specs])
+            cpk, cdf, cdl = correlate_spectrograms(cstack, la, lb,
+                                                   device="cpu")
+            idx = [cell_of[(sample[a], sample[b])] for a, b in zip(la, lb)]
+            err["cc2"] = max(err["cc2"],
+                             float(np.abs(pk[idx] - cpk).max()))
+            for n in np.flatnonzero((df_[idx] != cdf) | (dl_[idx] != cdl)):
+                a, b = cstack[la[n]], cstack[lb[n]]
+                gap = abs(shift_value(a, b, df_[idx][n], dl_[idx][n])
+                          - shift_value(a, b, cdf[n], cdl[n]))
+                check(gap <= 2 * P7_TOL,
+                      f"8d {p8['pairs'][ip]} band {f0}-{f1} Hz: shifts "
+                      f"({df_[idx][n]}, {dl_[idx][n]}) on the card, "
+                      f"({cdf[n]}, {cdl[n]}) on the CPU, {gap} apart")
+                ties += 1
+            check(bool(np.isfinite(pk).all()), "8d: non-finite cc2")
+            diag = pk[iu == ju]
+            check(bool(np.abs(diag - 1.0).max() < 1e-5),
+                  f"8d: self-correlation peaks {diag.min()} - {diag.max()}")
+        del specs, cpu_specs
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(err["spec"] <= P7_TOL and err["cc2"] <= P7_TOL,
+          f"8d: spectrograms {err['spec']} of their max, cc2 {err['cc2']}")
+    npd = len(TL_PAIRS) * TL_DAYS
+
+    def share(r, wall):
+        return f"{r['dev_ms'] / 1e3 / wall:.4f}" if r["dev_ms"] > 0 \
+            else "not measured"
+    phase(8, f"8d timelapse, {len(TL_PAIRS)} pairs x {TL_DAYS} days x "
+             f"{len(TL_BANDS)} bands: spectrogram cache {npd} pair-days, "
+             f"card {1e3 * cache['card'] / npd:.1f} ms per pair-day "
+             f"(postprocess + spectrogram; making the data timed apart), "
+             f"device share {share(cache, cache['card'])}, device "
+             f"operations per pair-day {cache['ops'] / npd:.1f}")
+    phase(8, f"8d cells on the card: {cells['n']} in {cells['card']:.2f} s "
+             f"= {cells['n'] / cells['card']:.0f} cells/s, device share "
+             f"{share(cells, cells['card'])}, device operations per cell "
+             f"{cells['ops'] / cells['n']:.2f}; stacks (times, freqs, lags) "
+             + "; ".join(f"{f0:g}-{f1:g} Hz {v}"
+                         for (f0, f1), v in shapes.items())
+             + f"; peak device memory {peak_gb:.2f} GB above "
+               f"{base / 1e9:.2f}")
+    phase(8, f"8d card vs CPU: spectrograms of {TL_SAMPLE_TIMES} times per "
+             f"pair within {err['spec']:.2e} of their max; "
+             f"{TL_SAMPLE_CELLS} cells per (pair, band): cc2 within "
+             f"{err['cc2']:.2e}, delta_freq and delta_lag equal but for "
+             f"{ties} near-ties")
 
 
 def main():
@@ -1273,10 +1706,19 @@ def main():
     phase7a_full_width(xt, dss, ENGINE_DAYS)
     del dss
     t7b = time.perf_counter()
-    phase7b_campaign(xt)
-    phase(7, f"command time: phases 1-5 {t6 - t_start:.1f} s, phase 6 "
+    p8 = new_phase8()
+    phase7b_campaign(xt, p8)
+    t8d = time.perf_counter()
+
+    # -- 8. the rest of the analysis tier: 8a-8c ran in 7b's day loop ------
+    phase8_report(p8)
+    phase8d_timelapse(xt, p8)
+    t_end = time.perf_counter()
+    phase(8, f"command time: phases 1-5 {t6 - t_start:.1f} s, phase 6 "
              f"{t7 - t6:.1f} s, 7a {t7b - t7:.1f} s, 7b "
-             f"{time.perf_counter() - t7b:.1f} s")
+             f"{t8d - t7b - p8['seconds']:.1f} s, 8a-8c "
+             f"{p8['seconds']:.1f} s, 8d {t_end - t8d:.1f} s, all "
+             f"{t_end - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": name,

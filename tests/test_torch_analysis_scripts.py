@@ -11,8 +11,9 @@ different FFTs and filter recursions, so the SNR files agree within 1e-4
 relative on ``snr``, ``s`` and ``n``; ``lag_s_max`` is equal; the
 coincidence triggers are identical; the PSD period files have the same
 names and their ``psd`` agrees within 1e-4 of its max. Also the CLIs' own
-options: ``--plot`` stops, the multi-host options raise, and without a
-card each script raises unless given ``--platform cpu``.
+options: ``--plot`` draws as the JAX scripts do, the multi-host options
+raise, and without a card each script raises unless given ``--platform
+cpu``.
 """
 import os
 
@@ -148,9 +149,39 @@ SCRIPTS = {"snr": tsnr, "ct": tct, "psd": tpsd}
 
 
 @pytest.mark.parametrize("script", sorted(SCRIPTS))
-def test_plot_stops_the_run(script, tmp_path):
-    with pytest.raises(SystemExit, match="core/plot.py is not ported"):
-        SCRIPTS[script].main(_argv(script, str(tmp_path)) + ["--plot"])
+def test_plot_stops_the_run(script, archive, runs, tmp_path):
+    """``--plot`` lets the run finish and draws what the JAX script draws
+    (Agg backend): ``snr`` one line per pair, ``ct`` those lines and one
+    shaded span per triggered period, ``psd`` nothing."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    f_snr, f_ct = runs["port"][:2]
+    argv = {"snr": ["2014-01-01", "2014-01-02", "--root", archive,
+                    *CELERITY, "--out", str(tmp_path / "snr.nc"),
+                    "--institution", "t", "--author", "t", "--source",
+                    "t"],
+            "ct": [f_snr, "--threshold", "0.0001", "--out",
+                   str(tmp_path / "ct.nc")],
+            "psd": [f_ct, "--root", archive, "--outdir",
+                    str(tmp_path / "out"), *CELERITY, "--duration",
+                    "10.0", "--padding-factor", "2", "--fmax", "2.0"]}
+    plt.close("all")
+    try:
+        assert SCRIPTS[script].main(argv[script] + ["--platform", "cpu",
+                                                    "--plot"]) == 0
+        axes = [ax for n in plt.get_fignums()
+                for ax in plt.figure(n).axes]
+        if script == "psd":
+            assert not axes
+            return
+        assert len(axes) == 1 and len(axes[0].lines) == len(PAIRS)
+        nperiods = int(xcorr_tpu.io.from_netcdf(f_ct)["ct"]
+                       .attrs["nperiods"])
+        assert len(axes[0].collections) == (nperiods if script == "ct"
+                                            else 0)
+    finally:
+        plt.close("all")
 
 
 @pytest.mark.parametrize("option", [["--coordinator", "localhost:1234"],

@@ -125,12 +125,16 @@ CARRIED = {
     "io/utils.py": [],
     "core/init.py": [],
     "core/merge.py": [],
+    "core/accessors.py": [],
+    "core/plot.py": [],
     "signal/unbias.py": [],
     "signal/absolute.py": [],
     "signal/rms.py": [],
     "signal/taper.py": [],
     "signal/trigger.py": [],
     "signal/window.py": [],
+    "signal/normalize.py": [],
+    "signal/tri.py": [],
 }
 
 

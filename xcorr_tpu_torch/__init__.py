@@ -4,18 +4,18 @@ xcorr-tpu, PyTorch port
 
 The CCF production path of :mod:`xcorr_tpu` in PyTorch, with the kernels
 of the four-step correlation written by hand in CUDA for NVIDIA Hopper,
-and the first part of its analysis tier (``postprocess``, ``merge`` and
-the SNR -> coincidence-trigger -> PSD ops of :mod:`.signal`).
+and its analysis tier (``postprocess``, ``merge``, the ops of
+:mod:`.signal`, the ``ds.xcorr`` accessor and the plots).
 It imports ``torch`` and never ``jax``; the JAX package stays the
 reference.
 
 The facade mirrors :mod:`xcorr_tpu`'s: ``init`` -> ``process(ds, client,
 device='cuda')`` -> ``write`` / ``read``; ``lazy_process`` with the host
 engine or ``engine='device'``; the device engine itself in
-:mod:`.parallel`; ``postprocess(ds, device='cuda')`` and ``merge``. The
-shard I/O (``io``, ``read``, ``write``, ``lazy_process``) needs h5py and
-is imported on first use, so a machine without h5py can still
-initialize, correlate and postprocess datasets.
+:mod:`.parallel`; ``postprocess(ds, device='cuda')``, ``merge`` and
+``plot``. The shard I/O (``io``, ``read``, ``write``,
+``lazy_process``) needs h5py and is imported on first use, so a machine
+without h5py can still initialize, correlate and postprocess datasets.
 """
 
 __version__ = "0.1.0"
@@ -30,7 +30,7 @@ from . import signal  # noqa: F401
 from . import core  # noqa: F401
 from . import parallel  # noqa: F401
 
-from .core import init, process, postprocess, merge
+from .core import init, process, postprocess, merge, plot
 from .stream import Client, SyntheticClient, Inventory
 
 # name -> (module, attribute or None for the module itself)
@@ -48,8 +48,8 @@ _LAZY = {
 
 __all__ = ["ndlabel", "util", "ops", "stream", "signal", "core",
            "parallel", "init",
-           "process", "postprocess", "merge", "Client", "SyntheticClient",
-           "Inventory", "__version__", *_LAZY]
+           "process", "postprocess", "merge", "plot", "Client",
+           "SyntheticClient", "Inventory", "__version__", *_LAZY]
 
 
 def __getattr__(name):

@@ -3,10 +3,11 @@ r"""
 ==================================================
 
 The console scripts of the port: ``xcorr-torch-cc`` (:mod:`.cc`, the
-batch CCF production run of ``xcorr-cc``) and the first analysis scripts,
-``xcorr-torch-snr`` (:mod:`.snr`), ``xcorr-torch-ct`` (:mod:`.ct`) and
-``xcorr-torch-psd`` (:mod:`.psd`). The beamform, plmax, swresp and
-timelapse scripts come with their slices.
+batch CCF production run of ``xcorr-cc``) and the seven analysis
+scripts, ``xcorr-torch-snr`` (:mod:`.snr`), ``-ct`` (:mod:`.ct`),
+``-psd`` (:mod:`.psd`), ``-beamform`` (:mod:`.beamform`), ``-plmax``
+(:mod:`.plmax`), ``-swresp`` (:mod:`.swresp`) and ``-timelapse``
+(:mod:`.timelapse`).
 """
 
 from . import utils  # noqa: F401

@@ -7,8 +7,8 @@ function, export triggered periods (spec: ``xcorr/scripts/ct.py:28-164``;
 port of ``xcorr_tpu/scripts/ct.py``). The trigger runs on the host, as in
 the JAX package; the device ``--platform`` names (``cuda`` by default) is
 still resolved up front, so a run asked for a missing card raises. The
-shard I/O is imported on use (it needs h5py). ``--plot`` stops the run:
-``core/plot.py`` is not ported yet.
+shard I/O is imported on use (it needs h5py). ``--plot`` draws the SNR
+series with the triggered periods shaded (matplotlib, on the host).
 """
 
 from __future__ import annotations
@@ -43,7 +43,6 @@ def main(argv=None):
                         help="Also export triggered periods as CSV")
     utils.add_common_arguments(parser)
     args = parser.parse_args(argv)
-    utils.refuse_plot(args)
 
     log = utils.init_logging(args.debug)
     resolve_device(utils.init_compute(args)["device"])
@@ -82,6 +81,11 @@ def main(argv=None):
     if args.csv and int(ct.attrs["nperiods"]) > 0:
         trigger_periods(ct).to_csv(args.csv)
         log.info("wrote %s", args.csv)
+    if args.plot:
+        import matplotlib.pyplot as plt
+        from ..core.plot import plot_snr_ct
+        plot_snr_ct(ds["snr"], ct)
+        plt.show()
     return 0
 
 

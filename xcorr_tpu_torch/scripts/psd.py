@@ -12,8 +12,8 @@ the SNR values and write one netCDF per period
 The chain and the spectrogram run on the torch device that ``--platform``
 names (``cuda`` by default, raising without a card). :func:`pair_psd` is
 the per-pair computation on a dataset in memory. The shard I/O is
-imported on use (it needs h5py). ``--plot`` stops the run:
-``core/plot.py`` is not ported yet.
+imported on use (it needs h5py). ``--plot`` is accepted and draws
+nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -139,7 +139,6 @@ def main(argv=None):
                              "outdir/psd/pair/pair.yyyy.doy.hhh.psd.nc")
     utils.add_common_arguments(parser)
     args = parser.parse_args(argv)
-    utils.refuse_plot(args)
 
     log = utils.init_logging(args.debug)
     cfg = utils.init_compute(args)

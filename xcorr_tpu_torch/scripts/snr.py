@@ -11,7 +11,7 @@ The chain and the envelope run on the torch device that ``--platform``
 names (``cuda`` by default, raising without a card). :func:`pair_snr` is
 the per-pair computation on a dataset in memory, for callers that hold
 their CCFs without shards. The shard I/O is imported on use (it needs
-h5py). ``--plot`` stops the run: ``core/plot.py`` is not ported yet.
+h5py). ``--plot`` draws the SNR series with matplotlib on the host.
 """
 
 from __future__ import annotations
@@ -108,7 +108,6 @@ def main(argv=None):
     utils.add_common_arguments(parser)
     utils.add_attrs_group(parser)
     args = parser.parse_args(argv)
-    utils.refuse_plot(args)
 
     log = utils.init_logging(args.debug)
     cfg = utils.init_compute(args)
@@ -154,7 +153,16 @@ def main(argv=None):
     from .. import io as xio
     xio.write(snr_ds, out, verb=1, force_write=True)
     log.info("wrote %s", out)
+    if args.plot:
+        _plot(snr_ds)
     return 0
+
+
+def _plot(snr_ds):
+    import matplotlib.pyplot as plt
+    from ..core.plot import plot_snr_ct
+    plot_snr_ct(snr_ds["snr"])
+    plt.show()
 
 
 if __name__ == "__main__":
