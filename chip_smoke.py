@@ -9,24 +9,29 @@ Phases, each printed on its own line; any failure exits non-zero:
 1. the card (``nvidia-smi``), torch, CUDA and the TF32 switches;
 2. build the hand-written kernels from ``xcorr_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together) and, beside the build,
-   ``nvcc -Xptxas -v`` of K1, K3 and K4 for the registers, shared memory
-   and spills of their row chains at N2 = 8192 and 16384 and of K3's and
-   K4's split-TF32 product (``gemm_tf32.cu``); then the count of TF32
+   ``nvcc -Xptxas -v`` of K1, K2, K3 and K4 for the registers, shared
+   memory and spills of their row chains (K2's forward and inverse) at
+   N2 = 8192 and 16384 and of K3's and K4's split-TF32 product
+   (``gemm_tf32.cu``); then the count of TF32
    ``HMMA`` instructions in the built library's SASS (``cuobjdump
    -sass``), on its own line;
 3. every kernel against its plain PyTorch version, max |diff| / max
-   |plain| <= 1e-5, with CUDA-event times of both (median of 20 launches
-   after warm-up) and the card's bound for the same work: K1 at the
-   device engine's launch shape (32, 2, 265, 16384), at the host engine
-   pair-day's shape (8, 2, 265, 16384: n1 = 528), at
+   |plain| <= 1e-5 (K2: 1e-6), with CUDA-event times of both (median of
+   20 launches after warm-up) and the card's bound for the same work: K1
+   at the device engine's launch shape (32, 2, 265, 16384), at the host
+   engine pair-day's shape (8, 2, 265, 16384: n1 = 528), at
    (4, 2, 265, 16384), at the n1 = 1056 shape (8, 2, 529, 8192) and at a
    small one; K3 and K4 at the pair-day's shape of their routes (B = 8,
    H = 265, N2 = 16384, rows_in = 264, rows_out = 99, with the n1 = 528
    plan's own w1, T and wi), at the n1 = 1056 one (B = 8, H = 529,
    N2 = 8192, rows_in = 528, rows_out = 198, that plan's constants) and
-   at a small one; K2 (forward and inverse, rows up to 8192) at the
-   n1 = 1056 and the small shapes. K1, K3 and K4 run twice on the same
-   inputs and must give the same bits. At the two 8-window K1 shapes,
+   at a small one; K2 (forward and inverse) at the pair-day's shape
+   (8, 2, 265, 16384), at the n1 = 1056 one and at the small one, each
+   with its bound, its share of it and, for context, ``torch.fft.fft``
+   over the same complex rows (less work: no twiddle, no planar layout),
+   and the inverse of the forward held to ``fused_corr_plain`` (1e-5 of
+   its max). Every kernel runs twice on the same inputs and must give
+   the same bits. At the two 8-window K1 shapes,
    K1's phase clock (``xc_fused_corr_phases``): SM cycles per row, phase
    by phase;
 4. ``ops.cc.correlate`` on 16 synthetic 24 h windows at 50 Hz
@@ -65,7 +70,15 @@ Phases, each printed on its own line; any failure exits non-zero:
    40 Hz with a PAZ response through the production BHZ chain of
    ``xcorr_tpu/scripts/cc.py:46-60`` (``remove_response`` in float32 on
    the card), through the device engine and the host engine, CCFs within
-   1e-6 abs;
+   1e-6 abs. Then the BHR fallback: one ``device_process_bulk`` call of
+   an EDH-EDH pair-day and ``IM.H03S1..EDH-IU.RAR.10.BHR`` (BH1, BH2, BHZ
+   raw at 40 Hz through the production BHR chain, whose rotations have
+   no device stage): the BHR pair-day on the fallback list, the EDH-EDH
+   one on the device engine, then the fallback through
+   ``process(device='cuda')``: every status 1, every peak on the
+   injected delay (the BHR-EDH one plus the lag between the two
+   production chains, measured on noise-free arrivals), wall seconds of
+   each;
 7. the analysis slice on the card. (a) Full lag width: phase 6's 4
    pair-days (32 windows x 1.62 M lags, float32) through ``postprocess``
    (0-9 h lags, the scripts' 3 Hz highpass, no celerity clip) and ``snr``
@@ -138,6 +151,7 @@ CLIP_LAG = (0.0, 9 * 3600.0)
 DELAY = 4.0                          # s, injected on the first receiver
 PAIR = "IM.H03S1..EDH-IM.H03S2..EDH"
 K_RTOL = 1e-5                        # kernel vs plain: max|diff| / max|plain|
+K2_RTOL = 1e-6                       # the same for K2's launches
 CCF_ATOL = 1e-6                      # normalized CCF vs float64 oracle
 SEED = 20140201
 #: the EDH preprocess chain of the production benchmark
@@ -295,10 +309,10 @@ def k1_phase_clock(fn, ff, d, shape):
                f"the clocked kernel takes {clock_ms:.4f} ms")
 
 
-def hold(ff, name, label, args, rerun=False):
-    """One kernel against its plain version: error, times, output; with
-    ``rerun``, a second launch on the same inputs must give the same
-    bits."""
+def hold(ff, name, label, args, rerun=False, rtol=K_RTOL):
+    """One kernel against its plain version: error (at most ``rtol`` of
+    the plain version's max), times, output; with ``rerun``, a second
+    launch on the same inputs must give the same bits."""
     fn, plain = getattr(ff, name), getattr(ff, name + "_plain")
     got = fn(*args)
     if rerun:
@@ -312,15 +326,52 @@ def hold(ff, name, label, args, rerun=False):
     plain_ms = median_ms(lambda: plain(*args))
     phase(3, f"{name} {label}: max_abs_err {err:.3e} rel {rel:.3e} "
              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-    check(rel <= K_RTOL, f"{name} {label} rel err {rel} > {K_RTOL}")
+    check(rel <= rtol, f"{name} {label} rel err {rel} > {rtol}")
     return got, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase3_k2(ff, label, ax, ay, T):
+    """K2's two launches against their plain versions at one shape
+    (within ``K2_RTOL``, bit-identical reruns), with their bounds and,
+    for context, ``torch.fft.fft`` over the same complex rows; the
+    inverse of the forward held to ``fused_corr_plain``. Returns each
+    launch's record."""
+    B, _, Hs, N2s = ax.shape
+    fft = 5 * N2s * math.log2(N2s)
+    rec = {}
+    f, rec["stageb_fwd"] = hold(ff, "stageb_fwd", label, (ax, T),
+                                rerun=True, rtol=K2_RTOL)
+    g = ff.stageb_fwd(ay, T)
+    c, rec["stageb_inv"] = hold(ff, "stageb_inv", label, (f, g, T),
+                                rerun=True, rtol=K2_RTOL)
+    rows = torch.complex(ax[:, 0], ax[:, 1])
+    fft_ms = median_ms(lambda: torch.fft.fft(rows, dim=-1))
+    del rows
+    for name, in_bytes, ops in [
+            ("stageb_fwd", nbytes(ax, T), B * Hs * (fft + 6 * N2s)),
+            ("stageb_inv", nbytes(f, g, T), B * Hs * (fft + 14 * N2s))]:
+        r = rec[name]
+        r["bound_ms"], r["bound_by"], _ = bound(in_bytes, nbytes(ax), ops)
+        phase(3, f"{name} {label}: bound {r['bound_ms']:.4f} ms by "
+                 f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% "
+                 f"of bound), two launches bit-identical; torch.fft.fft "
+                 f"over the same {B * Hs} complex rows {fft_ms:.4f} ms")
+    want = ff.fused_corr_plain(ax, ay, T)
+    err = ((c - want).abs().max() / want.abs().max()).item()
+    same = torch.equal(c, ff.fused_corr(ax, ay, T))
+    phase(3, f"stageb_inv of stageb_fwd {label}: {err:.3e} of max "
+             f"|fused_corr_plain| (bar {K_RTOL}); bit-identical to "
+             f"fused_corr: {same}")
+    check(err <= K_RTOL, f"K2 {label}: inverse of the forward {err} from "
+                         f"fused_corr_plain > {K_RTOL}")
+    return rec
 
 
 def phase3_kernels(ff, plan, plan_1056, clock_fn):
     """Every kernel against its plain version; returns the pair-day
     shape's record per kernel. ``plan`` is the n1 = 528 plan every route
-    takes, ``plan_1056`` the n1 = 1056 one (rows of 8192, K2's limit),
-    ``clock_fn`` K1's phase-clock entry point."""
+    takes, ``plan_1056`` the n1 = 1056 one (rows of 8192), ``clock_fn``
+    K1's phase-clock entry point."""
     rec = {}
     H, N2, rows_in, rows_out = plan.half, plan.N2, plan.rows_in, \
         plan.rows_out
@@ -344,34 +395,23 @@ def phase3_kernels(ff, plan, plan_1056, clock_fn):
             k1_phase_clock(clock_fn, ff, d, shape)
         rec.setdefault("fused_corr", r)
         del d
-    # K3 and K4 at their pair-day's shape with the plan's constants, then
-    # K2 (rows up to 8192), K3 and K4 at the n1 = 1056 one and a small one
-    for B, Hs, N2s, ri, ro, consts, with_k2 in [
-            (8, H, N2, rows_in, rows_out, plan.device_consts("cuda"), False),
+    # K2, K3 and K4 at their pair-day's shape with the plan's constants,
+    # then at the n1 = 1056 one and a small one
+    for B, Hs, N2s, ri, ro, consts in [
+            (8, H, N2, rows_in, rows_out, plan.device_consts("cuda")),
             (8, H8, N28, rows_in8, rows_out8,
-             plan_1056.device_consts("cuda"), True),
-            (2, 24, 256, 8, 5, None, True)]:
+             plan_1056.device_consts("cuda")),
+            (2, 24, 256, 8, 5, None)]:
         d = kernel_inputs(B, Hs, N2s, ri, ro, SEED, consts)
         label = f"B={B} H={Hs} N2={N2s} rows_in={ri} rows_out={ro}"
         ax, ay, T, w1, wi, vx, vy = (d[k] for k in (
             "ax", "ay", "T", "w1", "wi", "vx", "vy"))
-        plane = nbytes(ax)
         out_rows = B * ro * N2s * 4
         k1_ops = stageb_flops(B, Hs, N2s)
         inv_ops = 2 * B * ro * 2 * Hs * N2s
         a_ops = 2 * 2 * B * 2 * Hs * ri * N2s
-        fft = 5 * N2s * math.log2(N2s)
-        if with_k2:
-            f, r = hold(ff, "stageb_fwd", label, (ax, T))
-            r["bound_ms"], r["bound_by"], _ = bound(
-                nbytes(ax, T), plane, B * Hs * (fft + 6 * N2s))
-            rec.setdefault("stageb_fwd", r)
-            g = ff.stageb_fwd(ay, T)
-            _, r = hold(ff, "stageb_inv", label, (f, g, T))
-            r["bound_ms"], r["bound_by"], _ = bound(
-                nbytes(f, g, T), plane, B * Hs * (fft + 14 * N2s))
-            rec.setdefault("stageb_inv", r)
-            del f, g
+        rec.update({k: v for k, v in phase3_k2(ff, label, ax, ay, T).items()
+                    if k not in rec})
         for name, args, in_bytes, ops, prods in [
                 ("fused_corr_acc", (ax, ay, T, wi), nbytes(ax, ay, T, wi),
                  k1_ops, inv_ops),
@@ -397,9 +437,11 @@ def phase3_kernels(ff, plan, plan_1056, clock_fn):
 
 #: translation units whose ``nvcc -Xptxas -v`` phase 2 reports, by the
 #: kernel they hold: the row chain of K1, K3 and K4 (one copy each, from
-#: csrc/corr_rows.cuh) and K3's and K4's split-TF32 product
-PTXAS_UNITS = {"K1": "fused_corr.cu", "K3": "fused_corr_acc.cu",
-               "K4": "fused_corr_full.cu", "K3/K4 product": "gemm_tf32.cu"}
+#: csrc/corr_rows.cuh), K2's two launches and K3's and K4's split-TF32
+#: product
+PTXAS_UNITS = {"K1": "fused_corr.cu", "K2": "stageb.cu",
+               "K3": "fused_corr_acc.cu", "K4": "fused_corr_full.cu",
+               "K3/K4 product": "gemm_tf32.cu"}
 #: gemm_tf32.cu's dynamic shared memory: two stages of two (hi, lo)
 #: 128 x (32 + 4) A tiles and a 32 x (128 + 8) B tile, float32
 GEMM_SMEM = 2 * (2 * 128 * 36 + 32 * 136) * 4
@@ -424,18 +466,21 @@ def ptxas_entries(report):
 
 def ptxas_summary(unit, report, ff):
     """Lines for one unit: the row chain's instances without the phase
-    clock at N2 = 8192 and 16384 (registers, spills, the block's dynamic
-    shared memory: x spectrum, pass twiddles, exchange buffer), or the
-    product's two instances (B in 16-byte copies, as at the pair-day's
-    shapes, or in 4-byte ones)."""
+    clock (K2: its forward and its inverse) at N2 = 8192 and 16384
+    (registers, spills, the block's dynamic shared memory: a row, pass
+    twiddles, exchange buffer), or the product's two instances (B in
+    16-byte copies, as at the pair-day's shapes, or in 4-byte ones)."""
     lines = []
     for name, (regs, frame) in sorted(ptxas_entries(report).items()):
-        m = re.search(r"fused_corr_kernelILi(\d+)ELb0E", name)
-        if m and int(m.group(1)) in (13, 14):
-            n = 1 << int(m.group(1))
+        m = re.search(r"(fused_corr|stageb)_kernelILi(\d+)ELb([01])E", name)
+        if m and int(m.group(2)) in (13, 14) and (
+                m.group(1) == "stageb" or m.group(3) == "0"):
+            n = 1 << int(m.group(2))
+            what = {"fused_corr": "rows", "stageb": ("fwd", "inv")[
+                int(m.group(3))] + " rows"}[m.group(1)]
             smem = 8 * n + 8 * len(ff._k1_twiddles(n, "cpu")) \
                 + 4 * (n + n // 32)
-            lines.append(f"rows, N2 = {n}: {regs} registers, {frame}, "
+            lines.append(f"{what}, N2 = {n}: {regs} registers, {frame}, "
                          f"{smem} bytes of dynamic shared memory")
         m = re.search(r"gemm_tf32_kernelILb([01])E", name)
         if m:
@@ -443,7 +488,8 @@ def ptxas_summary(unit, report, ff):
             lines.append(f"product, B in {copies} copies: {regs} "
                          f"registers, {frame}, {GEMM_SMEM} bytes of "
                          f"dynamic shared memory")
-    check(len(lines) == 2, f"ptxas report of {unit}: {lines}")
+    check(len(lines) == (4 if unit == "K2" else 2),
+          f"ptxas report of {unit}: {lines}")
     return lines
 
 
@@ -839,6 +885,7 @@ def phase6_device_engine(xt, ff):
     phase(6, f"miniSEED SDS round trip of {tr.stats.npts} samples equal; "
              f"header scan covers them in {len(cov)} records")
     bhz_pair_day(xt, ff, resp, paz)
+    bhr_fallback(xt, ff, resp, paz)
     return k1, dss
 
 
@@ -917,6 +964,157 @@ def bhz_pair_day(xt, ff, edh_resp, paz):
              f"diff {float(np.sqrt(np.mean((a - b) ** 2))):.3e}")
     check(diff <= CCF_ATOL, f"BHZ-EDH: device engine vs host engine "
                             f"{diff} > {CCF_ATOL}")
+
+
+BHR_PAIR = "IM.H03S1..EDH-IU.RAR.10.BHR"
+#: the back azimuth of the production BHR chain's NE->RT rotation
+#: (xcorr_tpu/scripts/cc.py:66)
+BHR_BAZ = 250.39
+
+
+def bhr_fallback(xt, ff, edh_resp, paz):
+    """One BHR-EDH pair-day, ``IM.H03S1..EDH-IU.RAR.10.BHR``, through the
+    production BHR chain (``xcorr_tpu/scripts/cc.py:61-76``: response
+    removed, ``->ZNE`` and ``NE->RT`` rotations, ``select``, filters and
+    the Lanczos 40 -> 50 Hz interpolation), in one ``device_process_bulk``
+    call with an EDH-EDH pair-day of ``PAIR``. The rotations have no
+    device stage, so the BHR pair-day must come back on the fallback list
+    while the EDH-EDH one runs on the device engine (K1 once); then the
+    fallback runs through ``process(..., device="cuda")`` as the device
+    engine's batch driver runs it (``core/lazy.py``: ``_device_bulk_run``).
+    The data: every receiver gets its own noise and one source train,
+    placed in seconds, so raw rates of 250 Hz (EDH) and 40 Hz (BH1, BH2,
+    BHZ) carry the same arrivals; the horizontals carry the source as the
+    radial component of ``BHR_BAZ``. The EDH-EDH pair-day peaks at the
+    delay injected on ``IM.H03S1..EDH``; the BHR-EDH one at that delay
+    plus the lag between the two production chains, which the EDH
+    chain's causal anti-alias filter of its decimation (the reference's,
+    as in obspy) sets: measured here on the host by running both chains
+    on the same arrivals without noise."""
+    import zlib
+    from xcorr_tpu_torch.parallel.engine import device_process_bulk
+    from xcorr_tpu_torch.scripts.cc import default_config
+    from xcorr_tpu_torch.stream import (Channel, Inventory, Stats, Stream,
+                                        SyntheticClient, Trace)
+    from xcorr_tpu_torch.stream.process import process as run_chain
+
+    baz = math.radians(BHR_BAZ)
+    gain = {"1": -math.cos(baz), "2": -math.sin(baz), "Z": 0.0}
+
+    class ArrivalClient(SyntheticClient):
+        """Noise plus a shared Ricker train, rate by channel."""
+
+        def _synthesize_day(self, receiver, date):
+            date = pd.Timestamp(date).normalize()
+            net, sta, loc, cha = receiver.split(".")
+            fs = 40.0 if cha.startswith("BH") else RAW_FS
+            day = date.strftime("%Y%j")
+            rng = np.random.default_rng(zlib.crc32(f"{receiver}{day}"
+                                                   .encode()))
+            data = (self.noise_amplitude * rng.standard_normal(
+                int(86400 * fs))).astype(np.float32)
+            onsets = np.random.default_rng(zlib.crc32(day.encode())) \
+                .uniform(60.0, 540.0, 144) + 600.0 * np.arange(144)
+            weight = 1.0 if cha == "EDH" else gain[cha[-1]]
+            for t0 in onsets + self._delay_of(receiver):
+                i = np.arange(int((t0 - 1.0) * fs), int((t0 + 1.0) * fs))
+                a = (np.pi * 4.0 * (i / fs - t0)) ** 2
+                data[i] += weight * 20.0 * (1 - 2 * a) * np.exp(-a)
+            stats = Stats(network=net, station=sta, location=loc,
+                          channel=cha, starttime=date, sampling_rate=fs)
+            return Stream([Trace(data, stats)])
+
+    inv = Inventory([
+        Channel("IM", "H03S1", "", "EDH", latitude=-33.6, longitude=-78.8,
+                response=edh_resp),
+        Channel("IM", "H03S2", "", "EDH", latitude=-33.7, longitude=-78.9,
+                response=edh_resp)] + [
+        Channel("IU", "RAR", "10", cha, latitude=-21.2, longitude=-159.8,
+                response=paz) for cha in ("BHR", "BH1", "BH2", "BHZ")])
+    client = ArrivalClient(delays={"IM.H03S1..EDH": DELAY})
+    chains = default_config()[0]["preprocess"]
+
+    def dataset(pair):
+        return xt.init(pair=pair, starttime="2014-02-01",
+                       endtime="2014-02-02",
+                       preprocess={k: chains[k] for k in ("EDH", "BHR")},
+                       attrs={"institution": "smoke", "author": "smoke",
+                              "source": "seeded generator"},
+                       sampling_rate=FS, window_length=WINDOW,
+                       window_overlap=21.0 / 24.0, clip_lag=CLIP_LAG,
+                       inventory=inv)
+
+    def chain_lag(hours=4):
+        """Lag (s) of the CCF peak of the EDH and BHR chains' outputs for
+        the same noise-free arrivals, the first `hours` of a day."""
+        quiet = ArrivalClient(noise_amplitude=0.0)
+
+        def chain(cha, receivers):
+            traces = [quiet._synthesize_day(r, "2014-02-01")[0]
+                      for r in receivers]
+            for tr in traces:
+                tr.data = tr.data[:int(hours * 3600
+                                       * tr.stats.sampling_rate)]
+                tr.stats.npts = tr.data.size
+            ops = [o for o in chains[cha] if o[0] not in ("merge", "trim")]
+            out = run_chain(Stream(traces), ops, inventory=inv)
+            return out.select(channel=cha)[0].data
+
+        a = chain("EDH", ["IM.H03S1..EDH"])
+        b = chain("BHR", [f"IU.RAR.10.BH{c}" for c in "12Z"])
+        n = min(a.size, b.size)
+        c = np.fft.irfft(np.fft.rfft(a[:n], 2 * n)
+                         * np.conj(np.fft.rfft(b[:n], 2 * n)))
+        k = int(np.argmax(c))
+        return (k if k < n else k - 2 * n) / FS
+
+    def held(d, label, want):
+        status = d["status"].values
+        check(bool((status == 1).all()), f"{label}: status "
+                                         f"{status.tolist()}")
+        ccv = d["cc"].values
+        check(bool(np.isfinite(ccv).all()), f"{label}: non-finite CCF")
+        lag = d.coords["lag"].values
+        peaks = [float(lag[int(np.argmax(ccv[0, i]))])
+                 for i in range(ccv.shape[1])]
+        check(all(abs(p - want) < 1.0 / FS + 1e-9 for p in peaks),
+              f"{label}: CCF peaks {peaks} s, expected {want} s")
+        return sorted(set(peaks))
+
+    edh, bhr = dataset(PAIR), dataset(BHR_PAIR)
+    ff.reset_launches()
+    t0 = time.perf_counter()
+    finalize, fallback = device_process_bulk([edh, bhr], client,
+                                             inventory=inv, verb=0,
+                                             device="cuda")
+    finalize()
+    torch.cuda.synchronize()
+    dev_wall = time.perf_counter() - t0
+    check(len(fallback) == 1 and fallback[0] is bhr,
+          f"fallback list {[d.pair.values.tolist() for d in fallback]}, "
+          f"expected the BHR pair-day alone")
+    counts = dict(ff.launches)
+    check(counts["fused_corr"] == 1 and sum(counts.values()) == 1,
+          f"EDH-EDH pair-day beside BHR launched {counts}")
+    edh_peaks = held(edh, "EDH-EDH beside BHR (device engine)", DELAY)
+    check(bool((bhr["status"].values == 0).all()),
+          "the device engine touched the BHR pair-day")
+    t0 = time.perf_counter()
+    xt.process(bhr, client=client, inventory=inv, retry_missing=True,
+               verb=0, device="cuda")
+    torch.cuda.synchronize()
+    host_wall = time.perf_counter() - t0
+    lag = chain_lag()
+    bhr_peaks = held(bhr, "BHR-EDH fallback (host engine)", DELAY + lag)
+    phase(6, f"BHR fallback: one device_process_bulk call of {PAIR} and "
+             f"{BHR_PAIR} (BH1/BH2/BHZ raw at 40 Hz, PAZ, the production "
+             f"BHR chain): {dev_wall:.2f} s, fallback list [{BHR_PAIR}], "
+             f"EDH-EDH on the device engine (launches {counts}), status "
+             f"1, peaks at {edh_peaks} s; the fallback through process("
+             f"device='cuda') {host_wall:.2f} s, status 1 on all "
+             f"{bhr.dims['time']} windows, peaks at {bhr_peaks} s "
+             f"(injected {DELAY} s, plus {lag:.2f} s between the EDH and "
+             f"BHR chains for noise-free arrivals)")
 
 
 #: the analysis scripts' postprocess filter and celerity window

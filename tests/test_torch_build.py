@@ -37,7 +37,7 @@ def test_build_reads_sources_and_headers():
     read = _read_by_build()
     names = {f.name for f in read}
     assert {"fused_corr.cu", "stageb.cu", "fused_corr_acc.cu",
-            "fused_corr_full.cu", "gemm_tf32.cu", "fft_row.cuh",
+            "fused_corr_full.cu", "gemm_tf32.cu", "row_copy.cuh",
             "fft_reg.cuh", "corr_rows.cuh", "gemm_tf32.cuh"} <= names
 
 
@@ -55,8 +55,9 @@ def test_every_file_the_build_reads_is_hashed():
         assert f in hashed, f.name
 
 
-@pytest.mark.parametrize("name", ["fft_row.cuh", "corr_rows.cuh",
-                                  "gemm_tf32.cuh", "stageb.cu"])
+@pytest.mark.parametrize("name", ["row_copy.cuh", "fft_reg.cuh",
+                                  "corr_rows.cuh", "gemm_tf32.cuh",
+                                  "stageb.cu"])
 def test_editing_a_file_changes_the_library_name(tmp_path, monkeypatch,
                                                  name):
     """An edited header or source gives a new library path, so the stale

@@ -132,18 +132,14 @@ def _kernel_args(kernel, N2):
 
 @pytest.mark.parametrize("kernel", fused_fft.KERNELS)
 def test_each_wrapper_refuses_rows_above_its_own_limit(kernel):
-    """K1, K3 and K4 take rows of 16384 (their shared row chain keeps
-    rows in registers); K2 holds its row in shared memory and stops at
-    8192."""
+    """Every kernel takes rows of 16384 (all keep a row in registers,
+    on the passes of csrc/fft_reg.cuh) and refuses 32768."""
     fn = getattr(fused_fft, kernel)
     top = fused_fft.MAX_N2[kernel]
-    assert top == (8192 if kernel.startswith("stageb") else 16384)
+    assert top == 16384
     assert fn(*_kernel_args(kernel, top)).abs().max().item() == 0.0
     with pytest.raises(ValueError, match="power of two"):
         fn(*_kernel_args(kernel, 2 * top))
-    if kernel.startswith("stageb"):
-        with pytest.raises(ValueError, match="power of two"):
-            fn(*_kernel_args(kernel, 16384))
 
 
 @pytest.mark.parametrize("N2", [2, 32, 64, 2048, 8192, 16384])

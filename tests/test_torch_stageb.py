@@ -6,9 +6,10 @@ them.
 
 The two forward kernels leave the spectrum in different orders: the
 reference's at flat index ``k_p·Q + k_q`` holds frequency ``k_p + P·k_q``,
-the port's at position ``p`` holds frequency ``bitrev(p)``. The forward
-test maps both to natural order; the inverse of the forward is in natural
-order on both sides and compares element by element.
+the port's at position ``p`` holds frequency ``spectrum_order(N2)[p]``
+(the order in which the threads of the register passes hold it). The
+forward test maps both to natural order; the inverse of the forward is in
+natural order on both sides and compares element by element.
 
 Tolerance: max |diff| <= 5e-7 of the output's max |value| for the
 forward spectra (float32 FFT against the reference's float32 DFT matmuls
@@ -78,11 +79,12 @@ def _pq_to_natural(re, im, N2):
     return nat
 
 
-def _bitrev_to_natural(f):
-    """Port spectrum (B, 2, H, N2) in bit-reversed order -> natural
+def _spectrum_to_natural(f):
+    """Port spectrum (B, 2, H, N2) in the kernel's order -> natural
     complex rows (B*H, N2)."""
     N2 = f.shape[-1]
-    nat = f[..., fused_fft.bitrev(N2).numpy()]
+    nat = np.empty_like(f)
+    nat[..., fused_fft.spectrum_order(N2).numpy()] = f
     c = nat[:, 0].astype(np.float64) + 1j * nat[:, 1]
     return c.reshape(-1, N2)
 
@@ -91,7 +93,7 @@ def _close(got, want, rtol_of_max):
     return np.abs(got - want).max() <= rtol_of_max * np.abs(want).max()
 
 
-@pytest.mark.parametrize("N1,N2", [(16, 256), (8, 1024)])
+@pytest.mark.parametrize("N1,N2", [(16, 256), (8, 1024), (8, 16384)])
 def test_fwd_plain_matches_pallas_reference(stageb_reference, N1, N2):
     import jax.numpy as jnp
     N = N1 * N2
@@ -102,10 +104,10 @@ def test_fwd_plain_matches_pallas_reference(stageb_reference, N1, N2):
     got = fused_fft.stageb_fwd_plain(torch.from_numpy(ax),
                                      torch.from_numpy(T)).numpy()
     assert got.shape == ax.shape
-    assert _close(_bitrev_to_natural(got), want, FWD_RTOL_OF_MAX)
+    assert _close(_spectrum_to_natural(got), want, FWD_RTOL_OF_MAX)
 
 
-@pytest.mark.parametrize("N1,N2", [(16, 256), (8, 1024)])
+@pytest.mark.parametrize("N1,N2", [(16, 256), (8, 1024), (8, 16384)])
 def test_inv_of_fwd_matches_pallas_reference(stageb_reference, N1, N2):
     """inv(fwd(x), fwd(y)) on both sides, natural order, element by
     element."""
@@ -136,24 +138,55 @@ def test_inv_of_fwd_is_k1():
     assert _close(got.numpy(), want.numpy(), RTOL_OF_MAX)
 
 
-@pytest.mark.parametrize("N2", [2, 8, 256])
-def test_bitrev_is_the_dif_order(N2):
-    """bitrev is an involution and reorders a natural FFT into the
-    radix-2 DIF output, as a direct DIF in numpy produces it."""
-    idx = fused_fft.bitrev(N2).numpy()
-    np.testing.assert_array_equal(idx[idx], np.arange(N2))
-    x = np.random.default_rng(2).normal(size=N2) + 0j
-    bits = N2.bit_length() - 1
-    y = x.copy()
-    for s in range(bits):  # the kernel's stages, fft_row.cuh: dif_fft
-        h = N2 >> (s + 1)
-        for t in range(N2 // 2):
-            j = t & (h - 1)
-            i = ((t >> (bits - 1 - s)) << (bits - s)) + j
-            w = np.exp(-2j * np.pi * (j << s) / N2)
-            u, v = y[i], y[i + h]
-            y[i], y[i + h] = u + v, (u - v) * w
-    np.testing.assert_allclose(y, np.fft.fft(x)[idx], atol=1e-9)
+def _bitrev(p, bits):
+    r = np.zeros_like(p)
+    for i in range(bits):
+        r |= ((p >> i) & 1) << (bits - 1 - i)
+    return r
+
+
+def _thread_map_forward(x):
+    """The forward passes of csrc/fft_reg.cuh on one row, as its thread
+    map runs them: pass i's butterfly (u, t) takes the elements at
+    ``pos(u, j, t)``, j < r, does a radix-r DFT (output p in register
+    slot ``u·r + bitrev(p)``) and the pass twiddle ``W_L^(lo·p)``; the
+    row is then stored as stageb.cu stores it, element k of thread t at
+    ``k·P + t``."""
+    N2 = x.size
+    E = min(32, N2)
+    P = N2 // E
+    t = np.arange(P)[:, None, None]
+    row = x.astype(np.complex128)
+    for ll, lr in fused_fft._k1_passes(N2):
+        r, lm = 1 << lr, ll - lr
+        u = np.arange(E // r)[None, :, None]
+        j = np.arange(r)[None, None, :]
+        b = u * P + t
+        lo = b & ((1 << lm) - 1)
+        pos = ((b >> lm) << ll) + lo + (j << lm)
+        y = np.fft.fft(row[pos], axis=-1) * np.exp(
+            -2j * np.pi * lo * j / (1 << ll))
+        row = row.copy()
+        row[pos] = y
+    regs = np.empty((P, E), complex)  # after the last pass
+    slots = np.broadcast_to(u * r + _bitrev(j, lr), y.shape)
+    regs[np.broadcast_to(np.arange(P)[:, None, None], y.shape), slots] = y
+    out = np.empty(N2, complex)
+    out[np.arange(E)[None, :] * P + np.arange(P)[:, None]] = regs
+    return out
+
+
+@pytest.mark.parametrize("N2", [2, 8, 32, 256, 2048, 16384])
+def test_spectrum_order_is_the_thread_maps_order(N2):
+    """spectrum_order is a permutation and reorders a natural FFT into
+    the spectrum the register passes leave, as an emulation of their
+    thread map in numpy produces it."""
+    idx = fused_fft.spectrum_order(N2).numpy()
+    np.testing.assert_array_equal(np.sort(idx), np.arange(N2))
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=N2) + 1j * rng.normal(size=N2)
+    np.testing.assert_allclose(_thread_map_forward(x), np.fft.fft(x)[idx],
+                               rtol=0, atol=1e-9 * N2)
 
 
 def test_wrappers_take_plain_route_on_cpu(monkeypatch):
@@ -194,10 +227,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 2, 24, 256), (8, 2, 529, 8192)])
+@pytest.mark.parametrize("shape", [(2, 2, 24, 256), (8, 2, 529, 8192),
+                                   (1, 2, 3, 16384), (8, 2, 265, 16384)])
 def test_kernels_match_plain_on_card(cuda_device, shape):
     """fwd and inv on the card against their plain versions, element by
-    element in the kernel's order."""
+    element in the kernel's order, at the small shape, the n1 = 1056
+    day-scale one, one row of 16384 and the n1 = 528 pair-day one; a
+    second launch of each gives the same bits."""
     B, _, H, N2 = shape
     ax, ay, T = (torch.from_numpy(a).to(cuda_device)
                  for a in _inputs(B, H, N2, 2 * (H - 1) * N2))
@@ -208,6 +244,8 @@ def test_kernels_match_plain_on_card(cuda_device, shape):
     torch.cuda.synchronize()
     assert fused_fft.launches["stageb_fwd"] == before["stageb_fwd"] + 2
     assert fused_fft.launches["stageb_inv"] == before["stageb_inv"] + 1
+    assert torch.equal(f, fused_fft.stageb_fwd(ax, T))
+    assert torch.equal(c, fused_fft.stageb_inv(f, g, T))
     for got, want in ((f, fused_fft.stageb_fwd_plain(ax, T)),
                       (c, fused_fft.stageb_inv_plain(f, g, T))):
         assert ((got - want).abs().max()

@@ -32,7 +32,8 @@
 // per SM (210 KB of shared memory: the x spectrum 8 N2 bytes, the
 // exchange buffer 4.125 N2 bytes, the pass twiddles); at N2 = 8192 two
 // blocks of 256 threads share an SM. Loads that land in registers would
-// leave the SM idle, and x, y and T in registers together spill, so:
+// leave the SM idle, and x, y and T in registers together spill, so
+// (the copies and the row order are row_copy.cuh's, which K2 shares):
 //
 // - blocks are persistent, one wave of them, each looping over rows
 //   i, i + G, ... of the k1-major order (row k1 * B + b): the B rows that
@@ -56,11 +57,9 @@
 
 #include <cuda_runtime.h>
 
-#include "fft_reg.cuh"
+#include "row_copy.cuh"
 
 namespace {
-
-namespace R = xcorr::reg;
 
 // The phase clock, in the CLOCK instances only: thread 0 of each block
 // adds the SM cycles of phase i of its rows to phases[block * 8 + i].
@@ -74,76 +73,6 @@ __device__ __forceinline__ void tick(long long* phases, long long& clock0,
       clock0 = now;
     }
   }
-}
-
-// Asynchronous copy of BYTES (4 or 16) from device to shared memory.
-template <int BYTES>
-__device__ __forceinline__ void copy_async(float* dst, const float* src) {
-#ifdef __CUDA_ARCH__
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-                 "l"(src)
-                 : "memory");
-#else
-  for (int i = 0; i < BYTES / 4; ++i) dst[i] = src[i];
-#endif
-}
-
-__device__ __forceinline__ void copy_async_commit() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-#endif
-}
-
-__device__ __forceinline__ void copy_async_wait() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-#endif
-}
-
-// Start copying positions [h * n / 2, (h + 1) * n / 2) of T's row (the
-// real parts, then the imaginary parts: n floats) into dst.
-template <int LG>
-__device__ __forceinline__ void stage_t(float* dst, const float* t_re,
-                                        const float* t_im, int h, int t) {
-  constexpr int half = (1 << LG) / 2, P = R::threads(LG);
-  constexpr int C = half >= 4 ? 4 : 1;  // floats a copy moves
-  for (int c = t * C; c < half; c += P * C) {
-    copy_async<4 * C>(dst + c, t_re + h * half + c);
-    copy_async<4 * C>(dst + half + c, t_im + h * half + c);
-  }
-  copy_async_commit();
-}
-
-// v[j] *= T at the thread's positions of half h, staged at st by stage_t.
-template <int LG>
-__device__ __forceinline__ void mul_t(float2* v, const float* st, int h,
-                                      int t) {
-  constexpr int E = R::elems(LG), P = R::threads(LG), half = (1 << LG) / 2;
-#pragma unroll
-  for (int j = 0; j < E / 2; ++j) {
-    const int k = t + j * P;
-    float2& x = v[h * (E / 2) + j];
-    x = R::cmul(x, make_float2(st[k], st[half + k]));
-  }
-}
-
-// Start copying one x row (n real parts at ax + re, then n imaginary
-// parts at ax + im) into dst.
-template <int LG>
-__device__ __forceinline__ void prefetch_x(float* dst, const float* ax,
-                                           size_t re, size_t im, int t) {
-  constexpr int n = 1 << LG, P = R::threads(LG), C = n >= 4 ? 4 : 1;
-  for (int c = t * C; c < n; c += P * C) {
-    copy_async<4 * C>(dst + c, ax + re + c);
-    copy_async<4 * C>(dst + n + c, ax + im + c);
-  }
-  copy_async_commit();
 }
 
 // ax and out carry no __restrict__: out may be ax.
@@ -163,10 +92,7 @@ fused_corr_kernel(const float* ax, const float* __restrict__ ay,
   float* ex = reinterpret_cast<float*>(ws + R::tw_total(LG));
   const int t = threadIdx.x, G = gridDim.x, rows = B * H;
   const size_t plane = static_cast<size_t>(H) * n;
-  auto offset = [&](int row) {  // re offset of row k1 * B + b
-    const int k1 = row / B;
-    return (static_cast<size_t>(2 * (row - k1 * B)) * H + k1) * n;
-  };
+  auto offset = [&](int row) { return row_offset(row, B, H, n); };
   for (int k = t; k < R::tw_total(LG); k += P) ws[k] = tw[k];
   if (static_cast<int>(blockIdx.x) < rows) {
     const size_t re = offset(blockIdx.x);
@@ -257,19 +183,10 @@ template <int LG, bool CLOCK>
 int launch(const void* ax, const void* ay, const void* T, const void* tw,
            void* out, int B, int H, cudaStream_t stream, void* phases) {
   constexpr int smem = R::smem_bytes(LG);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_corr_kernel<LG, CLOCK>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  // one wave of resident blocks, each looping over its rows
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_corr_kernel<LG, CLOCK>, R::threads(LG), smem);
+  int grid = 0;
+  const cudaError_t err = one_wave(fused_corr_kernel<LG, CLOCK>,
+                                   R::threads(LG), smem, B * H, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = B * H < sms * per_sm ? B * H : sms * per_sm;
   fused_corr_kernel<LG, CLOCK><<<grid, R::threads(LG), smem, stream>>>(
       static_cast<const float*>(ax), static_cast<const float*>(ay),
       static_cast<const float*>(T), static_cast<const float2*>(tw),

@@ -16,11 +16,12 @@ each ``(b, k1)`` row of the packed stage-A planes:
 
 * **K2** :func:`stageb_fwd` / :func:`stageb_inv` (``stageb.cu``, replace
   ``plan_fused_stageb``'s ``fwd_kernel`` / ``inv_kernel``): K1 as two
-  launches. ``fwd`` returns ``DFT_N2(A·T)`` in **bit-reversed** n2 order
-  (the radix-2 DIF output: position p holds frequency ``bitrev(p)``, see
-  :func:`bitrev`); ``inv`` takes two spectra in that order and returns
-  ``IDFT_N2(Fx·conj Fy)·conj T`` in natural order. The TPU kernel's
-  spectrum was in its own ``(k_p, k_q)`` order instead.
+  launches. ``fwd`` returns ``DFT_N2(A·T)`` in the order the threads
+  hold it after the last forward pass (the passes' digit-reversed order:
+  position p holds frequency ``spectrum_order(N2)[p]``, see
+  :func:`spectrum_order`); ``inv`` takes two spectra in that order and
+  returns ``IDFT_N2(Fx·conj Fy)·conj T`` in natural order. The TPU
+  kernel's spectrum was in its own ``(k_p, k_q)`` order instead.
 * **K3** :func:`fused_corr_acc` (``fused_corr_acc.cu``, replaces
   ``plan_fused_corr_acc``): K1 with the pruned inverse product
   ``wi @ C``, ``(B, rows_out, N2)`` out, in one call of two launches.
@@ -30,7 +31,9 @@ each ``(b, k1)`` row of the packed stage-A planes:
   launches.
 
 K1, K3 and K4 share one row chain (``csrc/corr_rows.cuh``: rows in
-registers between the exchanges of radix passes, ``csrc/fft_reg.cuh``).
+registers between the exchanges of radix passes, ``csrc/fft_reg.cuh``);
+K2 is that chain split at the cross spectrum, on the same passes and the
+same row copies (``csrc/row_copy.cuh``).
 K3 and K4 write C to a device scratch of the planes' shape and run their
 products (K4's stage A, both pruned inverses) on the tensor cores in
 split TF32 (``csrc/gemm_tf32.cu``: ``hi·hi + hi·lo + lo·hi`` per
@@ -41,8 +44,7 @@ gates and the ``high_block`` / Karatsuba precision variants; K4's bf16
 hi/lo input split becomes the TF32 split.
 
 N2 must be a power of two no larger than the kernel's own
-:data:`MAX_N2`: 16384 for K1, K3 and K4, 8192 for K2, which holds its
-rows in shared memory (``csrc/fft_row.cuh``). Each kernel has a plain
+:data:`MAX_N2`, 16384 for every kernel. Each kernel has a plain
 PyTorch version (``*_plain``, float32 throughout): a wrapper takes it for
 CPU tensors only, launches the kernel (or raises) for CUDA tensors, and
 adds one to ``launches[name]`` per launch. The tests and
@@ -64,12 +66,13 @@ import torch
 __all__ = ["fused_corr", "fused_corr_plain", "stageb_fwd",
            "stageb_fwd_plain", "stageb_inv", "stageb_inv_plain",
            "fused_corr_acc", "fused_corr_acc_plain", "fused_corr_full",
-           "fused_corr_full_plain", "check_geometry", "bitrev", "MAX_N2", "KERNELS", "launches", "reset_launches"]
+           "fused_corr_full_plain", "check_geometry", "spectrum_order",
+           "MAX_N2", "KERNELS", "launches", "reset_launches"]
 
-#: largest row length per kernel: the row chain of K1, K3 and K4 holds
-#: the x spectrum and an exchange buffer in shared memory (210 KB of
-#: 227 KB at 16384); K2 holds its row in shared memory (fft_row.cuh)
-MAX_N2 = {"fused_corr": 16384, "stageb_fwd": 8192, "stageb_inv": 8192,
+#: largest row length per kernel: each block holds a row in registers
+#: and a row, the pass twiddles and an exchange buffer in shared memory
+#: (210 KB of 227 KB at 16384)
+MAX_N2 = {"fused_corr": 16384, "stageb_fwd": 16384, "stageb_inv": 16384,
           "fused_corr_acc": 16384, "fused_corr_full": 16384}
 
 #: kernel names, as ``launches`` counts them
@@ -114,22 +117,35 @@ def _cached(key, make):
         return v
 
 
-def bitrev(N2: int, device="cpu"):
-    """Index ``p -> bitrev(p)`` over ``log2(N2)`` bits: K2's spectrum
-    holds frequency ``bitrev(p)`` at position ``p``, so
-    ``natural[..., bitrev(N2)] == kernel order``."""
+def spectrum_order(N2: int, device="cpu"):
+    """Frequency held at each position of K2's spectrum, so
+    ``natural[..., spectrum_order(N2)] == kernel order``. :func:`stageb_fwd`
+    stores element k of thread t at position ``k·P + t`` (``P = N2 / E``
+    threads of ``E = min(32, N2)`` elements), as the thread holds it
+    after the last pass of ``csrc/fft_reg.cuh``: slot ``u·r + bitrev(p)``
+    holds output p of butterfly ``u·P + t`` of that pass (radix r, over
+    row positions ``(u·P + t)·r + p``), and row position ``Σ p_i·m_i``
+    (pass i's output digit p_i < r_i, m_i = L_i / r_i) holds frequency
+    ``Σ p_i·32^i``."""
     def make():
-        bits = N2.bit_length() - 1
-        p = np.arange(N2)
-        r = np.zeros_like(p)
-        for i in range(bits):
-            r |= ((p >> i) & 1) << (bits - 1 - i)
-        return torch.from_numpy(r).to(device)
-    return _cached(("bitrev", N2, str(device)), make)
+        passes = _k1_passes(N2)
+        P = N2 // min(32, N2)
+        lr = passes[-1][1]
+        k, t = np.divmod(np.arange(N2), P)
+        slot = k & ((1 << lr) - 1)
+        p = np.zeros_like(slot)
+        for i in range(lr):
+            p |= ((slot >> i) & 1) << (lr - 1 - i)
+        pos = ((k >> lr) * P + t) * (1 << lr) + p
+        freq = np.zeros_like(pos)
+        for i, (ll, lr_i) in enumerate(passes):
+            freq += ((pos >> (ll - lr_i)) & ((1 << lr_i) - 1)) << (5 * i)
+        return torch.from_numpy(freq).to(device)
+    return _cached(("order", N2, str(device)), make)
 
 
 def _k1_passes(N2: int):
-    """``(log2 L_i, log2 r_i)`` of each radix pass of K1's row transform
+    """``(log2 L_i, log2 r_i)`` of each radix pass of the row transform
     (``csrc/fft_reg.cuh``): radix 32 but for the last pass, which takes
     the rest."""
     lg = N2.bit_length() - 1
@@ -139,7 +155,8 @@ def _k1_passes(N2: int):
 
 
 def _k1_twiddles(N2: int, device):
-    """K1's pass twiddles in ``csrc/fft_reg.cuh``'s layout, computed in
+    """The pass twiddles of the row transforms of K1-K4 in
+    ``csrc/fft_reg.cuh``'s layout, computed in
     float64, stored as interleaved float32 (re, im) pairs on ``device``:
     for each pass with ``m = L / r > 1``, ``A[p][c] = W_L^(c·p)`` for
     ``c < a = min(32, m)``, then, when ``nb = m / a > 1``,
@@ -163,16 +180,6 @@ def _k1_twiddles(N2: int, device):
     return _cached(("k1tw", N2, str(device)), make)
 
 
-def _inner_twiddles(N2: int, device):
-    """``exp(-2πi k/N2)``, k < N2/2, computed in float64, stored as
-    interleaved float32 (re, im) pairs on ``device``."""
-    def make():
-        w = np.exp(-2j * np.pi * np.arange(N2 // 2) / N2)
-        host = np.stack([w.real, w.imag], axis=-1).astype(np.float32)
-        return torch.from_numpy(host).to(device)
-    return _cached(("tw", N2, str(device)), make)
-
-
 # -- plain versions -----------------------------------------------------
 
 def _cplx(a):
@@ -193,20 +200,21 @@ def fused_corr_plain(ax, ay, T):
 
 
 def stageb_fwd_plain(a, T):
-    """:func:`stageb_fwd` in plain PyTorch: ``torch.fft`` then the
-    bit-reversal index."""
+    """:func:`stageb_fwd` in plain PyTorch: ``torch.fft``, then the
+    kernel's order (:func:`spectrum_order`)."""
     t = torch.complex(T[0], T[1])
     f = torch.fft.fft(_cplx(a) * t, dim=-1)
-    return _packed(f[..., bitrev(a.shape[-1], a.device)])
+    return _packed(f[..., spectrum_order(a.shape[-1], a.device)])
 
 
 def stageb_inv_plain(fx, fy, T):
-    """:func:`stageb_inv` in plain PyTorch: the spectra back to natural
-    order, then ``torch.fft``."""
+    """:func:`stageb_inv` in plain PyTorch: the cross spectrum back to
+    natural order, then ``torch.fft``."""
     t = torch.complex(T[0], T[1])
-    s = (_cplx(fx) * torch.conj(_cplx(fy)))[..., bitrev(fx.shape[-1],
-                                                        fx.device)]
-    return _packed(torch.fft.ifft(s, dim=-1) * torch.conj(t))
+    s = _cplx(fx) * torch.conj(_cplx(fy))
+    nat = torch.empty_like(s)
+    nat[..., spectrum_order(fx.shape[-1], fx.device)] = s
+    return _packed(torch.fft.ifft(nat, dim=-1) * torch.conj(t))
 
 
 def fused_corr_acc_plain(ax, ay, T, wi):
@@ -308,15 +316,15 @@ def fused_corr(ax, ay, T):
 
 
 def stageb_fwd(a, T):
-    """K2 forward: ``DFT_N2(a·T)`` per row, ``(B, 2, H, N2)`` in
-    bit-reversed n2 order (see :func:`bitrev`)."""
+    """K2 forward: ``DFT_N2(a·T)`` per row, ``(B, 2, H, N2)`` in the
+    kernel's order (see :func:`spectrum_order`)."""
     B, H, N2 = _check_planes("stageb_fwd", T, a=a)
     if _device_of(a, "stageb_fwd") == "cpu":
         return stageb_fwd_plain(a, T)
     from ._build import load
     lib = load()
     out = torch.empty_like(a)
-    tw = _inner_twiddles(N2, a.device)
+    tw = _k1_twiddles(N2, a.device)
     _launch("stageb_fwd", lib.xc_stageb_fwd, *_ptrs(a, T, tw, out), B, H,
             N2, N2.bit_length() - 1, _stream(a))
     return out
@@ -331,7 +339,7 @@ def stageb_inv(fx, fy, T):
     from ._build import load
     lib = load()
     out = torch.empty_like(fx)
-    tw = _inner_twiddles(N2, fx.device)
+    tw = _k1_twiddles(N2, fx.device)
     _launch("stageb_inv", lib.xc_stageb_inv, *_ptrs(fx, fy, T, tw, out), B,
             H, N2, N2.bit_length() - 1, _stream(fx))
     return out
