@@ -122,7 +122,29 @@ Phases, each printed on its own line; any failure exits non-zero:
    stack shapes, peak device memory; the CPU makes 12 seeded days'
    spectrograms per pair (within 1e-5 of their max) and 64 seeded cells
    of them per (pair, band) (``cc2`` within 1e-5, shifts equal but for
-   near-ties, counted).
+   near-ties, counted);
+9. the multi-device layer on the one card, over a logical mesh that
+   names ``cuda:0`` twice (so its times are the split's overhead, not a
+   multi-card speed). (a) ``parallel.sharded_correlate`` of phase 4's 16
+   day-scale windows once per route: the route's kernel once per entry,
+   rows 0, 1 and 8 within 1e-6 abs of float64, the difference from the
+   unsharded ``correlate`` (bit-identity reported), ms per window both
+   ways with the host gather. (b) Phase 6's 4 pair-days through
+   ``device_process_bulk(mesh=)`` inside ``util.profiler.trace``: K1
+   once per entry, statuses equal and CCFs within 1e-6 of phase 6's warm
+   mesh=None run (bit-identity reported), wall, host->device bytes, peak
+   memory, ``device_memory``, and ``parse_device_trace``'s busy seconds
+   (> 0, <= wall) and device spans beside the profiler's own device
+   time. (c) Two worker processes (``chip_smoke.py --worker RANK PORT
+   DIR``, each with a timeout) form a gloo group on a free localhost
+   port, each runs its ``host_slice`` of the 4 pair-days through
+   ``device_process_bulk`` on cuda:0 and writes its CCFs to an ``.npz``;
+   their union is held to phase 6's run (1e-6, bit-identity reported).
+   (d) ``correlate_spectrograms(mesh=)`` of one (pair, band) stack of
+   8d: peaks within 1e-5 relative of 8d's, shifts equal but for
+   near-ties, checked in float64 and counted. Then phase 9's launches,
+   each count reset before its run, on a line of their own, and its
+   command time.
 
 The line before the last is the kernels' JSON record (K1's launches from
 phase 6, the others' from their route's phase-5 pair-day); the last line
@@ -526,7 +548,8 @@ def f64_oracle(x, y, imin, imax):
 
 def phase4_correlate(ff, cc, fft4, imin, imax):
     """Day-scale correlate, once per route; the K1 route's split at its
-    default geometry and at n1 = 1056."""
+    default geometry and at n1 = 1056. Returns the float64 oracle of the
+    first two windows."""
     B = 16
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randn((B, N), generator=gen, device="cuda")
@@ -621,6 +644,7 @@ def phase4_correlate(ff, cc, fft4, imin, imax):
              f"{per_window['corr']:.4f}")
     del x, y, ax, ay, vx, vy, flat
     torch.cuda.empty_cache()
+    return oracle
 
 
 def _finish(fft4, plan, flat, x, y):
@@ -738,19 +762,12 @@ RAW_FS = 250.0
 ENGINE_DAYS = 4
 
 
-def phase6_device_engine(xt, ff):
-    """The device engine at production width: 4 consecutive pair-days of
-    the EDH pair at 250 Hz raw through ``device_process_bulk`` +
-    ``finalize`` (one launch of 32 windows), then day 1 through the host
-    engine; the BHZ chain's stages against float64 on the CPU; a miniSEED
-    round trip; a BHZ-EDH pair-day on both engines. Returns K1's launches
-    on the engine's run and the warm run's 4 datasets."""
-    from torch.profiler import ProfilerActivity, profile
-    from xcorr_tpu_torch.parallel.engine import device_process_bulk
+def engine_setup(xt):
+    """Phase 6's pair-days: ``(inventory, client, days, dataset)``, where
+    ``dataset(day)`` is the EDH pair's production-geometry dataset of the
+    day, its data 250 Hz raw from the seeded client."""
     from xcorr_tpu_torch.stream import (Channel, Inventory, PAZResponse,
-                                        Stream, SyntheticClient)
-    from xcorr_tpu_torch.stream.compile import compile_operations
-    from xcorr_tpu_torch.util.profiler import StageTimer
+                                        SyntheticClient)
     resp = PAZResponse(sensitivity=1.5e9)
     inv = Inventory([
         Channel("IM", "H03S1", "", "EDH", latitude=-33.6, longitude=-78.8,
@@ -773,6 +790,24 @@ def phase6_device_engine(xt, ff):
                        sampling_rate=FS, window_length=WINDOW,
                        window_overlap=21.0 / 24.0, clip_lag=CLIP_LAG,
                        inventory=inv)
+    return inv, client, days, dataset
+
+
+def phase6_device_engine(xt, ff):
+    """The device engine at production width: 4 consecutive pair-days of
+    the EDH pair at 250 Hz raw through ``device_process_bulk`` +
+    ``finalize`` (one launch of 32 windows), then day 1 through the host
+    engine; the BHZ chain's stages against float64 on the CPU; a miniSEED
+    round trip; a BHZ-EDH pair-day on both engines. Returns K1's launches
+    on the engine's run, the warm run's 4 datasets and its wall
+    seconds."""
+    from torch.profiler import ProfilerActivity, profile
+    from xcorr_tpu_torch.parallel.engine import device_process_bulk
+    from xcorr_tpu_torch.stream import PAZResponse, Stream
+    from xcorr_tpu_torch.stream.compile import compile_operations
+    from xcorr_tpu_torch.util.profiler import StageTimer
+    inv, client, days, dataset = engine_setup(xt)
+    resp = inv.channels[0].response
 
     k1 = 0
     for run in ("first, cold", "warm"):
@@ -798,7 +833,7 @@ def phase6_device_engine(xt, ff):
         check(counts["fused_corr"] == 1 and sum(counts.values()) == 1,
               f"engine launched {counts}, expected fused_corr once for "
               f"one pack of 32 windows")
-        k1 = counts["fused_corr"]
+        k1, warm_wall = counts["fused_corr"], wall
         for d in dss:
             status = d["status"].values
             check(bool((status == 1).all()), f"status {status.tolist()}")
@@ -886,7 +921,7 @@ def phase6_device_engine(xt, ff):
              f"header scan covers them in {len(cov)} records")
     bhz_pair_day(xt, ff, resp, paz)
     bhr_fallback(xt, ff, resp, paz)
-    return k1, dss
+    return k1, dss, warm_wall
 
 
 BHZ_PAIR = "IM.H03S1..EDH-IU.RAR.10.BHZ"
@@ -1768,6 +1803,10 @@ def phase8d_timelapse(xt, p8):
             cells["dev_ms"] += ms
             cells["ops"] += k + c
             cells["n"] += iu.size
+            # one (pair, band) stack and its cells go on to phase 9d
+            p8.setdefault("tl_stack", (stack, (pk, df_, dl_),
+                                       f"{p8['pairs'][ip]} {f0:g}-{f1:g} "
+                                       "Hz"))
             cstack = np.stack([s[sel] for s in cpu_specs])
             cpk, cdf, cdl = correlate_spectrograms(cstack, la, lb,
                                                    device="cpu")
@@ -1815,6 +1854,285 @@ def phase8d_timelapse(xt, p8):
              f"{TL_SAMPLE_CELLS} cells per (pair, band): cc2 within "
              f"{err['cc2']:.2e}, delta_freq and delta_lag equal but for "
              f"{ties} near-ties")
+
+# -- 9. the multi-device layer on the one card -------------------------------
+
+#: phase 9's logical mesh: the one card, named twice
+MESH_DEVICES = ("cuda:0", "cuda:0")
+#: seconds a 9c worker may take
+WORKER_TIMEOUT = 300
+
+
+def wall_ms(fn, reps=5):
+    """Median wall ms of ``fn()`` after one warm-up, the device
+    synchronized at both ends."""
+    fn()
+    return float(np.median([1e3 * timed(fn)[1] for _ in range(reps)]))
+
+
+def phase9a_sharded(ff, cc, mesh, imin, imax, oracle):
+    """``sharded_correlate`` of phase 4's 16 day-scale windows over the
+    logical mesh, once per route: the route's kernel once per entry and
+    nothing else, rows 0 and 1 (phase 4's oracle) and 8 (the second
+    entry's first) within CCF_ATOL of float64, the peak on the injected
+    delay, the difference from the unsharded ``correlate`` and wall times
+    per window, the host gather included: sharded, unsharded with the
+    same pinned readback (``Readback``), and unsharded with a plain
+    ``.cpu()``. Returns the launches by route."""
+    from xcorr_tpu_torch.parallel import sharded_correlate
+    from xcorr_tpu_torch.parallel.pipeline import Readback
+    B = 16
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((B, N), generator=gen, device="cuda")
+    shift = int(DELAY * FS)
+    y = torch.roll(x, -shift, dims=1) + \
+        0.5 * torch.randn((B, N), generator=gen, device="cuda")
+    oracle = dict(enumerate(oracle))
+    oracle[8] = f64_oracle(x[8].double().cpu().numpy(),
+                           y[8].double().cpu().numpy(), imin, imax)
+    lags = dict(index_min=imin, index_max=imax)
+    launches = {}
+    for route, (kname, _) in ROUTES.items():
+        set_route(route)
+        ff.reset_launches()
+        got = sharded_correlate(x, y, mesh=mesh, **lags)
+        counts = dict(ff.launches)
+        check(counts[kname] == mesh.size
+              and sum(counts.values()) == mesh.size,
+              f"9a route {route}: sharded_correlate launched {counts}, "
+              f"expected {kname} once per mesh entry")
+        launches[route] = {kname: counts[kname]}
+        check(got.shape == (B, imax - imin) and bool(np.isfinite(got).all()),
+              f"9a route {route}: result {got.shape}, or not finite")
+        err = max(float(np.abs(got[i] - o).max()) for i, o in oracle.items())
+        check(err <= CCF_ATOL, f"9a route {route}: CCF error {err} > "
+                               f"{CCF_ATOL}")
+        peak = int(got[0].argmax()) + imin - (N - 1)
+        check(peak == shift, f"9a route {route}: peak at {peak} samples")
+        plain = cc.correlate(x, y, **lags).cpu().numpy()
+        diff = float(np.abs(got - plain).max())
+        check(diff <= CCF_ATOL, f"9a route {route}: {diff} from the "
+                                "unsharded correlate")
+        t_mesh = wall_ms(lambda: sharded_correlate(x, y, mesh=mesh, **lags))
+        t_one = wall_ms(lambda: Readback(cc.correlate(x, y, **lags)).wait())
+        t_cpu = wall_ms(lambda: cc.correlate(x, y, **lags).cpu())
+        phase(9, f"9a route {route} ({kname}): sharded_correlate {B} x {N} "
+                 f"over {mesh.size} entries: {kname} launches "
+                 f"{counts[kname]}, max abs vs f64 {err:.3e} (rows "
+                 f"{sorted(oracle)}), vs unsharded {diff:.3e} "
+                 f"(bit-identical: {diff == 0.0}); ms per window with the "
+                 f"host gather (median of 5): sharded {t_mesh / B:.4f}, "
+                 f"unsharded {t_one / B:.4f} (same pinned readback; split "
+                 f"overhead {(t_mesh - t_one) / B:+.4f}), unsharded with "
+                 f".cpu() {t_cpu / B:.4f}")
+    set_route("corr")
+    del x, y
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase9b_mesh_engine(xt, ff, mesh, ref, ref_wall):
+    """Phase 6's 4 pair-days through ``device_process_bulk(mesh=)`` under
+    ``util.profiler.trace``: K1 once per entry, statuses and CCFs held to
+    phase 6's warm mesh=None run (``ref``), the trace's busy time and
+    device spans beside the profiler's own device time, wall,
+    host->device bytes, peak memory and ``device_memory``. Returns the
+    launches."""
+    from xcorr_tpu_torch.parallel import device_process_bulk
+    from xcorr_tpu_torch.util import profiler
+    inv, client, days, dataset = engine_setup(xt)
+    dss = [dataset(d) for d in days]
+    timer = profiler.StageTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as logdir:
+        ff.reset_launches()
+        with profiler.trace(logdir) as prof:
+            t0 = time.perf_counter()
+            finalize, fallback = device_process_bulk(
+                dss, client, inventory=inv, timer=timer, verb=0, mesh=mesh)
+            finalize()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = dict(ff.launches)
+        busy = profiler.parse_device_trace(logdir)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(not fallback, f"9b: the device engine fell back: {fallback}")
+    check(counts["fused_corr"] == mesh.size
+          and sum(counts.values()) == mesh.size,
+          f"9b: launched {counts}, expected fused_corr once per entry")
+    diff, same = 0.0, True
+    for d, (cc_ref, status_ref) in zip(dss, ref):
+        check(np.array_equal(d["status"].values, status_ref),
+              f"9b: statuses {d['status'].values.tolist()}")
+        diff = max(diff, float(np.abs(d["cc"].values - cc_ref).max()))
+        same &= bool(np.array_equal(d["cc"].values, cc_ref))
+    check(diff <= CCF_ATOL, f"9b: CCFs {diff} from mesh=None")
+    check(busy is not None and 0 < busy["device_busy_s"] <= wall
+          and busy["launches"] > 0, f"9b: trace {busy}, wall {wall}")
+    # the trace holds host operations too, whose device time repeats
+    # their kernels': only the card's own events are summed
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    ndev = sum(e.count for e in dev)
+    mem = profiler.device_memory(mesh)
+    h2d = timer.as_dict()["device-dispatch"].get("GB", 0.0)
+    phase(9, f"9b device_process_bulk(mesh=) of phase 6's {len(dss)} "
+             f"pair-days: {wall:.2f} s wall (mesh=None, phase 6 warm: "
+             f"{ref_wall:.2f} s), fused_corr launches "
+             f"{counts['fused_corr']}, statuses equal, max |CCF - "
+             f"mesh=None| {diff:.3e} (bit-identical: {same}), "
+             f"host->device {h2d:.3f} GB, peak device memory "
+             f"{peak_gb:.2f} GB above {base / 1e9:.2f}")
+    phase(9, f"9b util.profiler.trace: parse_device_trace busy "
+             f"{busy['device_busy_s']:.4f} s in {busy['launches']} device "
+             f"spans (busy / wall {busy['device_busy_s'] / wall:.4f}); "
+             f"torch.profiler key_averages of the same run, the card's "
+             f"events: {dev_ms:.1f} ms in {ndev} kernels and copies")
+    phase(9, "9b device_memory(mesh): " + "; ".join(
+        f"{k}: peak allocated {v['allocated_bytes.all.peak'] / 1e9:.2f} GB,"
+        f" reserved {v['reserved_bytes.all.current'] / 1e9:.2f} GB"
+        for k, v in mem.items()))
+    return {"fused_corr": counts["fused_corr"]}
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def worker(rank, port, outdir):
+    """A 9c process: join the two-process gloo group, take this rank's
+    ``host_slice`` of phase 6's 4 pair-days, run them through
+    ``device_process_bulk`` on cuda:0 and write their CCFs and statuses
+    to ``<outdir>/rank<rank>.npz``; the last line is a JSON record."""
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    import xcorr_tpu_torch as xt
+    from xcorr_tpu_torch.ops import fused_fft as ff
+    from xcorr_tpu_torch.parallel import (device_process_bulk, distributed,
+                                          host_slice)
+    check(distributed.initialize(f"127.0.0.1:{port}", num_processes=2,
+                                 process_id=rank),
+          "initialize() returned False")
+    inv, client, days, dataset = engine_setup(xt)
+    mine = host_slice(list(range(len(days))))
+    dss = [dataset(days[i]) for i in mine]
+    ff.reset_launches()
+    t0 = time.perf_counter()
+    finalize, fallback = device_process_bulk(dss, client, inventory=inv,
+                                             verb=0, device="cuda")
+    finalize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(not fallback, f"worker {rank}: fell back {fallback}")
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), days=np.asarray(mine),
+             cc=np.stack([d["cc"].values for d in dss]),
+             status=np.stack([d["status"].values for d in dss]))
+    distributed.shutdown()
+    check("jax" not in sys.modules, "the worker imported jax")
+    print(json.dumps({"rank": rank, "days": mine,
+                      "launches": dict(ff.launches), "wall_s": wall}))
+
+
+def phase9c_processes(ref, ref_wall):
+    """Two worker processes on the one card form a gloo group, each runs
+    its ``host_slice`` of phase 6's 4 pair-days; their union is held to
+    phase 6's warm one-process run (``ref``). Returns the launches by
+    rank."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as outdir:
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker",
+             str(rank), str(port), outdir], cwd=here, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for rank in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                try:
+                    outs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
+                except subprocess.TimeoutExpired:
+                    fail(f"9c: a worker ran past {WORKER_TIMEOUT} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        recs = []
+        for rank, (p, out) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"9c worker {rank} exited "
+                                     f"{p.returncode}:\n{out[-4000:]}")
+            recs.append(json.loads(out.strip().splitlines()[-1]))
+        parts = [np.load(os.path.join(outdir, f"rank{r}.npz"))
+                 for r in range(2)]
+        union = {}
+        for part in parts:
+            for k, day in enumerate(part["days"]):
+                check(int(day) not in union, f"9c: day {day} twice")
+                union[int(day)] = (part["cc"][k], part["status"][k])
+    check(sorted(union) == list(range(len(ref))),
+          f"9c: the workers took days {sorted(union)}")
+    diff, same = 0.0, True
+    for day, (cc_ref, status_ref) in enumerate(ref):
+        got_cc, got_status = union[day]
+        check(np.array_equal(got_status, status_ref),
+              f"9c: day {day} statuses {got_status.tolist()}")
+        diff = max(diff, float(np.abs(got_cc - cc_ref).max()))
+        same &= bool(np.array_equal(got_cc, cc_ref))
+    check(diff <= CCF_ATOL, f"9c: CCFs {diff} from the one-process run")
+    for r in recs:
+        check(r["launches"]["fused_corr"] >= 1,
+              f"9c worker {r['rank']} launched {r['launches']}")
+    phase(9, f"9c two processes on the card (gloo group on 127.0.0.1:"
+             f"{port}): days " + ", ".join(
+                 f"rank {r['rank']} {r['days']} ({r['wall_s']:.2f} s in "
+                 f"device_process_bulk, launches "
+                 f"{ {k: v for k, v in r['launches'].items() if v} })"
+                 for r in recs)
+             + f"; {wall:.2f} s from start to both exits (one process, "
+               f"phase 6 warm: {ref_wall:.2f} s in device_process_bulk); "
+               f"union max |CCF - one process| {diff:.3e} (bit-identical: "
+               f"{same})")
+    return {f"rank {r['rank']}": {k: v for k, v in r["launches"].items()
+                                  if v} for r in recs}
+
+
+def phase9d_timelapse(mesh, p8):
+    """``correlate_spectrograms(mesh=)`` of one (pair, band) stack of
+    phase 8d, held to 8d's mesh=None cells: peaks within P7_TOL
+    relative, shifts equal but for near-ties, checked in float64 as 8d
+    checks them and counted."""
+    from xcorr_tpu_torch.scripts.timelapse import correlate_spectrograms
+    stack, (pk, df_, dl_), label = p8["tl_stack"]
+    iu, ju = np.triu_indices(stack.shape[0])
+    (gpk, gdf, gdl), t_mesh = timed(
+        lambda: correlate_spectrograms(stack, iu, ju, mesh=mesh))
+    _, t_one = timed(
+        lambda: correlate_spectrograms(stack, iu, ju, device="cuda"))
+    err = rel_err(gpk, pk)
+    check(err <= P7_TOL, f"9d: peaks {err} from mesh=None")
+    ties = 0
+    for n in np.flatnonzero((gdf != df_) | (gdl != dl_)):
+        a, b = stack[iu[n]], stack[ju[n]]
+        gap = abs(shift_value(a, b, gdf[n], gdl[n])
+                  - shift_value(a, b, df_[n], dl_[n]))
+        check(gap <= 2 * P7_TOL, f"9d cell {n}: shifts ({gdf[n]}, "
+                                 f"{gdl[n]}) and ({df_[n]}, {dl_[n]}), "
+                                 f"{gap} apart")
+        ties += 1
+    phase(9, f"9d correlate_spectrograms(mesh=) of {label}, stack "
+             f"{stack.shape}, {iu.size} cells: peaks within {err:.2e} of "
+             f"mesh=None (bit-identical: {bool(np.array_equal(gpk, pk))}), "
+             f"shifts equal but for {ties} near-ties; {t_mesh:.3f} s "
+             f"sharded, {t_one:.3f} s unsharded")
+
 
 
 def main():
@@ -1890,14 +2208,17 @@ def main():
     rec = phase3_kernels(ff, plan, plan_1056, lib.xc_fused_corr_phases)
 
     # -- 4. day-scale correlate, once per route ---------------------------
-    phase4_correlate(ff, cc, fft4, imin, imax)
+    oracle = phase4_correlate(ff, cc, fft4, imin, imax)
 
     # -- 5. the slice: one production-geometry pair-day per route ----------
     launches = phase5_pair_days(xt, ff)
 
     # -- 6. the device engine: 4 pair-days in one launch -------------------
     t6 = time.perf_counter()
-    launches["fused_corr"], dss = phase6_device_engine(xt, ff)
+    launches["fused_corr"], dss, engine_wall = phase6_device_engine(xt, ff)
+    # phase 9 holds its mesh and its processes to this mesh=None run
+    engine_ref = [(d["cc"].values.copy(), d["status"].values.copy())
+                  for d in dss]
 
     # -- 7. the analysis slice: full width, then the campaign --------------
     t7 = time.perf_counter()
@@ -1918,6 +2239,29 @@ def main():
              f"{p8['seconds']:.1f} s, 8d {t_end - t8d:.1f} s, all "
              f"{t_end - t_start:.1f} s")
 
+    # -- 9. the multi-device layer: a logical mesh, two processes ----------
+    from xcorr_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(devices=MESH_DEVICES)
+    phase(9, f"{mesh}: a logical mesh, {torch.cuda.device_count()} card "
+             "visible; both entries run on cuda:0, one after the other, "
+             "so the times below are the split's overhead, not a "
+             "multi-card speed")
+    path = {f"9a {route}": v for route, v in phase9a_sharded(
+        ff, cc, mesh, imin, imax, oracle).items()}
+    path["9b engine"] = phase9b_mesh_engine(xt, ff, mesh, engine_ref,
+                                            engine_wall)
+    t9c = time.perf_counter()
+    path.update({f"9c {k}": v for k, v in phase9c_processes(
+        engine_ref, engine_wall).items()})
+    t9d = time.perf_counter()
+    phase9d_timelapse(mesh, p8)
+    t9_end = time.perf_counter()
+    phase(9, "launches on this slice's path, each count reset just before "
+             "its run and read just after: " + json.dumps(path))
+    phase(9, f"command time: 9a-9b {t9c - t_end:.1f} s, 9c "
+             f"{t9d - t9c:.1f} s, 9d {t9_end - t9d:.1f} s, phase 9 "
+             f"{t9_end - t_end:.1f} s, all {t9_end - t_start:.1f} s")
+
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -1937,4 +2281,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--worker"]:
+        worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

@@ -14,9 +14,12 @@ largest) and discrete ones are equal
 timelapse shifts). ``correlate_spectrograms`` on one stack is held within
 1e-6 with equal shifts, tail batch included. Also: each function on
 datasets in memory gives what its shard-reading form gives, the CLIs
-write what the JAX CLIs write, ``mesh=`` raises, and without a card each
-CLI raises unless given ``--platform cpu``.
+write what the JAX CLIs write, ``mesh=`` gives what no mesh gives, the
+multi-host options join a group or raise as the JAX CLIs' do, and
+without a card each CLI raises unless given ``--platform cpu``.
 """
+import os
+
 import numpy as np
 import pandas as pd
 import pytest
@@ -237,13 +240,34 @@ def test_pair_spectrograms_skip_missing_days(archive):
         device="cpu").sizes["lag"]
 
 
-def test_mesh_raises(archive):
-    with pytest.raises(NotImplementedError, match="mesh="):
-        ttl.timelapse(PAIRS[:1], [DAY], archive, mesh=object(),
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh="):
-        ttl.correlate_spectrograms(spectrogram_stack(), [0], [1],
-                                   mesh=object(), device="cpu")
+def test_mesh_equals_no_mesh(archive):
+    """``mesh=`` splits the cells over a logical CPU mesh: the port's
+    result without a mesh exactly, and the JAX package's with its 8-device
+    CPU mesh within this file's bars."""
+    from xcorr_tpu.parallel import make_mesh as jmake_mesh
+    from xcorr_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(devices=["cpu"] * 3)
+    kw = dict(freq_bands=BANDS, clim=CLIM, duration=10.0,
+              filter_kwargs=HIGHPASS, verb=0)
+    times = pd.DatetimeIndex([DAY, DAY + pd.Timedelta(days=1)])
+    plain = ttl.timelapse(PAIRS[:2], times, archive, device="cpu", **kw)
+    got = ttl.timelapse(PAIRS[:2], times, archive, device="cpu",
+                        mesh=mesh, batch=4, **kw)
+    want = jtl.timelapse(PAIRS[:2], times, archive, mesh=jmake_mesh(8),
+                         batch=4, **kw)
+    for name in ("cc2", "delta_freq", "delta_lag", "status"):
+        np.testing.assert_array_equal(got[name].values, plain[name].values)
+    assert (got["status"].values == 1).all()
+    assert_close(got["cc2"].values, want["cc2"].values)
+    for name in ("delta_freq", "delta_lag"):
+        np.testing.assert_array_equal(got[name].values, want[name].values)
+    specs = spectrogram_stack()
+    ii, jj = np.triu_indices(specs.shape[0])
+    for g, p in zip(ttl.correlate_spectrograms(specs, ii, jj, batch=4,
+                                               mesh=mesh),
+                    ttl.correlate_spectrograms(specs, ii, jj, batch=4,
+                                               device="cpu")):
+        np.testing.assert_array_equal(g, p)
 
 
 # -- the CLIs ---------------------------------------------------------------
@@ -318,15 +342,35 @@ def _minimal_argv(script, path, platform=True):
     return argv + (["--platform", "cpu"] if platform else [])
 
 
-@pytest.mark.parametrize("option", [["--coordinator", "localhost:1234"],
-                                    ["--num-processes", "2"],
+@pytest.mark.parametrize("option", ["coordinator", ["--num-processes", "2"],
                                     ["--process-id", "0"]],
                          ids=["coordinator", "num-processes", "process-id"])
 @pytest.mark.parametrize("script", sorted(SCRIPTS))
-def test_multi_host_options_raise(script, option, tmp_path):
-    with pytest.raises(SystemExit, match="multi-host"):
-        SCRIPTS[script][1].main(_minimal_argv(script, str(tmp_path))
-                                + option)
+def test_multi_host_options(script, option, archive, tmp_path):
+    """``--num-processes`` or ``--process-id`` without a coordinator
+    raises ``SystemExit``, as the JAX CLIs do; with ``--coordinator`` the
+    script joins a one-process group and runs to its end."""
+    import socket
+    from xcorr_tpu_torch.parallel import distributed
+    if option != "coordinator":
+        for mod in SCRIPTS[script]:
+            with pytest.raises(SystemExit, match="require --coordinator"):
+                mod.main(_minimal_argv(script, str(tmp_path)) + option)
+        return
+    ext = ".csv" if script == "plmax" else ".nc"
+    out = str(tmp_path / f"port{ext}")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    try:
+        assert SCRIPTS[script][1].main(
+            _cli_argv(script, archive, tmp_path, out)
+            + ["--platform", "cpu", "--coordinator", f"127.0.0.1:{port}",
+               "--num-processes", "1", "--process-id", "0"]) == 0
+        assert torch.distributed.get_world_size() == 1
+    finally:
+        distributed.shutdown()
+    assert os.path.exists(out)
 
 
 @pytest.mark.parametrize("script", sorted(SCRIPTS))

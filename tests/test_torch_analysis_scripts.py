@@ -16,6 +16,7 @@ raise, and without a card each script raises unless given ``--platform
 cpu``.
 """
 import os
+import socket
 
 import numpy as np
 import pandas as pd
@@ -25,6 +26,7 @@ import torch
 import xcorr_tpu
 import xcorr_tpu_torch as T
 from xcorr_tpu.scripts import ct as jct, psd as jpsd, snr as jsnr
+from xcorr_tpu_torch.parallel import distributed as tdist
 from xcorr_tpu_torch.scripts import ct as tct, psd as tpsd, snr as tsnr
 
 FS = 5.0
@@ -146,6 +148,7 @@ def _argv(script, path, platform=True):
 
 
 SCRIPTS = {"snr": tsnr, "ct": tct, "psd": tpsd}
+JSCRIPTS = {"snr": jsnr, "ct": jct, "psd": jpsd}
 
 
 @pytest.mark.parametrize("script", sorted(SCRIPTS))
@@ -184,14 +187,46 @@ def test_plot_stops_the_run(script, archive, runs, tmp_path):
         plt.close("all")
 
 
-@pytest.mark.parametrize("option", [["--coordinator", "localhost:1234"],
-                                    ["--num-processes", "2"],
+def _join_group():
+    """The options that form a one-process group on a free port."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return ["--coordinator", f"127.0.0.1:{port}", "--num-processes", "1",
+            "--process-id", "0"]
+
+
+@pytest.mark.parametrize("option", ["coordinator", ["--num-processes", "2"],
                                     ["--process-id", "0"]],
                          ids=["coordinator", "num-processes", "process-id"])
 @pytest.mark.parametrize("script", sorted(SCRIPTS))
-def test_multi_host_options_raise(script, option, tmp_path):
-    with pytest.raises(SystemExit, match="multi-host"):
-        SCRIPTS[script].main(_argv(script, str(tmp_path)) + option)
+def test_multi_host_options(script, option, archive, runs, tmp_path):
+    """``--num-processes`` or ``--process-id`` without a coordinator
+    raises ``SystemExit``, as the JAX CLIs do; with ``--coordinator`` the
+    script joins a one-process group and runs to its end."""
+    if option != "coordinator":
+        for mod in (SCRIPTS[script], JSCRIPTS[script]):
+            with pytest.raises(SystemExit, match="require --coordinator"):
+                mod.main(_argv(script, str(tmp_path)) + option)
+        return
+    f_snr, f_ct = runs["port"][:2]
+    argv = {"snr": ["2014-01-01", "2014-01-02", "--root", archive,
+                    *CELERITY, "--out", str(tmp_path / "snr.nc"),
+                    "--institution", "t", "--author", "t", "--source",
+                    "t"],
+            "ct": [f_snr, "--threshold", "0.0001", "--out",
+                   str(tmp_path / "ct.nc")],
+            "psd": [f_ct, "--root", archive, "--outdir",
+                    str(tmp_path / "out"), *CELERITY, "--duration",
+                    "10.0", "--padding-factor", "2", "--fmax", "2.0"]}
+    try:
+        assert SCRIPTS[script].main(argv[script] + ["--platform", "cpu"]
+                                    + _join_group()) == 0
+        assert torch.distributed.get_world_size() == 1
+    finally:
+        tdist.shutdown()
+    assert os.listdir(tmp_path / "out") if script == "psd" else \
+        os.path.exists(tmp_path / f"{script}.nc")
 
 
 @pytest.mark.parametrize("script", sorted(SCRIPTS))

@@ -90,6 +90,17 @@ def _load():
     lib = ctypes.CDLL(_build())'''),
 ]
 
+_SYSMEM_SRC = (ROOT / "xcorr_tpu" / "util" / "sysmem.py").read_text()
+#: the heap settings are carried; the JAX compile cache (the module's
+#: last function, to its end) and the ``os`` import only it used are not
+_SYSMEM = [
+    ("import os\n\n", ""),
+    ('__all__ = ["malloc_heap_reuse", "enable_persistent_compile_cache"]',
+     '__all__ = ["malloc_heap_reuse"]'),
+    (_SYSMEM_SRC[_SYSMEM_SRC.index(
+        "\n\ndef enable_persistent_compile_cache"):], ""),
+]
+
 #: carried module (path under both packages) -> [(old, new), ...]
 CARRIED = {
     "ndlabel/__init__.py": [],
@@ -103,6 +114,7 @@ CARRIED = {
     "util/history.py": [],
     "util/cc.py": [],
     "util/metadata.py": _METADATA,
+    "util/sysmem.py": _SYSMEM,
     # the host response division keeps the reference's FFT sizing
     "stream/trace.py": [("from ..ops.fft import next_fast_len",
                          "from ._fftlen import next_fast_len")],

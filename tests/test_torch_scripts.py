@@ -90,15 +90,42 @@ def test_cc_main_matches_reference(archive, tmp_path, monkeypatch):
     assert got.attrs["title"] == want.attrs["title"]
 
 
-@pytest.mark.parametrize("option", [["--coordinator", "localhost:1234"],
-                                    ["--num-processes", "2"],
+@pytest.mark.parametrize("option", ["coordinator", ["--num-processes", "2"],
                                     ["--process-id", "0"]],
                          ids=["coordinator", "num-processes", "process-id"])
-def test_multi_host_options_raise(option):
+def test_multi_host_options(option, archive, tmp_path, monkeypatch):
+    """``--num-processes`` or ``--process-id`` without a coordinator
+    raises ``SystemExit``, as the JAX CLI does; with ``--coordinator``
+    ``xcorr-torch-cc`` joins a one-process group and runs to its end."""
     import argparse
-    parser = tutils.add_common_arguments(argparse.ArgumentParser())
-    with pytest.raises(SystemExit, match="multi-host"):
-        tutils.init_compute(parser.parse_args(option))
+    from xcorr_tpu.scripts import utils as jutils
+    if option != "coordinator":
+        for utils in (tutils, jutils):
+            parser = utils.add_common_arguments(argparse.ArgumentParser())
+            with pytest.raises(SystemExit, match="require --coordinator"):
+                utils.init_compute(parser.parse_args(option))
+        return
+    import socket
+    import torch
+    from xcorr_tpu_torch.parallel import distributed
+    root, inv = archive
+    monkeypatch.setattr(tcc, "default_config", _small(tcc.default_config))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    try:
+        assert tcc.main([
+            "--root", str(tmp_path / "port"), "--sds-root",
+            str(root / "sds"), "--start", "2014-01-01", "--end",
+            "2014-01-01", "--pair", PAIR, "--inventory", inv, "-n", "2",
+            "--platform", "cpu", "--coordinator", f"127.0.0.1:{port}",
+            "--num-processes", "1", "--process-id", "0"]) == 0
+        assert torch.distributed.get_world_size() == 1
+    finally:
+        distributed.shutdown()
+    got = xcorr_tpu.read(xcorr_tpu_torch.ncfile(
+        PAIR, pd.Timestamp("2014-01-01"), str(tmp_path / "port")))
+    assert (got["status"].values == 1).all()
 
 
 def test_platform_names_the_torch_device():

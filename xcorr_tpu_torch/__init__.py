@@ -11,8 +11,9 @@ reference.
 
 The facade mirrors :mod:`xcorr_tpu`'s: ``init`` -> ``process(ds, client,
 device='cuda')`` -> ``write`` / ``read``; ``lazy_process`` with the host
-engine or ``engine='device'``; the device engine itself in
-:mod:`.parallel`; ``postprocess(ds, device='cuda')``, ``merge`` and
+engine or ``engine='device'``; the device engine, meshes and
+multi-process campaigns in :mod:`.parallel`; ``postprocess(ds,
+device='cuda')``, ``merge`` and
 ``plot``. The shard I/O (``io``, ``read``, ``write``,
 ``lazy_process``) needs h5py and is imported on first use, so a machine
 without h5py can still initialize, correlate and postprocess datasets.

@@ -16,8 +16,11 @@ Batch production (spec: ``xcorr/core/lazy.py:26-369``; port of
 
 Resume semantics are identical: a shard whose ``status`` flags are all 1
 is skipped, fetch failures are flagged -1 and retried on the next run.
-Not ported: the multi-host ``host_slice`` of the campaign (multi-GPU
-slice) and the JAX package's compile cache and heap settings.
+In a multi-process group (:func:`..parallel.distributed.initialize`)
+each process takes its :func:`..parallel.distributed.host_slice` of the
+gated (pair, day) list and writes its own shards. ``mesh=`` splits the
+device engine's launches over a :class:`..parallel.mesh.Mesh`. Not
+ported: the JAX package's compile cache.
 """
 
 from __future__ import annotations
@@ -46,14 +49,14 @@ def _check_engine(engine: str):
 def single_threaded_process(pair: str, time, init_args: dict,
                             client, inventory, root: str,
                             force_fresh: bool = False, verb: int = 0,
-                            engine: str = "host", **kwargs):
+                            engine: str = "host", mesh=None, **kwargs):
     """Read-or-init -> process -> write one (pair, day) shard; returns
     True when the shard is complete (reference
     ``xcorr/core/lazy.py:26-82``). ``kwargs`` go to
     :func:`..core.process.process` or, with ``engine='device'``, to
-    :func:`..parallel.engine.device_process` (e.g. ``device``); a chain
-    the device engine cannot run goes to the host engine, as in the JAX
-    package."""
+    :func:`..parallel.engine.device_process` (e.g. ``device``, and
+    ``mesh``); a chain the device engine cannot run goes to the host
+    engine, as in the JAX package."""
     _check_engine(engine)
     data = None
     time = util.time.to_datetime(time)
@@ -80,7 +83,8 @@ def single_threaded_process(pair: str, time, init_args: dict,
         from ..parallel.engine import device_process
         try:
             device_process(data, client=client, inventory=inventory,
-                           retry_missing=True, verb=verb, **kwargs)
+                           retry_missing=True, verb=verb, mesh=mesh,
+                           **kwargs)
         except NotImplementedError:  # chain not device-compilable
             core_process(data, client=client, inventory=inventory,
                          retry_missing=True, verb=verb, **kwargs)
@@ -171,7 +175,7 @@ def lazy_processes(pairs: list, times, availability=None, preprocessing=None,
 
 def _device_bulk_run(pair_days, init_args, client, inventory, root,
                      days_per_launch: int, verb: int, timer,
-                     force_fresh=False, **kwargs):
+                     force_fresh=False, mesh=None, **kwargs):
     """Chunked multi-day device orchestration: every ``days_per_launch``
     gated (pair, day) tasks batch into shared device launches (packed to
     the engine's 32-window cap), while a writer thread overlaps the
@@ -221,7 +225,7 @@ def _device_bulk_run(pair_days, init_args, client, inventory, root,
                 finalize, fallback = device_process_bulk(
                     [d for _, _, d, _ in items], client,
                     inventory=inventory, retry_missing=True, timer=timer,
-                    verb=verb - 1 if verb else 0, **kwargs)
+                    verb=verb - 1 if verb else 0, mesh=mesh, **kwargs)
                 fb_ids = {id(d) for d in fallback}
                 for pair, time, data, nc in items:
                     if id(data) not in fb_ids:
@@ -312,8 +316,9 @@ def _device_bulk_run(pair_days, init_args, client, inventory, root,
 
 def lazy_process(pairs: list, times, init_args: dict, client_args: dict,
                  inventory=None, root: str = None, nworkers: int = None,
-                 download: bool = True, days_per_launch: int = 8,
-                 verb: int = 1, **kwargs):
+                 download: bool = True, distributed: bool = None,
+                 days_per_launch: int = 8, verb: int = 1, mesh=None,
+                 **kwargs):
     """End-to-end batch run (reference ``xcorr/core/lazy.py:197-369``):
     availability scan -> preprocess verification on one day -> gated
     (pair, day) fan-out. ``kwargs`` go to :func:`single_threaded_process`
@@ -323,10 +328,24 @@ def lazy_process(pairs: list, times, init_args: dict, client_args: dict,
     chunks of that many (pair, day) tasks run through
     :func:`_device_bulk_run` instead. ``timer`` (a
     :class:`..util.profiler.StageTimer`) receives the campaign's stages.
-    Multi-host and multi-GPU campaigns are not ported yet."""
-    from ..stream.client import Client
 
+    ``mesh`` (a :class:`..parallel.mesh.Mesh`, ``engine='device'`` only)
+    splits each device launch over the mesh's devices. Multi-process
+    runs: in a ``torch.distributed`` group of more than one process
+    (:func:`..parallel.distributed.initialize`, the analogue of the
+    reference's Dask scheduler-file cluster,
+    ``xcorr/scripts/utils.py:50-79``), each process takes its contiguous
+    :func:`~..parallel.distributed.host_slice` of the gated (pair, day)
+    list and writes its own shards: the filesystem stays the data plane.
+    ``distributed`` forces the behaviour; None detects the group."""
+    from ..stream.client import Client
+    from ..util.sysmem import malloc_heap_reuse
+
+    malloc_heap_reuse()  # large-buffer heap reuse (see util.sysmem)
     _check_engine(kwargs.get("engine", "host"))
+    if mesh is not None and kwargs.get("engine") != "device":
+        raise ValueError("mesh= splits the device engine's launches; "
+                         "pass engine='device'")
     # a campaign without its device fails here, not task by task
     resolve_device(kwargs.get("device", "cuda"))
     timer = kwargs.pop("timer", None) or util.profiler.StageTimer()
@@ -398,8 +417,23 @@ def lazy_process(pairs: list, times, init_args: dict, client_args: dict,
         raise RuntimeError(
             "no (pair, day) tasks to schedule: availability and "
             "preprocess gating removed the entire campaign")
+    if distributed is None:
+        import torch.distributed as dist
+        distributed = (dist.is_available() and dist.is_initialized()
+                       and dist.get_world_size() > 1)
+    if distributed:
+        from ..parallel.distributed import _group, host_slice
+        rank, size = _group()
+        ntotal = len(pair_days)
+        pair_days = host_slice(pair_days)
+        if verb > 0:
+            print(f"Host {rank}/{size}: {len(pair_days)} of {ntotal} "
+                  "pair-day tasks")
+
     if verb > 0:
         print(f"Scheduling {len(pair_days)} pair-day tasks")
+    if mesh is not None:
+        kwargs["mesh"] = mesh
     if kwargs.get("engine") == "device" and days_per_launch > 1:
         bulk_kwargs = {k: v for k, v in kwargs.items() if k != "engine"}
         results = _device_bulk_run(

@@ -46,8 +46,11 @@ hi/lo input split becomes the TF32 split.
 N2 must be a power of two no larger than the kernel's own
 :data:`MAX_N2`, 16384 for every kernel. Each kernel has a plain
 PyTorch version (``*_plain``, float32 throughout): a wrapper takes it for
-CPU tensors only, launches the kernel (or raises) for CUDA tensors, and
-adds one to ``launches[name]`` per launch. The tests and
+CPU tensors only, launches the kernel (or raises) for CUDA tensors, on
+the tensors' card (made current for the launch: the C side sizes its
+grid on the current device, and torch's default stream, handle 0, is
+the current device's), and adds one to ``launches[name]`` per
+launch. The tests and
 ``chip_smoke.py`` hold each kernel against its plain version.
 
 Layouts: stage-A planes, spectra and K1's output are ``(B, 2, H, N2)``
@@ -280,9 +283,13 @@ def _device_of(a, name):
     return a.device.type
 
 
-def _launch(name, fn, *args):
-    """Call a C entry point, raise on a CUDA error, count the launch."""
-    rc = fn(*args)
+def _launch(name, device, fn, *args):
+    """Call a C entry point with ``device`` current (the C side sizes its
+    grid on the current device, and the default stream's handle, 0,
+    launches there: on another card the kernel would not be ordered with
+    the tensors' stream), raise on a CUDA error, count the launch."""
+    with torch.cuda.device(device):
+        rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     with _lock:
@@ -309,7 +316,7 @@ def fused_corr(ax, ay, T):
     lib = load()
     out = torch.empty_like(ax)
     tw = _k1_twiddles(N2, ax.device)
-    _launch("fused_corr", lib.xc_fused_corr,
+    _launch("fused_corr", ax.device, lib.xc_fused_corr,
             *_ptrs(ax, ay, T, tw, out), B, H, N2, N2.bit_length() - 1,
             _stream(ax))
     return out
@@ -325,8 +332,9 @@ def stageb_fwd(a, T):
     lib = load()
     out = torch.empty_like(a)
     tw = _k1_twiddles(N2, a.device)
-    _launch("stageb_fwd", lib.xc_stageb_fwd, *_ptrs(a, T, tw, out), B, H,
-            N2, N2.bit_length() - 1, _stream(a))
+    _launch("stageb_fwd", a.device, lib.xc_stageb_fwd,
+            *_ptrs(a, T, tw, out), B, H, N2, N2.bit_length() - 1,
+            _stream(a))
     return out
 
 
@@ -340,8 +348,9 @@ def stageb_inv(fx, fy, T):
     lib = load()
     out = torch.empty_like(fx)
     tw = _k1_twiddles(N2, fx.device)
-    _launch("stageb_inv", lib.xc_stageb_inv, *_ptrs(fx, fy, T, tw, out), B,
-            H, N2, N2.bit_length() - 1, _stream(fx))
+    _launch("stageb_inv", fx.device, lib.xc_stageb_inv,
+            *_ptrs(fx, fy, T, tw, out), B, H, N2, N2.bit_length() - 1,
+            _stream(fx))
     return out
 
 
@@ -359,7 +368,7 @@ def fused_corr_acc(ax, ay, T, wi):
     split = torch.empty(_split_floats(rows_out, 2 * H), **kw)
     out = torch.empty((B, rows_out, N2), **kw)
     tw = _k1_twiddles(N2, ax.device)
-    _launch("fused_corr_acc", lib.xc_fused_corr_acc,
+    _launch("fused_corr_acc", ax.device, lib.xc_fused_corr_acc,
             *_ptrs(ax, ay, T, tw, wi, cscr, split, out), B, H, rows_out, N2,
             N2.bit_length() - 1, _stream(ax))
     return out
@@ -394,7 +403,7 @@ def fused_corr_full(vx, vy, w1, T, wi):
                             _split_floats(rows_out, 2 * H)), **kw)
     out = torch.empty((B, rows_out, N2), **kw)
     tw = _k1_twiddles(N2, vx.device)
-    _launch("fused_corr_full", lib.xc_fused_corr_full,
+    _launch("fused_corr_full", vx.device, lib.xc_fused_corr_full,
             *_ptrs(vx, vy, w1, T, tw, wi, sx, sy, split, out), B, H,
             rows_in, rows_out, N2, N2.bit_length() - 1, _stream(vx))
     return out

@@ -12,12 +12,15 @@ semantics, ``xcorr/core/process.py:82-172``), this engine
    that reads every sample 8 times), deduplicated across pairs that share
    a receiver and, over several days, as one union span per receiver;
 2. ships each raw span to the device ONCE (pinned host memory, a
-   ``non_blocking`` copy) and cuts the overlapping windows out there;
+   ``non_blocking`` copy; with ``mesh=``, once to each device of the
+   mesh) and cuts the overlapping windows out there;
 3. runs the per-channel preprocess chains and the correlation
    (:class:`.pipeline.MultiSpanPipeline`), stacking every (pair, day)
    task with a common chain and geometry into launches of at most
    ``max_windows_per_launch`` windows (32): :func:`device_process_bulk`
-   batches several datasets (days) per launch;
+   batches several datasets (days) per launch; with ``mesh=`` each
+   launch's windows split into contiguous shares over the mesh's
+   devices;
 4. fills the dataset's cc/status/offset bookkeeping exactly like the host
    path, deferred into a ``finalize`` callable that reads the results back
    on a side stream, so a writer thread can overlap the readback and the
@@ -40,7 +43,6 @@ Not carried from the JAX package, with the reason:
   they padded tail chunks and batches so that XLA executables were
   reused, and eager PyTorch compiles nothing per shape. Results are
   unchanged: pad and phantom rows were sliced off before readback;
-* ``mesh=``: multi-GPU is a later slice;
 * the ``XCORR_CC_PRECISION`` cache key: the port has no precision
   setting (every product runs in float32).
 """
@@ -62,13 +64,14 @@ from .. import util
 from ..core.process import resolve_device
 from ..signal.unbias import unbias
 from ..stream.compile import HOST_OPS
+from .mesh import mesh_fingerprint
 from .pipeline import MultiSpanPipeline, Readback
 
 __all__ = ["device_process", "device_process_bulk"]
 
-# one pipeline per (ops, geometry, response, device) config, shared across
-# day-tasks and worker threads: its chains' host constants are designed
-# once and copied to the device once
+# one pipeline per (ops, geometry, response, device or mesh) config,
+# shared across day-tasks and worker threads: its chains' host constants
+# are designed once and copied to each device once
 _pipeline_cache = {}
 _pipeline_lock = threading.Lock()
 
@@ -81,10 +84,12 @@ def _response_key(resp):
 
 
 def _get_pipeline(ops_a, ops_b, fs_a, fs_b, npts_raw_a, npts_raw_b, npts,
-                  imin, imax, normalize, resp_a, resp_b, buf_out, device):
+                  imin, imax, normalize, resp_a, resp_b, buf_out, device,
+                  mesh=None):
     key = (json.dumps(ops_a), json.dumps(ops_b), fs_a, fs_b, npts_raw_a,
            npts_raw_b, npts, imin, imax, normalize, _response_key(resp_a),
-           _response_key(resp_b), buf_out, str(device))
+           _response_key(resp_b), buf_out, str(device),
+           mesh_fingerprint(mesh))
     with _pipeline_lock:
         pipe = _pipeline_cache.get(key)
         if pipe is None:
@@ -92,7 +97,7 @@ def _get_pipeline(ops_a, ops_b, fs_a, fs_b, npts_raw_a, npts_raw_b, npts,
                 ops_a, ops_b, npts_raw_a, fs_a, npts_raw_b, fs_b, npts,
                 index_min=imin, index_max=imax, normalize=normalize,
                 response_a=resp_a, response_b=resp_b, trim_offset=buf_out,
-                device=device)
+                device=device, mesh=mesh)
     return pipe
 
 
@@ -381,13 +386,17 @@ def device_process_bulk(datasets, client, inventory=None,
                         verb: int = 1, timer=None,
                         fetch_workers: int = None,
                         max_windows_per_launch: int = 32,
-                        device="cuda", **kwargs):
+                        device="cuda", mesh=None, **kwargs):
     """Prepare and LAUNCH every unprocessed (pair, time) window of
     several datasets (typically several days x pairs) as shared device
     batches on the torch ``device``; defer readback and bookkeeping to
     the returned callable. ``device`` defaults to ``'cuda'`` and raises
     when torch sees no CUDA device; pass ``device='cpu'`` to run on the
-    host.
+    host. ``mesh`` (a :class:`.mesh.Mesh`, in place of ``device``): each
+    launch's windows split into contiguous shares, one per mesh entry,
+    each cut, preprocessed and correlated on the entry's device, the
+    spans copied to every device of the mesh; the results are those of
+    ``mesh=None``.
 
     Returns ``(finalize, fallback)``:
 
@@ -405,7 +414,10 @@ def device_process_bulk(datasets, client, inventory=None,
     windows each: at the production configuration a chunk of 4 pair-days
     is one launch of 32 windows.
     """
-    device = resolve_device(device)
+    # the devices the spans go to: each of the mesh's once
+    targets = [resolve_device(d) for d in dict.fromkeys(
+        mesh.devices if mesh is not None else [device])]
+    device = targets[0]
     if timer is None:
         timer = util.profiler.StageTimer()  # unreported sink
     if fetch_workers is None:
@@ -545,10 +557,11 @@ def device_process_bulk(datasets, client, inventory=None,
         if pack:
             packs.append(pack)
 
-    # one host->device transfer per unique span-stack composition: with
-    # union spans every pack of a chunk draws on the same pooled rows,
-    # so the stack ships once and later packs reuse it. Bounded to the
-    # last two compositions (the a and b sides of the current group).
+    # one host->device transfer per unique span-stack composition (and
+    # target device): with union spans every pack of a chunk draws on the
+    # same pooled rows, so the stack ships once and later packs reuse it.
+    # Bounded to the last two compositions (the a and b sides of the
+    # current group).
     dev_stacks = {}
 
     def _dev_stack(pool):
@@ -557,9 +570,9 @@ def device_process_bulk(datasets, client, inventory=None,
         if dev is None:
             host = torch.from_numpy(
                 pool[0][None] if len(pool) == 1 else np.stack(pool))
-            if device.type == "cuda":
+            if any(d.type == "cuda" for d in targets):
                 host = host.pin_memory()
-            dev = host.to(device, non_blocking=True)
+            dev = {d: host.to(d, non_blocking=True) for d in targets}
             while len(dev_stacks) >= 2:
                 dev_stacks.pop(next(iter(dev_stacks)))
             dev_stacks[key] = dev
@@ -590,13 +603,15 @@ def device_process_bulk(datasets, client, inventory=None,
                 t0g["dev_ops_a"], t0g["dev_ops_b"], t0g["fs_a"],
                 t0g["fs_b"], t0g["npts_raw_a"], t0g["npts_raw_b"],
                 geo["npts"], geo["imin"], geo["imax"], geo["normalize"],
-                t0g["resp_a"], t0g["resp_b"], t0g["buf_out"], device)
+                t0g["resp_a"], t0g["resp_b"], t0g["buf_out"], device,
+                mesh)
         ka = tuple(id(x) for x in pool_a)
         kb = tuple(id(x) for x in pool_b)
         fresh = 0 if ka in dev_stacks else sum(a.nbytes for a in pool_a)
         if kb != ka and kb not in dev_stacks:
             # kb == ka (autocorrelation) reuses side a's transfer
             fresh += sum(b.nbytes for b in pool_b)
+        fresh *= len(targets)
         with timer("device-dispatch", nbytes=fresh, items=nwin):
             raw_a = _dev_stack(pool_a)
             raw_b = _dev_stack(pool_b)
@@ -688,7 +703,7 @@ def device_process_bulk(datasets, client, inventory=None,
 
 def device_process(dataset, client, inventory=None, buffer: float = None,
                    retry_missing: bool = False, verb: int = 1,
-                   timer=None, device="cuda", **kwargs):
+                   timer=None, device="cuda", mesh=None, **kwargs):
     """Correlate every unprocessed (pair, time) window of ONE dataset
     with preprocessing on the torch ``device`` (default ``'cuda'``,
     raising without one). API mirrors :func:`..core.process.process`;
@@ -696,8 +711,8 @@ def device_process(dataset, client, inventory=None, buffer: float = None,
     (callers fall back to the host path).
 
     Pairs whose chains, geometry and responses coincide stack into one
-    device batch (pairs x windows). For multi-DAY batching use
-    :func:`device_process_bulk`.
+    device batch (pairs x windows), split over ``mesh`` when one is
+    given. For multi-DAY batching use :func:`device_process_bulk`.
 
     ``timer``: optional :class:`..util.profiler.StageTimer` that
     accumulates per-stage wall time (fetch / pipeline-build / device /
@@ -710,7 +725,7 @@ def device_process(dataset, client, inventory=None, buffer: float = None,
     finalize, fallback = device_process_bulk(
         [dataset], client, inventory=inventory, buffer=buffer,
         retry_missing=retry_missing, verb=verb, timer=timer,
-        device=device, **kwargs)
+        device=device, mesh=mesh, **kwargs)
     if fallback:
         raise NotImplementedError(
             "chain not device-compilable; use core.process")

@@ -5,8 +5,8 @@ r"""
 The device side of the device engine (port of
 ``xcorr_tpu/parallel/pipeline.py``): raw day spans -> per-channel
 preprocess chains (:func:`..stream.compile.compile_operations`) ->
-batched correlation (:func:`..ops.cc.correlate`), all on one torch
-device.
+batched correlation (:func:`..ops.cc.correlate`), on one torch device
+or split over a mesh (:mod:`.mesh`).
 
 :class:`MultiSpanPipeline` takes each receiver's raw span ONCE and cuts
 the overlapping windows out of it on the device, at runtime ``(src,
@@ -27,7 +27,13 @@ Differences from the JAX package, none of them in the result:
   (``pre_padded_n``): eager PyTorch materializes every intermediate of a
   chain, so the block bounds the chains' working memory at day scale;
 * the result comes back through :class:`Readback`: pinned host memory,
-  ``non_blocking`` row-chunk copies on a side stream.
+  ``non_blocking`` row-chunk copies on a side stream of the result's
+  device;
+* with ``mesh=``, each entry cuts, preprocesses and correlates its
+  contiguous share of the windows on its own device, the spans
+  replicated to every entry as the JAX package replicates them. No
+  window is added: the JAX package padded the batch to a mesh multiple
+  (``pad_nwin``) so that its executables were reused.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import torch
 
 from ..ops.cc import correlate, preferred_padded_len
 from ..stream.compile import compile_operations
+from .mesh import split
 
 __all__ = ["FusedPipeline", "MultiSpanPipeline", "Readback", "CHAIN_ROWS"]
 
@@ -129,12 +136,16 @@ class MultiSpanPipeline:
     Where the four-step path engages, the preprocessed windows are
     written zero-extended to its stage-A length
     (:func:`..ops.cc.preferred_padded_len`).
+
+    ``mesh`` (a :class:`.mesh.Mesh`, in place of ``device``): the windows
+    split into contiguous shares (:func:`.mesh.split`), one per mesh
+    entry, each run on the entry's device.
     """
 
     def __init__(self, ops_a, ops_b, npts_raw_a, fs_a, npts_raw_b, fs_b,
                  npts, index_min=None, index_max=None, normalize=True,
                  response_a=None, response_b=None, trim_offset=0,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self._chain_a, self._chain_b, self.sampling_rate = _chains(
             ops_a, ops_b, npts_raw_a, fs_a, npts_raw_b, fs_b, npts,
             response_a, response_b, trim_offset)
@@ -144,25 +155,20 @@ class MultiSpanPipeline:
         self.index_min = index_min
         self.index_max = index_max
         self._normalize = normalize
-        self.device = torch.device(device)
-        #: stage-A length of the window stacks, or None (plain windows)
-        self.plen = preferred_padded_len(self.npts, self.device)
+        self.mesh = mesh
+        #: the devices the windows split over, in window order
+        self.devices = mesh.devices if mesh is not None \
+            else (torch.device(device),)
 
-    def launch(self, raw_a, raw_b, offsets_a, offsets_b):
-        """Queue the work on the device; returns the ``(nwin, nlag)``
-        device tensor. ``raw_a``: ``(nsrc_a, span_a)``, ``raw_b``:
-        ``(nsrc_b, span_b)`` float32 (tensors on the device, or host
-        arrays)."""
-        if len(offsets_a) != len(offsets_b):
-            raise ValueError("offsets_a and offsets_b lengths differ")
-        raw_a = torch.as_tensor(raw_a).to(self.device)
-        raw_b = torch.as_tensor(raw_b).to(self.device)
+    def _launch_on(self, device, raw_a, raw_b, offsets_a, offsets_b):
+        """Cut, preprocess and correlate ``offsets_*`` on ``device``."""
+        raw_a = _on(raw_a, device)
+        raw_b = _on(raw_b, device)
+        plen = preferred_padded_len(self.npts, device)
         nwin = len(offsets_a)
-        width = self.plen or self.npts
-        xa = torch.zeros((nwin, width), dtype=raw_a.dtype,
-                         device=self.device)
-        yb = torch.zeros((nwin, width), dtype=raw_b.dtype,
-                         device=self.device)
+        width = plen or self.npts
+        xa = torch.zeros((nwin, width), dtype=raw_a.dtype, device=device)
+        yb = torch.zeros((nwin, width), dtype=raw_b.dtype, device=device)
         for r in range(0, nwin, CHAIN_ROWS):
             rows = slice(r, r + CHAIN_ROWS)
             xa[rows, :self.npts] = self._chain_a(_windows(
@@ -171,7 +177,22 @@ class MultiSpanPipeline:
                 raw_b, offsets_b[rows], self.npts_raw_b))
         return correlate(xa, yb, normalize=self._normalize,
                          index_min=self.index_min, index_max=self.index_max,
-                         pre_padded_n=self.npts if self.plen else None)
+                         pre_padded_n=self.npts if plen else None)
+
+    def launch(self, raw_a, raw_b, offsets_a, offsets_b):
+        """Queue the work on the device(s); returns the ``(rows, nlag)``
+        device tensors of the entries that took windows, in window order
+        (one without a mesh). ``raw_a``: ``(nsrc_a, span_a)``, ``raw_b``:
+        ``(nsrc_b, span_b)`` float32: host arrays, tensors, or dicts of
+        tensors by device (a stack already replicated to each device)."""
+        if len(offsets_a) != len(offsets_b):
+            raise ValueError("offsets_a and offsets_b lengths differ")
+        nwin = len(offsets_a)
+        parts = [(self.devices[0], 0, nwin)] if self.mesh is None else \
+            split(self.mesh, nwin)
+        return [self._launch_on(device, raw_a, raw_b, offsets_a[a:b],
+                                offsets_b[a:b])
+                for device, a, b in parts]
 
     def __call__(self, raw_a, raw_b, offsets_a, offsets_b):
         """:meth:`launch`, then the result as a host array."""
@@ -179,32 +200,56 @@ class MultiSpanPipeline:
                                     offsets_b)).wait()
 
 
+def _on(raw, device):
+    """A span stack as a tensor on ``device``."""
+    if isinstance(raw, dict):
+        return raw[device]
+    return torch.as_tensor(raw).to(device)
+
+
 class Readback:
-    """The device -> host copy of a ``(rows, n)`` result, started at once:
-    on a CUDA device, row chunks of :data:`READBACK_ROWS` go into pinned
-    host memory with ``non_blocking`` copies on a side stream, so they
-    overlap the host work that follows; on the CPU the result is the
-    host array already. :meth:`wait` hands each landed chunk on."""
+    """The device -> host copy of a ``(rows, n)`` result, or of the row
+    shards of one (a list, in row order), started at once: on a CUDA
+    device, row chunks of :data:`READBACK_ROWS` go into pinned host
+    memory with ``non_blocking`` copies on a side stream of the shard's
+    own device, so they overlap the host work that follows; a CPU result
+    is the host array already. :meth:`wait` hands each landed chunk
+    on."""
 
     def __init__(self, result):
-        self.rows = result.shape[0]
+        shards = [result] if torch.is_tensor(result) else list(result)
+        self.rows = sum(r.shape[0] for r in shards)
         self._events = []
-        if result.device.type != "cuda":
-            self.host = result.numpy()
+        self._shards = None
+        if all(r.device.type != "cuda" for r in shards):
+            self.host = shards[0].numpy() if len(shards) == 1 else \
+                torch.cat(shards).numpy()
             return
-        host = torch.empty(tuple(result.shape), dtype=result.dtype,
-                           pin_memory=True)
-        stream = torch.cuda.Stream(device=result.device)
-        stream.wait_stream(torch.cuda.current_stream(result.device))
-        with torch.cuda.stream(stream):
-            for r0 in range(0, self.rows, READBACK_ROWS):
-                r1 = min(self.rows, r0 + READBACK_ROWS)
-                host[r0:r1].copy_(result[r0:r1], non_blocking=True)
-                ev = torch.cuda.Event()
-                ev.record(stream)
-                self._events.append((r1, ev))
-        self._result = result   # alive until the copies have landed
+        host = torch.empty((self.rows,) + tuple(shards[0].shape[1:]),
+                           dtype=shards[0].dtype, pin_memory=True)
+        r0 = 0
+        for shard in shards:
+            r1 = r0 + shard.shape[0]
+            if shard.device.type != "cuda":
+                host[r0:r1].copy_(shard)
+                self._events.append((r1, None))
+            else:
+                self._copy(shard, host[r0:r1], r0)
+            r0 = r1
+        self._shards = shards   # alive until the copies have landed
         self.host = host.numpy()
+
+    def _copy(self, shard, host, r0):
+        with torch.cuda.device(shard.device):
+            stream = torch.cuda.Stream(device=shard.device)
+            stream.wait_stream(torch.cuda.current_stream(shard.device))
+            with torch.cuda.stream(stream):
+                for c0 in range(0, shard.shape[0], READBACK_ROWS):
+                    c1 = min(shard.shape[0], c0 + READBACK_ROWS)
+                    host[c0:c1].copy_(shard[c0:c1], non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record(stream)
+                    self._events.append((r0 + c1, ev))
 
     def wait(self, row_done=None) -> np.ndarray:
         """Block until every row has landed; ``row_done(host, nrows)``
@@ -215,8 +260,9 @@ class Readback:
                 row_done(self.host, self.rows)
             return self.host
         for r1, ev in self._events:
-            ev.synchronize()
+            if ev is not None:
+                ev.synchronize()
             if row_done is not None:
                 row_done(self.host, r1)
-        self._result = None
+        self._shards = None
         return self.host

@@ -11,8 +11,8 @@ All T spectrograms of a pair are computed once
 (:func:`pair_spectrograms`, on datasets in memory), then the
 upper-triangle cells are 2-D-correlated in batches on the torch device
 that ``--platform`` names (:func:`correlate_spectrograms`; ``cuda`` by
-default, raising without a card). One device only: the ``mesh=``
-arguments raise until the multi-GPU slice. The shard I/O is imported on
+default, raising without a card), or with ``mesh=`` each batch split
+over a mesh's devices (SURVEY.md §2.8 P2). The shard I/O is imported on
 use (it needs h5py).
 """
 
@@ -74,17 +74,30 @@ def init_timelapse(pair, times, freq_bands, attrs: dict = None):
     return ds
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the timelapse cells run on one device; sharding them "
-            "over GPUs is not ported to xcorr_tpu_torch yet")
-
-
 def _normed(a):
     """Frobenius-normalize over the trailing two axes."""
     n = torch.sqrt(torch.sum(a * a, dim=(-2, -1), keepdim=True))
     return a / torch.where(n == 0, torch.ones_like(n), n)
+
+
+def _cell_peaks(sp, ii, jj):
+    """Peaks and flat argmaxes of the normalized 2-D correlations of the
+    cells ``(ii, jj)`` of the stack ``sp``, on ``sp``'s device."""
+    n1, n2 = sp.shape[-2], sp.shape[-1]
+    nf = ops.fft.next_fast_len(2 * n1 - 1)
+    nl = ops.fft.next_fast_len(2 * n2 - 1)
+    a = _normed(sp[ii])
+    b = _normed(sp[jj])
+    A = torch.fft.rfft2(a, s=(nf, nl))
+    B = torch.fft.rfft2(b, s=(nf, nl))
+    r = torch.fft.irfft2(A * torch.conj(B), s=(nf, nl))
+    # fftshift both axes to linear lags
+    r = ops.cc.lag_slice_of_circular(r.movedim(-2, -1), n1, nf, 0,
+                                     2 * n1 - 1).movedim(-1, -2)
+    r = ops.cc.lag_slice_of_circular(r, n2, nl, 0, 2 * n2 - 1)
+    flat = r.reshape(r.shape[0], -1)
+    k = torch.argmax(flat, dim=-1)
+    return torch.gather(flat, -1, k[:, None])[:, 0], k
 
 
 def correlate_spectrograms(specs, i_idx, j_idx, batch: int = 64,
@@ -98,38 +111,56 @@ def correlate_spectrograms(specs, i_idx, j_idx, batch: int = 64,
     gathers both spectrograms of ``batch`` cells, normalizes them,
     correlates them through ``rfft2``/``irfft2`` at the port's
     cuFFT-fast lengths and takes the flat argmax; the last batch runs at
-    its own size. ``mesh`` raises: one device only.
+    its own size.
+
+    ``mesh`` (a :class:`..parallel.mesh.Mesh`, in place of ``device``):
+    the stack goes to each of its devices, ``batch`` is rounded to a
+    multiple of its size, as the JAX package rounds it, and each batch
+    splits into contiguous shares, one per entry, each run on the
+    entry's device; the results come back in cell order.
     """
-    _no_mesh(mesh)
-    device = resolve_device(device)
-    sp = to_device(specs, device)
-    n1, n2 = sp.shape[-2], sp.shape[-1]
-    nf = ops.fft.next_fast_len(2 * n1 - 1)
-    nl = ops.fft.next_fast_len(2 * n2 - 1)
+    if mesh is None:
+        devices = (resolve_device(device),)
+    else:
+        from ..parallel.mesh import split
+        devices = tuple(resolve_device(d) for d in mesh.devices)
+        batch = max(batch, mesh.size) // mesh.size * mesh.size
+    uniq = tuple(dict.fromkeys(devices))
+    stacks = {d: to_device(specs, d) for d in uniq}
+    ii = np.asarray(i_idx, dtype=np.int64)
+    jj = np.asarray(j_idx, dtype=np.int64)
+    cells = {d: (to_device(ii, d), to_device(jj, d)) for d in uniq}
+    n1, n2 = stacks[devices[0]].shape[-2:]
     w = 2 * n2 - 1
-    ii = to_device(np.asarray(i_idx, dtype=np.int64), device)
-    jj = to_device(np.asarray(j_idx, dtype=np.int64), device)
     ncells = ii.shape[0]
-    peaks = torch.empty(ncells, dtype=sp.dtype, device=device)
-    am = torch.empty(ncells, dtype=torch.int64, device=device)
+    # each device's outputs hold the cells its entries ran
+    peaks = {d: torch.empty(ncells, dtype=stacks[d].dtype, device=d)
+             for d in uniq}
+    am = {d: torch.empty(ncells, dtype=torch.int64, device=d)
+          for d in uniq}
+    owner = np.zeros(ncells, dtype=np.intp)   # index into uniq
     for s in range(0, ncells, batch):
-        a = _normed(sp[ii[s:s + batch]])
-        b = _normed(sp[jj[s:s + batch]])
-        A = torch.fft.rfft2(a, s=(nf, nl))
-        B = torch.fft.rfft2(b, s=(nf, nl))
-        r = torch.fft.irfft2(A * torch.conj(B), s=(nf, nl))
-        # fftshift both axes to linear lags
-        r = ops.cc.lag_slice_of_circular(r.movedim(-2, -1), n1, nf, 0,
-                                         2 * n1 - 1).movedim(-1, -2)
-        r = ops.cc.lag_slice_of_circular(r, n2, nl, 0, 2 * n2 - 1)
-        flat = r.reshape(r.shape[0], -1)
-        k = torch.argmax(flat, dim=-1)
-        am[s:s + batch] = k
-        peaks[s:s + batch] = torch.gather(flat, -1, k[:, None])[:, 0]
-    am = to_numpy(am)
-    return (to_numpy(peaks).astype(np.float32),
-            (am // w - (n1 - 1)).astype(np.int32),
-            (am % w - (n2 - 1)).astype(np.int32))
+        rows = min(batch, ncells - s)
+        parts = [(devices[0], 0, rows)] if mesh is None else \
+            split(mesh, rows)
+        for d, a, b in parts:
+            rs = slice(s + a, s + b)
+            peaks[d][rs], am[d][rs] = _cell_peaks(
+                stacks[d], cells[d][0][rs], cells[d][1][rs])
+            owner[rs] = uniq.index(d)
+    if len(uniq) == 1:
+        pk_host = to_numpy(peaks[uniq[0]]).astype(np.float32)
+        am_host = to_numpy(am[uniq[0]])
+    else:
+        pk_host = np.empty(ncells, dtype=np.float32)
+        am_host = np.empty(ncells, dtype=np.int64)
+        for k, d in enumerate(uniq):
+            mine = owner == k
+            pk_host[mine] = to_numpy(peaks[d])[mine]
+            am_host[mine] = to_numpy(am[d])[mine]
+    return (pk_host,
+            (am_host // w - (n1 - 1)).astype(np.int32),
+            (am_host % w - (n2 - 1)).astype(np.int32))
 
 
 def pair_spectrograms(datasets, times, clim=(1460.0, 1500.0),
@@ -188,8 +219,8 @@ def timelapse(pairs, times, root, freq_bands=((3.0, 6.0), (6.0, 12.0)),
               batch: int = 64, filter_kwargs: dict = None,
               mesh=None, verb: int = 1, device="cuda"):
     """Full timelapse computation for the given triggered times, from the
-    shards under ``root``, on ``device``."""
-    _no_mesh(mesh)
+    shards under ``root``, on ``device``; with ``mesh``, the cells of each
+    (pair, band) split over the mesh (:func:`correlate_spectrograms`)."""
     device = resolve_device(device)
     times = pd.DatetimeIndex(np.asarray(times))
     ds = init_timelapse(list(pairs), times.values, freq_bands, attrs)
@@ -220,7 +251,7 @@ def timelapse(pairs, times, root, freq_bands=((3.0, 6.0), (6.0, 12.0)),
             ii = [vmap[a] for a, b in cells]
             jj = [vmap[b] for a, b in cells]
             peaks, dfs, dls = correlate_spectrograms(stack, ii, jj,
-                                                     batch=batch,
+                                                     batch=batch, mesh=mesh,
                                                      device=device)
             for (a, b), pk, df_, dl_ in zip(cells, peaks, dfs, dls):
                 ds["cc2"].values[ip, ifb, a, b] = pk
