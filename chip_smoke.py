@@ -144,11 +144,41 @@ Phases, each printed on its own line; any failure exits non-zero:
    8d: peaks within 1e-5 relative of 8d's, shifts equal but for
    near-ties, checked in float64 and counted. Then phase 9's launches,
    each count reset before its run, on a line of their own, and its
-   command time.
+   command time;
+10. the four-step's ``stageb='fft'|'matmul'`` branches (n1 = 576: all
+    576 rows, N2 = 16384), ``packed``, their seq split and the
+    precision knob at day scale. (a) K2 against its plain version at
+    the branch's shapes, (16, 2, 576, 16384) and (16, 2, 288, 16384)
+    with T's rows 288-575, within 1e-5 relative, bit-identical reruns,
+    times, bounds and cuFFT's time on the same planes. (b) On phase 4's
+    16 windows, ``plan_correlate4(stageb='fft')``, ``'matmul'`` and
+    ``'fft'`` with ``packed=True``: within 1e-6 of phase 4's float64
+    oracle (packed 1e-5), the peak on the injected delay, K2's launches
+    (2 + 1, packed 1 + 1, none for ``'matmul'``), ms per window, peak
+    working memory. (c) ``precision='default'`` against ``'high'`` on
+    every route (``corr``, ``acc``, ``full``, ``fft``, ``matmul``):
+    within 1e-4 of the oracle, ms per window, outputs that differ, TF32
+    GEMM kernels (cuBLAS's by name, K3's and K4's one-pass instance) in
+    the profiler under ``'default'`` and none under ``'high'``; then
+    both TF32 switches as before and a ``'high'`` call within 1e-6.
+    (d) ``'fft'`` and ``'matmul'`` over phase 9's logical mesh as
+    ``("seq",)`` of 2 and ``("batch", "seq")`` of (1, 2): within 1e-6 of
+    unsplit (bit-identity reported), K2 per entry, the split's overhead
+    per window; ``stageb='pallas'`` with a mesh raises. (e)
+    ``XCORR_CC_PRECISION=default`` through phase 6's 4 pair-days on the
+    device engine: K1 once, statuses and peaks as phase 6, CCFs within
+    1e-4 of phase 6's warm run, the wall. Then phase 10's launches and
+    its command time. 10c reads the kernels' names with
+    ``torch.profiler`` in this process, over several sessions: after
+    minutes of a run, a session of the card's torch 2.11 may report
+    none or only some of the card's events. ``python3 chip_smoke.py --phase10`` runs phases 1, 2 (the build alone) and 10, with phase
+    4's oracle and phase 6's engine run made for it.
 
 The line before the last is the kernels' JSON record (K1's launches from
-phase 6, the others' from their route's phase-5 pair-day); the last line
-is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+phase 6, K2's from phase 10b's ``'fft'`` call, K3's and K4's from their
+route's phase-5 pair-day; K2's times, bounds and cuFFT's time from 10a
+at H = 576); the last line is ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX.
 """
 
 import importlib.util
@@ -331,10 +361,11 @@ def k1_phase_clock(fn, ff, d, shape):
                f"the clocked kernel takes {clock_ms:.4f} ms")
 
 
-def hold(ff, name, label, args, rerun=False, rtol=K_RTOL):
+def hold(ff, name, label, args, rerun=False, rtol=K_RTOL, tag=3):
     """One kernel against its plain version: error (at most ``rtol`` of
     the plain version's max), times, output; with ``rerun``, a second
-    launch on the same inputs must give the same bits."""
+    launch on the same inputs must give the same bits. Reported as phase
+    ``tag``."""
     fn, plain = getattr(ff, name), getattr(ff, name + "_plain")
     got = fn(*args)
     if rerun:
@@ -346,44 +377,61 @@ def hold(ff, name, label, args, rerun=False, rtol=K_RTOL):
     rel = err / want.abs().max().item()
     ms = median_ms(lambda: fn(*args))
     plain_ms = median_ms(lambda: plain(*args))
-    phase(3, f"{name} {label}: max_abs_err {err:.3e} rel {rel:.3e} "
-             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+    phase(tag, f"{name} {label}: max_abs_err {err:.3e} rel {rel:.3e} "
+               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
     check(rel <= rtol, f"{name} {label} rel err {rel} > {rtol}")
     return got, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def phase3_k2(ff, label, ax, ay, T):
+def phase3_k2(ff, label, ax, ay, T, rtol=K2_RTOL, library=False, tag=3):
     """K2's two launches against their plain versions at one shape
-    (within ``K2_RTOL``, bit-identical reruns), with their bounds and,
-    for context, ``torch.fft.fft`` over the same complex rows; the
-    inverse of the forward held to ``fused_corr_plain``. Returns each
-    launch's record."""
+    (within ``rtol``, bit-identical reruns), with their bounds and, for
+    context, ``torch.fft.fft`` over the same complex rows; the inverse
+    of the forward held to ``fused_corr_plain``. With ``library``, each
+    launch's cuFFT yardstick on the same planes, in its record as
+    ``library_ms``: ``torch.fft.fft`` of ``a·T`` (formed beforehand) for
+    the forward, and for the inverse the cross spectrum of the two
+    natural-order spectra plus ``torch.fft.ifft`` (the conjugate twiddle
+    left out). Returns each launch's record."""
     B, _, Hs, N2s = ax.shape
     fft = 5 * N2s * math.log2(N2s)
     rec = {}
     f, rec["stageb_fwd"] = hold(ff, "stageb_fwd", label, (ax, T),
-                                rerun=True, rtol=K2_RTOL)
+                                rerun=True, rtol=rtol, tag=tag)
     g = ff.stageb_fwd(ay, T)
     c, rec["stageb_inv"] = hold(ff, "stageb_inv", label, (f, g, T),
-                                rerun=True, rtol=K2_RTOL)
+                                rerun=True, rtol=rtol, tag=tag)
     rows = torch.complex(ax[:, 0], ax[:, 1])
     fft_ms = median_ms(lambda: torch.fft.fft(rows, dim=-1))
+    if library:
+        t = torch.complex(T[0], T[1])
+        rows *= t
+        rec["stageb_fwd"]["library_ms"] = median_ms(
+            lambda: torch.fft.fft(rows, dim=-1))
+        fx = torch.fft.fft(rows, dim=-1)
+        fy = torch.fft.fft(torch.complex(ay[:, 0], ay[:, 1]) * t, dim=-1)
+        rec["stageb_inv"]["library_ms"] = median_ms(
+            lambda: torch.fft.ifft(fx * fy.conj(), dim=-1))
+        del fx, fy, t
     del rows
     for name, in_bytes, ops in [
             ("stageb_fwd", nbytes(ax, T), B * Hs * (fft + 6 * N2s)),
             ("stageb_inv", nbytes(f, g, T), B * Hs * (fft + 14 * N2s))]:
         r = rec[name]
         r["bound_ms"], r["bound_by"], _ = bound(in_bytes, nbytes(ax), ops)
-        phase(3, f"{name} {label}: bound {r['bound_ms']:.4f} ms by "
-                 f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% "
-                 f"of bound), two launches bit-identical; torch.fft.fft "
-                 f"over the same {B * Hs} complex rows {fft_ms:.4f} ms")
+        lib = (f"; cuFFT on the same planes {r['library_ms']:.4f} ms"
+               if library else "")
+        phase(tag, f"{name} {label}: bound {r['bound_ms']:.4f} ms by "
+                   f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% "
+                   f"of bound), two launches bit-identical; torch.fft.fft "
+                   f"over the same {B * Hs} complex rows {fft_ms:.4f} ms"
+                   + lib)
     want = ff.fused_corr_plain(ax, ay, T)
     err = ((c - want).abs().max() / want.abs().max()).item()
     same = torch.equal(c, ff.fused_corr(ax, ay, T))
-    phase(3, f"stageb_inv of stageb_fwd {label}: {err:.3e} of max "
-             f"|fused_corr_plain| (bar {K_RTOL}); bit-identical to "
-             f"fused_corr: {same}")
+    phase(tag, f"stageb_inv of stageb_fwd {label}: {err:.3e} of max "
+               f"|fused_corr_plain| (bar {K_RTOL}); bit-identical to "
+               f"fused_corr: {same}")
     check(err <= K_RTOL, f"K2 {label}: inverse of the forward {err} from "
                          f"fused_corr_plain > {K_RTOL}")
     return rec
@@ -490,8 +538,9 @@ def ptxas_summary(unit, report, ff):
     """Lines for one unit: the row chain's instances without the phase
     clock (K2: its forward and its inverse) at N2 = 8192 and 16384
     (registers, spills, the block's dynamic shared memory: a row, pass
-    twiddles, exchange buffer), or the product's two instances (B in
-    16-byte copies, as at the pair-day's shapes, or in 4-byte ones)."""
+    twiddles, exchange buffer), or the product's four instances (B in
+    16-byte copies, as at the pair-day's shapes, or in 4-byte ones;
+    three TF32 passes or one)."""
     lines = []
     for name, (regs, frame) in sorted(ptxas_entries(report).items()):
         m = re.search(r"(fused_corr|stageb)_kernelILi(\d+)ELb([01])E", name)
@@ -504,13 +553,13 @@ def ptxas_summary(unit, report, ff):
                 + 4 * (n + n // 32)
             lines.append(f"{what}, N2 = {n}: {regs} registers, {frame}, "
                          f"{smem} bytes of dynamic shared memory")
-        m = re.search(r"gemm_tf32_kernelILb([01])E", name)
+        m = re.search(r"gemm_tf32_kernelILb([01])ELi([13])E", name)
         if m:
             copies = "16-byte" if m.group(1) == "1" else "4-byte"
-            lines.append(f"product, B in {copies} copies: {regs} "
-                         f"registers, {frame}, {GEMM_SMEM} bytes of "
-                         f"dynamic shared memory")
-    check(len(lines) == (4 if unit == "K2" else 2),
+            lines.append(f"product, B in {copies} copies, {m.group(2)} "
+                         f"TF32 pass(es): {regs} registers, {frame}, "
+                         f"{GEMM_SMEM} bytes of dynamic shared memory")
+    check(len(lines) == (4 if unit in ("K2", "K3/K4 product") else 2),
           f"ptxas report of {unit}: {lines}")
     return lines
 
@@ -546,19 +595,31 @@ def f64_oracle(x, y, imin, imax):
     return r[idx] / (np.linalg.norm(x) * np.linalg.norm(y))
 
 
+def day_windows(B=16):
+    """Phase 4's ``B`` seeded day-scale windows on the card: noise ``x``
+    and ``y``, its copy ``DELAY`` earlier plus half as much noise."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((B, N), generator=gen, device="cuda")
+    y = torch.roll(x, -int(DELAY * FS), dims=1) + \
+        0.5 * torch.randn((B, N), generator=gen, device="cuda")
+    return x, y
+
+
+def day_oracle(x, y, imin, imax):
+    """The float64 oracle of the first two windows."""
+    xh = x[:2].double().cpu().numpy()
+    yh = y[:2].double().cpu().numpy()
+    return [f64_oracle(xh[i], yh[i], imin, imax) for i in range(2)]
+
+
 def phase4_correlate(ff, cc, fft4, imin, imax):
     """Day-scale correlate, once per route; the K1 route's split at its
     default geometry and at n1 = 1056. Returns the float64 oracle of the
     first two windows."""
     B = 16
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    x = torch.randn((B, N), generator=gen, device="cuda")
+    x, y = day_windows(B)
     shift = int(DELAY * FS)
-    y = torch.roll(x, -shift, dims=1) + \
-        0.5 * torch.randn((B, N), generator=gen, device="cuda")
-    xh = x[:2].double().cpu().numpy()
-    yh = y[:2].double().cpu().numpy()
-    oracle = [f64_oracle(xh[i], yh[i], imin, imax) for i in range(2)]
+    oracle = day_oracle(x, y, imin, imax)
 
     def corr():
         return cc.correlate(x, y, index_min=imin, index_max=imax)
@@ -656,7 +717,8 @@ def _finish(fft4, plan, flat, x, y):
 def phase5_pair_days(xt, ff):
     """One production-geometry pair-day through process per route;
     returns each kernel's launches on its route's path. K2 is on no
-    route: every run below checks that it launched no time."""
+    kernel route (it is the 'fft' branch's, phase 10): every run below
+    checks that it launched no time."""
     from xcorr_tpu_torch.stream import Channel, Inventory, SyntheticClient
     from torch.profiler import ProfilerActivity, profile
     inv = Inventory([
@@ -1882,11 +1944,8 @@ def phase9a_sharded(ff, cc, mesh, imin, imax, oracle):
     from xcorr_tpu_torch.parallel import sharded_correlate
     from xcorr_tpu_torch.parallel.pipeline import Readback
     B = 16
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    x = torch.randn((B, N), generator=gen, device="cuda")
+    x, y = day_windows(B)
     shift = int(DELAY * FS)
-    y = torch.roll(x, -shift, dims=1) + \
-        0.5 * torch.randn((B, N), generator=gen, device="cuda")
     oracle = dict(enumerate(oracle))
     oracle[8] = f64_oracle(x[8].double().cpu().numpy(),
                            y[8].double().cpu().numpy(), imin, imax)
@@ -2135,7 +2194,334 @@ def phase9d_timelapse(mesh, p8):
 
 
 
-def main():
+#: phase 10: the four-step's XLA-form branches (plan keywords)
+P10_BRANCHES = {"fft": {"stageb": "fft"}, "matmul": {"stageb": "matmul"},
+                "packed": {"stageb": "fft", "packed": True}}
+#: phase 10c: every route of the four-step (plan keywords)
+P10_ROUTES = {"corr": {"route": "corr"}, "acc": {"route": "acc"},
+              "full": {"route": "full"}, "fft": {"stageb": "fft"},
+              "matmul": {"stageb": "matmul"}}
+PACKED_ATOL = 1e-5       # packed branch vs float64: |Z|^2 differences
+DEFAULT_ATOL = 1e-4      # precision='default' (TF32) vs float64
+#: cuBLAS's TF32 GEMM kernels, by name (the port's own gemm_tf32_kernel
+#: instances are told apart by their pass count)
+TF32_GEMM = re.compile(r"tf32|1688|16816", re.I)
+#: profiler sessions of 10c per call: at most under 'default' (until a
+#: TF32 GEMM is named), always under 'high' (none may be)
+P10_DEFAULT_SESSIONS, P10_HIGH_SESSIONS = 20, 5
+
+
+def ccf_err(out, oracle):
+    """Max abs error of the first two windows against their oracle."""
+    oh = out[:2].double().cpu().numpy()
+    return max(float(np.abs(oh[i] - oracle[i]).max()) for i in range(2))
+
+
+def phase10a_k2(ff, plan):
+    """K2 against its plain version at the 'fft' branch's day-scale
+    shapes: (16, 2, 576, 16384) with all of T, and (16, 2, 288, 16384)
+    with T's rows 288-575 (a 2-way seq split's second entry), within
+    K_RTOL, bit-identical reruns, times, bounds and cuFFT's time on the
+    same planes. Returns the full shape's record."""
+    rec = None
+    dev = torch.device("cuda", 0)
+    for lo in (0, plan.N1 // 2):
+        H = plan.N1 - lo
+        T = plan.row_consts(dev, lo, plan.N1)[1]
+        d = kernel_inputs(16, H, plan.N2, 8, 5, SEED + lo, (None, None, T))
+        label = f"(16, 2, {H}, {plan.N2}) T rows {lo}-{plan.N1 - 1}"
+        r = phase3_k2(ff, label, d["ax"], d["ay"], T, rtol=K_RTOL,
+                      library=True, tag=10)
+        rec = rec or r
+        del d, T
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase10b_branches(ff, fft4, x, y, imin, imax, oracle):
+    """The 'fft', 'matmul' and packed branches on phase 4's 16 windows:
+    error against the float64 oracle (CCF_ATOL; packed PACKED_ATOL), the
+    peak on the injected delay, K2's launches (2 + 1; packed 1 + 1; none
+    for 'matmul'), ms per window, peak working memory. Returns K2's
+    launches on the 'fft' branch."""
+    B = x.shape[0]
+    launches = None
+    for label, kw in P10_BRANCHES.items():
+        plan = fft4.plan_correlate4(N, imin, imax, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ff.reset_launches()
+        out = plan(x, y)
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        counts = {k: v for k, v in ff.launches.items() if v}
+        want = {} if label == "matmul" else {
+            "stageb_fwd": 1 if label == "packed" else 2, "stageb_inv": 1}
+        check(counts == want, f"10b {label}: launched {counts}, expected "
+                              f"{want}")
+        check(tuple(out.shape) == (B, imax - imin)
+              and bool(torch.isfinite(out).all()), f"10b {label}: result")
+        err = ccf_err(out, oracle)
+        limit = PACKED_ATOL if label == "packed" else CCF_ATOL
+        check(err <= limit, f"10b {label}: CCF error {err} > {limit}")
+        peak = int(out[0].argmax()) + imin - (N - 1)
+        check(peak == int(DELAY * FS), f"10b {label}: peak at {peak}")
+        del out
+        ms = median_ms(lambda: plan(x, y), 5) / B
+        plane = B * 2 * plan.N1 * plan.N2 * 4 / 1e9
+        phase(10, f"10b stageb={kw['stageb']}"
+                  f"{' packed' if label == 'packed' else ''}: {B} x {N}, "
+                  f"N1={plan.N1} (all rows) N2={plan.N2}: max abs vs f64 "
+                  f"{err:.3e} (limit {limit}), {ms:.4f} ms per window, "
+                  f"launches {counts}, peak working memory {peak_gb:.2f} GB "
+                  f"({peak_gb / plane:.1f} planes of {plane:.2f} GB)")
+        if label == "fft":
+            launches = dict(counts)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def device_kernels(fn, done, tries):
+    """``(names, sessions)``: the names of the kernels and copies the card
+    ran in ``fn()``, read by ``torch.profiler`` (CPU and CUDA activity)
+    in new sessions, gathered until ``done(names)`` holds or ``tries``
+    sessions have run, and the number of sessions. After minutes of a
+    run, a session of the card's torch 2.11 may report none or only
+    some of the card's events (PERF.md section 7)."""
+    from torch.profiler import ProfilerActivity, profile
+    card = torch.autograd.DeviceType.CUDA
+    names = set()
+    for n in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names |= {e.key for e in prof.key_averages() if e.device_type == card}
+        if done(names):
+            break
+    return sorted(names), n
+
+
+def tf32_gemm(name):
+    """Whether kernel ``name`` is a one-pass TF32 product: cuBLAS's TF32
+    GEMM, or K3's and K4's product with one pass (its three-pass
+    instance is ``'high'``'s)."""
+    if "gemm_tf32_kernel" in name:
+        return ", 1>" in name
+    return bool(TF32_GEMM.search(name))
+
+
+def day_lags(xt):
+    """``(index_min, index_max)`` of the production lag window of a 24 h
+    window at 50 Hz, 0-9 h."""
+    ds = xt.init(pair=PAIR, starttime="2014-02-01",
+                 endtime="2014-02-01T03:00", preprocess={"EDH": EDH},
+                 attrs={"institution": "x", "author": "x", "source": "x"},
+                 sampling_rate=FS, window_length=WINDOW,
+                 window_overlap=21.0 / 24.0, clip_lag=CLIP_LAG)
+    lag = ds.coords["lag"].attrs
+    return int(lag["index_min"]), int(lag["index_max"])
+
+
+def phase10c_precision(fft4, x, y, imin, imax, oracle):
+    """precision='default' against 'high' on every route: errors against
+    the oracle (CCF_ATOL and DEFAULT_ATOL), ms per window, outputs that
+    differ, TF32 GEMMs by kernel name under 'default' and none under
+    'high', read in this process (:func:`device_kernels`); then the TF32
+    switches as they were and a 'high' call still within CCF_ATOL."""
+    B = x.shape[0]
+    switches = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+    sessions = {}
+    for name, kw in P10_ROUTES.items():
+        res = {}
+        for prec in ("high", "default"):
+            plan = fft4.plan_correlate4(N, imin, imax, precision=prec, **kw)
+            out = plan(x, y)
+            if prec == "default":
+                keys, n = device_kernels(
+                    lambda: plan(x, y),
+                    lambda ks: any(map(tf32_gemm, ks)),
+                    P10_DEFAULT_SESSIONS)
+            else:
+                keys, n = device_kernels(lambda: plan(x, y),
+                                         lambda ks: False, P10_HIGH_SESSIONS)
+            sessions[f"{name} {prec}"] = n
+            tf32 = [k for k in keys if tf32_gemm(k)]
+            res[prec] = (out, ccf_err(out, oracle),
+                         median_ms(lambda: plan(x, y), 5) / B,
+                         [k for k in tf32 if "gemm_tf32_kernel" not in k],
+                         [k for k in tf32 if "gemm_tf32_kernel" in k], keys)
+        (oh, eh, mh, ch, nh, kh), (od, ed, md, cd, nd, kd) = (
+            res["high"], res["default"])
+        diff = (oh - od).abs().max().item()
+        if not (cd or nd) or ch or nh:
+            phase(10, f"10c {name}: GEMMs named under 'high' "
+                      f"{[k[:60] for k in kh if 'gemm' in k.lower()]}; "
+                      f"under 'default' "
+                      f"{[k[:60] for k in kd if 'gemm' in k.lower()]}")
+        check(any("gemm" in k.lower() for k in kh),
+              f"10c {name}: the profiler named no GEMM under 'high' in "
+              f"{P10_HIGH_SESSIONS} sessions")
+        check(eh <= CCF_ATOL, f"10c {name} 'high': CCF error {eh}")
+        check(ed <= DEFAULT_ATOL, f"10c {name} 'default': CCF error {ed} > "
+                                  f"{DEFAULT_ATOL}")
+        check(diff > 0, f"10c {name}: 'default' equals 'high'")
+        check(bool(cd or nd), f"10c {name}: no TF32 GEMM under 'default'")
+        check(not ch and not nh, f"10c {name}: TF32 GEMMs under 'high': "
+                                 f"{ch + nh}")
+        phase(10, f"10c {name}: 'high' max abs vs f64 {eh:.3e}, {mh:.4f} ms "
+                  f"per window; 'default' {ed:.3e} (limit {DEFAULT_ATOL}), "
+                  f"{md:.4f} ms per window ({mh / md:.2f}x); max |default - "
+                  f"high| {diff:.3e}; TF32 GEMMs under 'default': cuBLAS "
+                  f"{[k[:60] for k in cd]}, one-pass gemm_tf32_kernel "
+                  f"{len(nd)}; under 'high': none")
+        del res, oh, od
+    phase(10, f"10c profiler sessions read by route and precision "
+              f"('default': until a TF32 GEMM was named): {sessions}")
+    now = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    check(now == switches, f"10c: TF32 switches {switches} -> {now}")
+    err = ccf_err(fft4.plan_correlate4(N, imin, imax, route="corr")(x, y),
+                  oracle)
+    check(err <= CCF_ATOL, f"10c: 'high' after 'default': {err}")
+    phase(10, f"10c after the 'default' calls: TF32 switches (matmul, "
+              f"cudnn) {now}, as before; a 'high' corr call {err:.3e} from "
+              f"f64")
+    torch.cuda.empty_cache()
+
+
+def phase10d_mesh(ff, fft4, x, y, imin, imax, oracle):
+    """The 'fft' and 'matmul' branches on phase 4's windows over the
+    logical mesh as ("seq",) of 2 and ("batch", "seq") of (1, 2): within
+    CCF_ATOL of unsplit (bit-identity reported) and of the float64
+    oracle, K2's launches per entry, the split's overhead per window;
+    stageb='pallas' with a mesh raises. Returns the launches."""
+    from xcorr_tpu_torch.parallel import make_mesh
+    B = x.shape[0]
+    meshes = {"('seq',) of 2": make_mesh(devices=MESH_DEVICES,
+                                         axis_names=("seq",)),
+              "('batch', 'seq') of (1, 2)": make_mesh(
+                  devices=MESH_DEVICES, axis_names=("batch", "seq"),
+                  shape=(1, 2))}
+    launches = {}
+    for stageb in ("fft", "matmul"):
+        one = fft4.plan_correlate4(N, imin, imax, stageb=stageb)
+        want = one(x, y)
+        t_one = median_ms(lambda: one(x, y), 5)
+        for label, mesh in meshes.items():
+            plan = fft4.plan_correlate4(N, imin, imax, stageb=stageb,
+                                        mesh=mesh)
+            ff.reset_launches()
+            got = plan(x, y)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in ff.launches.items() if v}
+            expect = {} if stageb == "matmul" else {
+                "stageb_fwd": 2 * mesh.size, "stageb_inv": mesh.size}
+            check(counts == expect, f"10d {stageb} {label}: launched "
+                                    f"{counts}, expected {expect}")
+            diff = (got - want).abs().max().item()
+            check(diff <= CCF_ATOL, f"10d {stageb} {label}: {diff} from "
+                                    "unsplit")
+            err = ccf_err(got, oracle)
+            check(err <= CCF_ATOL, f"10d {stageb} {label}: CCF error {err}")
+            t = median_ms(lambda: plan(x, y), 5)
+            phase(10, f"10d stageb={stageb} mesh {label} on {MESH_DEVICES}: "
+                      f"launches {counts}, max |split - unsplit| "
+                      f"{diff:.3e} (bit-identical: {diff == 0.0}), max abs "
+                      f"vs f64 {err:.3e} (unsplit "
+                      f"{ccf_err(want, oracle):.3e}); ms per window split "
+                      f"{t / B:.4f}, unsplit {t_one / B:.4f} (overhead "
+                      f"{(t - t_one) / B:+.4f})")
+            launches[f"10d {stageb} {label}"] = counts
+            del got
+        del want
+    try:
+        fft4.plan_correlate4(N, imin, imax, mesh=meshes["('seq',) of 2"])
+        fail("10d: stageb='pallas' with a mesh did not raise")
+    except ValueError as e:
+        check("single-chip" in str(e), f"10d: {e}")
+        phase(10, f"10d stageb='pallas' with a mesh raises: {e}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def engine_run(xt, ff, precision=None):
+    """Phase 6's 4 pair-days through ``device_process_bulk`` +
+    ``finalize`` with ``XCORR_CC_PRECISION`` set to ``precision`` (unset
+    for None): the datasets, wall seconds and launches."""
+    from xcorr_tpu_torch.parallel.engine import device_process_bulk
+    inv, client, days, dataset = engine_setup(xt)
+    dss = [dataset(d) for d in days]
+    if precision is not None:
+        os.environ["XCORR_CC_PRECISION"] = precision
+    try:
+        ff.reset_launches()
+        t0 = time.perf_counter()
+        finalize, fallback = device_process_bulk(dss, client, inventory=inv,
+                                                 verb=0, device="cuda")
+        finalize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("XCORR_CC_PRECISION", None)
+    check(not fallback, f"engine fell back: {fallback}")
+    return dss, wall, {k: v for k, v in ff.launches.items() if v}
+
+
+def phase10e_engine(xt, ff, ref, ref_wall):
+    """``XCORR_CC_PRECISION=default`` through phase 6's device engine on
+    its 4 pair-days: K1 once, statuses and peaks as phase 6, CCFs against
+    the 'high' run ``ref`` (within DEFAULT_ATOL, reported), the warm
+    wall. Returns the launches."""
+    dss, wall, counts = engine_run(xt, ff, "default")
+    check(counts == {"fused_corr": 1}, f"10e: launched {counts}")
+    diff = 0.0
+    for d, (cc_ref, status_ref) in zip(dss, ref):
+        check(np.array_equal(d["status"].values, status_ref),
+              f"10e: statuses {d['status'].values.tolist()}")
+        ccv = d["cc"].values
+        check(bool(np.isfinite(ccv).all()), "10e: non-finite CCF")
+        lag = d.coords["lag"].values
+        peaks = [float(lag[int(np.argmax(ccv[0, i]))])
+                 for i in range(ccv.shape[1])]
+        check(all(abs(p - DELAY) < 1.0 / FS + 1e-9 for p in peaks),
+              f"10e: CCF peaks {peaks} s")
+        diff = max(diff, float(np.abs(ccv - cc_ref).max()))
+    check(0 < diff <= DEFAULT_ATOL, f"10e: CCFs {diff} from 'high'")
+    phase(10, f"10e XCORR_CC_PRECISION=default, device_process_bulk of "
+              f"{len(dss)} pair-days: {wall:.2f} s wall ('high', phase 6 "
+              f"warm: {ref_wall:.2f} s), launches {counts}, statuses "
+              f"equal, peaks on the delay, max |CCF - 'high'| {diff:.3e}")
+    return counts
+
+
+def phase10(xt, ff, fft4, imin, imax, oracle, ref, ref_wall):
+    """The four-step's 'fft' and 'matmul' branches, packed, their seq
+    split and the precision knob at day scale (10a-10e). Returns K2's
+    record at the branch's shape, its launches on the 'fft' branch and
+    the phase's launches by part."""
+    plan = fft4.plan_correlate4(N, imin, imax, stageb="fft")
+    check((plan.N1, plan.N2) == (576, 16384),
+          f"'fft' geometry {(plan.N1, plan.N2)}")
+    rec = phase10a_k2(ff, plan)
+    x, y = day_windows()
+    k2 = phase10b_branches(ff, fft4, x, y, imin, imax, oracle)
+    phase10c_precision(fft4, x, y, imin, imax, oracle)
+    path = {"10b fft": k2}
+    path.update(phase10d_mesh(ff, fft4, x, y, imin, imax, oracle))
+    del x, y
+    torch.cuda.empty_cache()
+    path["10e engine"] = phase10e_engine(xt, ff, ref, ref_wall)
+    return rec, k2, path
+
+
+def main(only10=False):
+    """The smoke run; with ``only10``, phases 1 and 2 (the build alone)
+    and phase 10, its references made afresh."""
     t_start = time.perf_counter()
     # -- 1. the card ---------------------------------------------------
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -2155,7 +2541,7 @@ def main():
 
     # -- 2. build ----------------------------------------------------------
     tmp = tempfile.TemporaryDirectory()
-    ptxas = {unit: subprocess.Popen(
+    ptxas = {} if only10 else {unit: subprocess.Popen(
         [_build._nvcc(), *_build._FLAGS, "-Xptxas", "-v", "-c", "-o",
          os.path.join(tmp.name, f"{i}.o"), str(_build._CSRC / src)],
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
@@ -2164,6 +2550,8 @@ def main():
     lib = _build.load()
     phase(2, f"kernels built in {_build.build_seconds:.2f} s "
              f"(load {time.perf_counter() - t0:.2f} s)")
+    if only10:
+        return main_phase10(xt, ff, fft4, t_start)
     for unit, proc in ptxas.items():
         report = proc.communicate()[1]
         check(proc.returncode == 0, f"nvcc -Xptxas -v of {unit} failed: "
@@ -2172,13 +2560,14 @@ def main():
             phase(2, f"{unit} ptxas, {line}")
     tmp.cleanup()
     hmma, forms = tf32_hmma(_build._library_path(), _build._nvcc())
+    # four instances: B's copies in 16 or 4 bytes, three passes or one
     gemm = {k: v for k, v in hmma.items() if "gemm_tf32_kernel" in k}
-    check(len(gemm) == 2 and min(gemm.values()) > 0,
+    check(len(gemm) == 4 and min(gemm.values()) > 0,
           f"TF32 HMMA per product instance: {gemm} (forms {forms})")
     phase(2, f"TF32 HMMA in the library's SASS: K3's and K4's product "
              f"(gemm_tf32.cu) {sum(gemm.values())} in {len(gemm)} "
-             f"instances ({', '.join(str(v) for v in gemm.values())}); "
-             f"elsewhere {sum(hmma.values()) - sum(gemm.values())}; HMMA "
+             f"instances ({', '.join(f'{k}: {v}' for k, v in gemm.items())}"
+             f"); elsewhere {sum(hmma.values()) - sum(gemm.values())}; HMMA "
              f"forms {forms}")
 
     # -- 3. every kernel against its plain version ------------------------
@@ -2246,6 +2635,7 @@ def main():
              "visible; both entries run on cuda:0, one after the other, "
              "so the times below are the split's overhead, not a "
              "multi-card speed")
+    t9 = time.perf_counter()
     path = {f"9a {route}": v for route, v in phase9a_sharded(
         ff, cc, mesh, imin, imax, oracle).items()}
     path["9b engine"] = phase9b_mesh_engine(xt, ff, mesh, engine_ref,
@@ -2258,9 +2648,20 @@ def main():
     t9_end = time.perf_counter()
     phase(9, "launches on this slice's path, each count reset just before "
              "its run and read just after: " + json.dumps(path))
-    phase(9, f"command time: 9a-9b {t9c - t_end:.1f} s, 9c "
+    phase(9, f"command time: 9a-9b {t9c - t9:.1f} s, 9c "
              f"{t9d - t9c:.1f} s, 9d {t9_end - t9d:.1f} s, phase 9 "
-             f"{t9_end - t_end:.1f} s, all {t9_end - t_start:.1f} s")
+             f"{t9_end - t9:.1f} s, all {t9_end - t_start:.1f} s")
+
+    # -- 10. the four-step's 'fft'/'matmul' branches, mesh=, precision -----
+    k2_rec, k2, path10 = phase10(xt, ff, fft4, imin, imax, oracle,
+                                 engine_ref, engine_wall)
+    rec.update(k2_rec)
+    launches.update(k2)
+    t10_end = time.perf_counter()
+    phase(10, "launches on this slice's path, each count reset just before "
+              "its run and read just after: " + json.dumps(path10))
+    phase(10, f"command time: phase 10 {t10_end - t9_end:.1f} s, all "
+              f"{t10_end - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": name,
@@ -2273,15 +2674,34 @@ def main():
         "plain_ms": rec[name]["plain_ms"],
         "bound_ms": rec[name]["bound_ms"],
         "bound_by": rec[name]["bound_by"],
-        "library_ms": None,
+        "library_ms": rec[name].get("library_ms"),
     } for name in ff.KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
+def main_phase10(xt, ff, fft4, t_start):
+    """Phase 10 alone (``--phase10``), after the build: the lag window,
+    phase 4's oracle and phase 6's 'high' engine run made here."""
+    imin, imax = day_lags(xt)
+    x, y = day_windows()
+    oracle = day_oracle(x, y, imin, imax)
+    del x, y
+    engine_run(xt, ff)
+    dss, ref_wall, _ = engine_run(xt, ff)
+    ref = [(d["cc"].values.copy(), d["status"].values.copy()) for d in dss]
+    t0 = time.perf_counter()
+    _, _, path = phase10(xt, ff, fft4, imin, imax, oracle, ref, ref_wall)
+    phase(10, "launches, each count reset just before its run and read "
+              "just after: " + json.dumps(path))
+    phase(10, f"phase 10 alone passed: phase 10 "
+              f"{time.perf_counter() - t0:.1f} s, all "
+              f"{time.perf_counter() - t_start:.1f} s")
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
         worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     else:
-        main()
+        main(only10=sys.argv[1:2] == ["--phase10"])

@@ -16,7 +16,12 @@ Tolerances:
   while one TF32 pass is over 100 times worse;
 - the ``acc`` and ``full`` routes with their products emulated, at
   n = 100,000 (n1 = 16, N2 = 16384): 1e-6 abs of the float64 oracle, the
-  repository's bar for normalized CCFs.
+  repository's bar for normalized CCFs;
+- the same routes at ``precision='default'`` (one TF32 pass, ``hi·hi``,
+  the plain versions' ``passes=1``): within 2^-11 of the largest
+  |CCF| of the float64 oracle (TF32's unit roundoff: each operand of the
+  one product is rounded by up to 2^-11 of itself), and unequal to
+  ``'high'``.
 """
 import numpy as np
 import pytest
@@ -27,6 +32,8 @@ from xcorr_tpu_torch.ops import fused_fft
 
 N_LONG = 100_000
 ATOL_LONG = 1e-6
+#: TF32's unit roundoff (10 mantissa bits, round to nearest)
+TF32_U = 2.0 ** -11
 
 
 def tf32(a):
@@ -127,3 +134,56 @@ def test_route_through_split_products_within_1e6_of_f64(route):
     np.testing.assert_allclose(got, oracle, rtol=0, atol=ATOL_LONG)
     np.testing.assert_allclose(got, plan(xt, yt).numpy(), rtol=0,
                                atol=ATOL_LONG)
+
+
+def test_one_pass_plain_product_is_one_tf32_product():
+    """K3's and K4's plain versions with ``passes=1`` round both operands
+    as this emulation does and multiply once; ``passes=3`` is float32."""
+    a = torch.from_numpy(_day_scale_operand("inverse").astype(np.float32))
+    b = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(a.shape[1], 64)).astype(np.float32))
+    assert torch.equal(fused_fft.tf32_round(b), tf32(b))
+    assert torch.equal(fused_fft._product(a, b, 1),
+                       torch.matmul(tf32(a), tf32(b)))
+    assert torch.equal(fused_fft._product(a, b, 3), torch.matmul(a, b))
+    with pytest.raises(ValueError, match="passes"):
+        fused_fft.fused_corr_acc(*(torch.zeros(1, 2, 3, 8),) * 2,
+                                 torch.zeros(2, 3, 8), torch.zeros(2, 6), 2)
+
+
+@pytest.mark.parametrize("route", ["acc", "full"])
+def test_default_precision_route_is_one_pass_within_1e4_of_f64(route):
+    """``precision='default'`` on the ``acc`` and ``full`` routes is the
+    route's arithmetic with one-TF32-pass products (the pruned inverse's
+    1/N1 applied after them): it equals that emulation, stays within
+    TF32's unit roundoff of float64's peak and differs from
+    ``'high'``."""
+    from xcorr_tpu.util.cc import cc as cc_f64
+    imin, imax = 95_000, 105_000
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2, N_LONG)).astype(np.float32)
+    y = (np.roll(x, 40, axis=1)
+         + 0.5 * rng.normal(size=(2, N_LONG))).astype(np.float32)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    plan = tfft4.plan_correlate4(N_LONG, imin, imax, route=route,
+                                 precision="default")
+    w1, wi, t = plan.device_consts("cpu")
+    shape = (2, 2, plan.half, plan.N2)
+    if route == "full":
+        ax = torch.matmul(tf32(w1), tf32(plan.padded(xt))).view(shape)
+        ay = torch.matmul(tf32(w1), tf32(plan.padded(yt))).view(shape)
+    else:
+        ax, ay = plan.stage_a(xt, w1), plan.stage_a(yt, w1)
+    c = fused_fft.fused_corr_plain(ax, ay, t)
+    out = torch.matmul(tf32(wi), tf32(c.view(2, 2 * plan.half, plan.N2)))
+    want = tfft4._finish_ccf(out.view(2, -1), xt, yt, plan.segs_flat, True,
+                             plan.scale)
+    got = plan(xt, yt)
+    assert torch.equal(got, want)
+    oracle = np.stack([cc_f64(x[i].astype(np.float64),
+                              y[i].astype(np.float64),
+                              unbiased=False)[imin:imax] for i in range(2)])
+    np.testing.assert_allclose(got.numpy(), oracle, rtol=0,
+                               atol=TF32_U * np.abs(oracle).max())
+    high = tfft4.plan_correlate4(N_LONG, imin, imax, route=route)(xt, yt)
+    assert not torch.equal(got, high)

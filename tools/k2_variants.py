@@ -120,7 +120,7 @@ def build(found):
             sys.exit(f"nvcc of {name} failed: {err[-3000:]}")
         lib = ctypes.CDLL(os.path.join(OUT, str(i), "lib.so"))
         for fn, sig in (("xc_stageb_fwd", "ppppiiiip"),
-                        ("xc_stageb_inv", "pppppiiiip")):
+                        ("xc_stageb_inv", "pppppiiiiip")):
             getattr(lib, fn).argtypes = [
                 ctypes.c_void_p if k == "p" else ctypes.c_int for k in sig]
         libs[name] = lib
@@ -151,7 +151,7 @@ def main():
                 B, H, N2, lg, stream), f, nbytes_bound(ax, T)),
             "inv": (lambda lib: lib.xc_stageb_inv(
                 f.data_ptr(), g.data_ptr(), T.data_ptr(), tw.data_ptr(),
-                out.data_ptr(), B, H, N2, lg, stream), c,
+                out.data_ptr(), B, H, N2, lg, 1, stream), c,
                 nbytes_bound(f, g, T))}
         for which, (call, want, bound_ms) in calls.items():
             for name, lib in libs.items():

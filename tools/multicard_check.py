@@ -32,7 +32,16 @@ current device throughout:
    are the default stream, whose handle (0) names no card: a launch
    made with card 0 current runs on card 0, reaches card 1's memory
    over peer access and is not ordered with card 1's stream, so this
-   check fails without the wrappers' guard.
+   check fails without the wrappers' guard;
+6. the four-step's sequence-parallel split (``ops.fft4.plan_correlate4(
+   stageb='fft', mesh=)``) of 8 day-scale windows on card 1 over
+   ``("batch", "seq")`` meshes of every card, shapes (1, 4) and (2, 2)
+   on four cards: K2 twice forward and once inverse on each card (one
+   seq entry each), the partial pruned inverses summed on each batch
+   share's first card, the result gathered onto card 1 and read there
+   at once while card 0, the current device and the first share's
+   summing card, spins as in step 5; within 1e-6 of the unsplit plan on
+   card 1 (bit-identity reported) and of the float64 oracle.
 
 Each comparison reports its max |diff| and whether the bits agree;
 CCFs must agree within 1e-6. Exits non-zero on any failure. Last, after
@@ -43,7 +52,8 @@ error read straight after the launch and again once card 0 has
 finished: the fault the guard repairs. ``--step5`` runs step 5 alone,
 from the root of any tree of the repository (the package and
 ``chip_smoke.py`` are imported from the working directory), and exits
-non-zero when it fails. This checks where the work runs and what it
+non-zero when it fails; ``--step6`` runs step 6 alone. This checks
+where the work runs and what it
 gives, not how fast: the only times it prints are step 4's, which are
 not a benchmark.
 """
@@ -102,14 +112,7 @@ def main():
     cs.check(torch.cuda.current_device() == 0, "the current device moved")
 
     # 2. sharded_correlate over the cards, once per route
-    ds = xt.init(pair=cs.PAIR, starttime="2014-02-01",
-                 endtime="2014-02-01T03:00", preprocess={"EDH": cs.EDH},
-                 attrs={"institution": "x", "author": "x", "source": "x"},
-                 sampling_rate=cs.FS, window_length=cs.WINDOW,
-                 window_overlap=21.0 / 24.0, clip_lag=cs.CLIP_LAG)
-    lag = ds.coords["lag"].attrs
-    lags = dict(index_min=int(lag["index_min"]),
-                index_max=int(lag["index_max"]))
+    lags = day_lags(xt)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     x = torch.randn((16, cs.N), generator=gen, device="cuda")
     y = torch.roll(x, -int(cs.DELAY * cs.FS), dims=1) + \
@@ -167,6 +170,9 @@ def main():
 
     # 5. card 1's launches read at once while card 0 is busy
     step5(calls, plains, d0)
+
+    # 6. the four-step's seq split over the cards
+    step6(ff, lags)
     print("ok", flush=True)
     out = subprocess.run([sys.executable, os.path.abspath(__file__),
                           "--unguarded"], capture_output=True, text=True,
@@ -259,6 +265,63 @@ def step5(calls, plains, d0):
                                        f"once: rel err {at_once}")
 
 
+def day_lags(xt):
+    """The production lag window of a 24 h window at 50 Hz, 0-9 h, as
+    keywords."""
+    return dict(zip(("index_min", "index_max"), cs.day_lags(xt)))
+
+
+def step6(ff, lags):
+    """Step 6: the 'fft' branch's seq split over every card, read at once
+    on card 1 while card 0 spins."""
+    from xcorr_tpu_torch.ops import fft4
+    from xcorr_tpu_torch.parallel import make_mesh
+    ncard = torch.cuda.device_count()
+    x, y = (v.to("cuda:1") for v in cs.day_windows(8))
+    oracle = cs.day_oracle(x, y, lags["index_min"], lags["index_max"])
+    want = fft4.plan_correlate4(cs.N, stageb="fft", **lags)(x, y)
+    torch.cuda.synchronize(1)
+    shapes = [(1, ncard)] + ([(2, ncard // 2)] if ncard % 2 == 0 else [])
+    real = ff._launch
+    for shape in shapes:
+        mesh = make_mesh(axis_names=("batch", "seq"), shape=shape)
+        plan = fft4.plan_correlate4(cs.N, stageb="fft", mesh=mesh, **lags)
+        plan(x, y)  # constants on every card
+        torch.cuda.synchronize()
+        by_card = {}
+
+        def counted(name, device, *args):
+            key = (name, str(device))
+            by_card[key] = by_card.get(key, 0) + 1
+            return real(name, device, *args)
+        ff._launch = counted
+        torch.cuda._sleep(SPIN_CYCLES)   # on card 0, the current device
+        try:
+            got = plan(x, y)
+        finally:
+            ff._launch = real
+        diff = float((got - want).abs().max())   # read on card 1 at once
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        per_entry = {"stageb_fwd": 2, "stageb_inv": 1}  # one entry a card
+        per_card = {f"cuda:{i}": {n: by_card.get((n, f"cuda:{i}"), 0)
+                                  for n in per_entry} for i in range(ncard)}
+        cs.check(got.device == torch.device("cuda", 1),
+                 f"step 6: result on {got.device}")
+        cs.check(all(c == per_entry for c in per_card.values()),
+                 f"step 6 {shape}: K2 launches by card {per_card}")
+        err = cs.ccf_err(got, oracle)
+        cs.check(err <= cs.CCF_ATOL, f"step 6 {shape}: CCF error {err}")
+        cs.check(diff <= cs.CCF_ATOL, f"step 6 {shape}: {diff} from the "
+                                      "unsplit plan")
+        print(f"[6] stageb='fft' over ('batch', 'seq') of {shape}, inputs "
+              f"on cuda:1, read at once while card 0 spins: K2 launches by "
+              f"card {per_card}; max |split - unsplit| {diff:.3e} "
+              f"(bit-identical: {same}); rows 0-1 max abs vs f64 {err:.3e} "
+              f"(unsplit {cs.ccf_err(want, oracle):.3e})", flush=True)
+    cs.check(torch.cuda.current_device() == 0, "the current device moved")
+
+
 def setup():
     """The library built and loaded; the wrappers, their plain versions
     and the inputs on card 0."""
@@ -287,6 +350,14 @@ if __name__ == "__main__":
         cs.check(torch.cuda.device_count() >= 2,
                  f"{torch.cuda.device_count()} CUDA devices; need 2")
         step5(*setup())
+        print("ok", flush=True)
+    elif sys.argv[1:] == ["--step6"]:
+        cs.check(torch.cuda.device_count() >= 2,
+                 f"{torch.cuda.device_count()} CUDA devices; need 2")
+        import xcorr_tpu_torch as xt
+        from xcorr_tpu_torch.ops import fused_fft
+        setup()
+        step6(fused_fft, day_lags(xt))
         print("ok", flush=True)
     else:
         main()

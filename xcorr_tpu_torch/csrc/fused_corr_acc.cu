@@ -23,7 +23,8 @@
 //    pair-day);
 // 2. the split-TF32 product of gemm_tf32.cu, out[b] = wi @ C[b] over the
 //    packed axis (wi split into hi and lo first, in `split`, 420 KB):
-//    each output is one complete sum in ascending k.
+//    each output is one complete sum in ascending k, of three TF32
+//    passes (precision 'high') or one (passes = 1: precision 'default').
 //
 // The TPU kept the (rows_out, N2) accumulator in VMEM over a sequential
 // k1 sweep. A Hopper SM has 227 KB of shared memory, and a window's C
@@ -43,12 +44,13 @@
 // caller guarantees n = 2^log2n with 2 <= n <= 16384, tw from
 // _k1_twiddles(n), contiguous float32 buffers of the documented shapes,
 // cscr of the planes' shape and split of split_floats(rows_out, 2H)
-// floats.
+// floats; passes is the product's TF32 passes, 1 or 3.
 extern "C" int xc_fused_corr_acc(const void* ax, const void* ay,
                                  const void* T, const void* tw,
                                  const void* wi, void* cscr, void* split,
                                  void* out, int B, int H, int rows_out,
-                                 int n, int log2n, void* stream) {
+                                 int n, int log2n, int passes,
+                                 void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* sp = static_cast<float*>(split);
   int err = corr_rows(ax, ay, T, tw, cscr, B, H, n, log2n, st);
@@ -60,5 +62,6 @@ extern "C" int xc_fused_corr_acc(const void* ax, const void* ay,
                           static_cast<const float*>(cscr),
                           2 * static_cast<size_t>(H) * n,
                           static_cast<float*>(out),
-                          static_cast<size_t>(rows_out) * n, n, B, st);
+                          static_cast<size_t>(rows_out) * n, n, B, passes,
+                          st);
 }

@@ -26,6 +26,9 @@
 // 4.   the pruned inverse, wi @ C[b] into out (wi split into `split`
 //      in turn), as K3's second launch.
 //
+// Both products run three TF32 passes (precision 'high') or one
+// (passes = 1: precision 'default').
+//
 // The device scratch is sx and sy, two planes of 2 H N2 floats per
 // window (556 MB per pair-day). What bounds this design: stage A's
 // output comes out of the products in MMA fragments, a tile of rows by
@@ -49,13 +52,14 @@
 // caller guarantees n = 2^log2n with 2 <= n <= 16384, tw from
 // _k1_twiddles(n), contiguous float32 buffers of the documented shapes,
 // sx and sy of B * 2H * n floats each and split of the larger of
-// split_floats(2H, rows_in) and split_floats(rows_out, 2H) floats.
+// split_floats(2H, rows_in) and split_floats(rows_out, 2H) floats;
+// passes is the products' TF32 passes, 1 or 3.
 extern "C" int xc_fused_corr_full(const void* vx, const void* vy,
                                   const void* w1, const void* T,
                                   const void* tw, const void* wi, void* sx,
                                   void* sy, void* split, void* out, int B,
                                   int H, int rows_in, int rows_out, int n,
-                                  int log2n, void* stream) {
+                                  int log2n, int passes, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (log2n < 1 || log2n > 14 || n != 1 << log2n)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -68,7 +72,7 @@ extern "C" int xc_fused_corr_full(const void* vx, const void* vy,
     err = xcorr::gemm_tf32(sp, 2 * H, rows_in,
                            static_cast<const float*>(sig ? vy : vx), window,
                            static_cast<float*>(sig ? sy : sx), plane, n, B,
-                           st);
+                           passes, st);
   if (err == 0) err = corr_rows(sx, sy, T, tw, sx, B, H, n, log2n, st);
   if (err == 0)
     err = xcorr::split_tf32(static_cast<const float*>(wi), rows_out, 2 * H,
@@ -77,5 +81,6 @@ extern "C" int xc_fused_corr_full(const void* vx, const void* vy,
   return xcorr::gemm_tf32(sp, rows_out, 2 * H,
                           static_cast<const float*>(sx), plane,
                           static_cast<float*>(out),
-                          static_cast<size_t>(rows_out) * n, n, B, st);
+                          static_cast<size_t>(rows_out) * n, n, B, passes,
+                          st);
 }

@@ -5,7 +5,10 @@
 // plan_fused_corr_full's stage A and pruned inverse. The TPU ran them on
 // its matrix unit as bf16 hi/lo splits (_dot3; K4's w0/w1_/w2 terms);
 // here they run on the tensor cores as mma.sync.m16n8k8 in TF32, three
-// passes per product (lo*hi, hi*lo, hi*hi), float32 sums.
+// passes per product (lo*hi, hi*lo, hi*hi), float32 sums; or, for the
+// precision 'default' (the TPU's one bf16 pass), hi*hi alone. The
+// one-pass instance still loads and splits the lo parts' tiles: it is
+// the three-pass kernel with two of its three products left out.
 //
 // Bound. At the pair-day's shape (B = 8, n1 = 528) K4's stage A is
 // 2 x 8 products of (530 x 264) by (264 x 16384), 73.4 GFLOP, and the
@@ -158,7 +161,7 @@ __device__ __forceinline__ void load_stage(float* as, float* bs,
   }
 }
 
-template <bool VB>
+template <bool VB, int PASSES>
 __global__ void __launch_bounds__(kThreads, 2)
 gemm_tf32_kernel(const float* __restrict__ ah, int K4,
                  const float* __restrict__ Bm, size_t stride_b,
@@ -217,12 +220,14 @@ gemm_tf32_kernel(const float* __restrict__ ah, int K4,
         const float* a = as + (a_row + i * 16) * kAPitch + kk + a_col;
         uint32_t fh[4], fl[4];
         ldmatrix_x4(fh, a);
-        ldmatrix_x4(fl, a + kATile);
+        if constexpr (PASSES == 3) ldmatrix_x4(fl, a + kATile);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma(t, fl, bh[j]);
-          mma(t, fh, bl[j]);
+          if constexpr (PASSES == 3) {
+            mma(t, fl, bh[j]);
+            mma(t, fh, bl[j]);
+          }
           mma(t, fh, bh[j]);
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][j][e] += t[e];
@@ -250,19 +255,31 @@ gemm_tf32_kernel(const float* __restrict__ ah, int K4,
     }
 }
 
-template <bool VB>
+template <bool VB, int PASSES>
 int launch(const float* ah, int K4, const float* B, size_t stride_b,
            float* C, size_t stride_c, int M, int N, int K, int batch,
            cudaStream_t stream) {
   cudaError_t err =
-      cudaFuncSetAttribute(gemm_tf32_kernel<VB>,
+      cudaFuncSetAttribute(gemm_tf32_kernel<VB, PASSES>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, batch);
-  gemm_tf32_kernel<VB><<<grid, kThreads, kSmemBytes, stream>>>(
+  gemm_tf32_kernel<VB, PASSES><<<grid, kThreads, kSmemBytes, stream>>>(
       ah, K4, B, stride_b, C, stride_c, M, N, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int PASSES>
+int dispatch(const float* split, int M, int K, const float* B,
+             size_t stride_b, float* C, size_t stride_c, int N, int batch,
+             cudaStream_t stream) {
+  const int K4 = (K + 3) / 4 * 4;
+  if (N % 4 == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0)
+    return launch<true, PASSES>(split, K4, B, stride_b, C, stride_c, M, N,
+                                K, batch, stream);
+  return launch<false, PASSES>(split, K4, B, stride_b, C, stride_c, M, N, K,
+                               batch, stream);
 }
 
 }  // namespace
@@ -278,11 +295,12 @@ int xcorr::split_tf32(const float* A, int M, int K, float* split,
 
 int xcorr::gemm_tf32(const float* split, int M, int K, const float* B,
                      size_t stride_b, float* C, size_t stride_c, int N,
-                     int batch, cudaStream_t stream) {
-  const int K4 = (K + 3) / 4 * 4;
-  if (N % 4 == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0)
-    return launch<true>(split, K4, B, stride_b, C, stride_c, M, N, K, batch,
-                        stream);
-  return launch<false>(split, K4, B, stride_b, C, stride_c, M, N, K, batch,
+                     int batch, int passes, cudaStream_t stream) {
+  if (passes == 3)
+    return dispatch<3>(split, M, K, B, stride_b, C, stride_c, N, batch,
                        stream);
+  if (passes == 1)
+    return dispatch<1>(split, M, K, B, stride_b, C, stride_c, N, batch,
+                       stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

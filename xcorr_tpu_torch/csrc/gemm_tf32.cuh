@@ -10,9 +10,10 @@
 // split_tf32 into a scratch of split_floats(M, K) floats, which
 // gemm_tf32 reads, B as its fragments are read. Every output is one
 // float32 sum, in ascending k, of k8 steps of lo*hi + hi*lo + hi*hi
-// products: the dropped lo*lo term and lo's own rounding are ~2^-22 of a
-// product, the order of a float32 product's rounding. No atomics: a
-// rerun gives the same bits.
+// products (passes = 3): the dropped lo*lo term and lo's own rounding
+// are ~2^-22 of a product, the order of a float32 product's rounding.
+// passes = 1 keeps hi*hi alone, one TF32 product (precision 'default':
+// ~2^-11 of a product). No atomics: a rerun gives the same bits.
 
 #pragma once
 
@@ -30,11 +31,12 @@ constexpr size_t split_floats(int M, int K) {
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on
 // success). split_tf32: A's hi and lo into split. gemm_tf32: the product
-// with the A that split holds.
+// with the A that split holds, in `passes` (1 or 3; anything else is
+// cudaErrorInvalidValue) TF32 passes.
 int split_tf32(const float* A, int M, int K, float* split,
                cudaStream_t stream);
 int gemm_tf32(const float* split, int M, int K, const float* B,
               size_t stride_b, float* C, size_t stride_c, int N, int batch,
-              cudaStream_t stream);
+              int passes, cudaStream_t stream);
 
 }  // namespace xcorr

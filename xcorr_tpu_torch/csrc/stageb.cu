@@ -47,13 +47,14 @@
 
 namespace {
 
-// INV false: fwd of x (y unused). INV true: inv of the spectra x, y.
+// INV false: fwd of x (y unused). INV true: inv of the spectra x, y;
+// y holds B windows, or one that every window reads (y_all = 0).
 template <int LG, bool INV>
 __global__ void __launch_bounds__(R::threads(LG),
                                   R::threads(LG) >= 512 ? 1 : 2)
 stageb_kernel(const float* __restrict__ x, const float* __restrict__ y,
               const float* __restrict__ T, const float2* __restrict__ tw,
-              float* __restrict__ out, int B, int H) {
+              float* __restrict__ out, int B, int H, int y_all) {
   constexpr int n = 1 << LG, E = R::elems(LG), P = R::threads(LG);
   extern __shared__ float4 smem4[];
   // the next row's input (2n floats), then T; the pass twiddles; the
@@ -99,9 +100,11 @@ stageb_kernel(const float* __restrict__ x, const float* __restrict__ y,
       }
     } else {
       // fy from device memory, fx from shared memory, both at k * P + t
+      const size_t yre = y_all ? re : static_cast<size_t>(row / B) * n;
+      const size_t yim = yre + plane;
 #pragma unroll
       for (int k = 0; k < E; ++k)
-        v[k] = make_float2(y[re + k * P + t], y[im + k * P + t]);
+        v[k] = make_float2(y[yre + k * P + t], y[yim + k * P + t]);
 #pragma unroll
       for (int k = 0; k < E; ++k)
         v[k] = R::cmul_conj(make_float2(xin[k * P + t], xin[n + k * P + t]),
@@ -133,11 +136,11 @@ stageb_kernel(const float* __restrict__ x, const float* __restrict__ y,
 }
 
 using Launch = int (*)(const void*, const void*, const void*, const void*,
-                       void*, int, int, cudaStream_t);
+                       void*, int, int, int, cudaStream_t);
 
 template <int LG, bool INV>
 int launch(const void* x, const void* y, const void* T, const void* tw,
-           void* out, int B, int H, cudaStream_t stream) {
+           void* out, int B, int H, int y_all, cudaStream_t stream) {
   constexpr int smem = R::smem_bytes(LG);
   int grid = 0;
   const cudaError_t err = one_wave(stageb_kernel<LG, INV>, R::threads(LG),
@@ -146,7 +149,7 @@ int launch(const void* x, const void* y, const void* T, const void* tw,
   stageb_kernel<LG, INV><<<grid, R::threads(LG), smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(y),
       static_cast<const float*>(T), static_cast<const float2*>(tw),
-      static_cast<float*>(out), B, H);
+      static_cast<float*>(out), B, H, y_all);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -160,10 +163,11 @@ constexpr Launch kLaunch[] = {
 
 template <bool INV>
 int stageb(const void* x, const void* y, const void* T, const void* tw,
-           void* out, int B, int H, int n, int log2n, void* stream) {
+           void* out, int B, int H, int n, int log2n, int y_all,
+           void* stream) {
   if (log2n < 1 || log2n > 14 || n != 1 << log2n)
     return static_cast<int>(cudaErrorInvalidValue);
-  return kLaunch<INV>[log2n](x, y, T, tw, out, B, H,
+  return kLaunch<INV>[log2n](x, y, T, tw, out, B, H, y_all,
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -172,15 +176,16 @@ int stageb(const void* x, const void* y, const void* T, const void* tw,
 // Launch on `stream`; return cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue unless n = 2^log2n with 2 <= n <= 16384. The
 // caller guarantees tw from _k1_twiddles(n) and contiguous float32
-// buffers of the documented shapes.
+// buffers of the documented shapes. inv: fy_all = 1 when fy holds B
+// windows, 0 when it holds one that every window of fx reads.
 extern "C" int xc_stageb_fwd(const void* a, const void* T, const void* tw,
                              void* out, int B, int H, int n, int log2n,
                              void* stream) {
-  return stageb<false>(a, nullptr, T, tw, out, B, H, n, log2n, stream);
+  return stageb<false>(a, nullptr, T, tw, out, B, H, n, log2n, 1, stream);
 }
 
 extern "C" int xc_stageb_inv(const void* fx, const void* fy, const void* T,
                              const void* tw, void* out, int B, int H, int n,
-                             int log2n, void* stream) {
-  return stageb<true>(fx, fy, T, tw, out, B, H, n, log2n, stream);
+                             int log2n, int fy_all, void* stream) {
+  return stageb<true>(fx, fy, T, tw, out, B, H, n, log2n, fy_all, stream);
 }

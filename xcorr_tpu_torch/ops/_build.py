@@ -90,9 +90,9 @@ _SIGNATURES = {
     "xc_fused_corr": "pppppiiiip",
     "xc_fused_corr_phases": "pppppiiiipp",
     "xc_stageb_fwd": "ppppiiiip",
-    "xc_stageb_inv": "pppppiiiip",
-    "xc_fused_corr_acc": "ppppppppiiiiip",
-    "xc_fused_corr_full": "ppppppppppiiiiiip",
+    "xc_stageb_inv": "pppppiiiiip",
+    "xc_fused_corr_acc": "ppppppppiiiiiip",
+    "xc_fused_corr_full": "ppppppppppiiiiiiip",
 }
 
 

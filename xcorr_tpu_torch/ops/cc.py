@@ -19,7 +19,9 @@ device, never by catching an error:
   ``"acc"`` (``XCORR_FFT4_FUSED_INV=1``: stage-A product, then K3 with
   the pruned inverse inside) or ``"full"`` (``XCORR_FFT4_FULL=1``, which
   wins over the other: K4, stage A to pruned rows in one kernel); then
-  the lag-window slice. On the CPU the route's plain version runs.
+  the lag-window slice. On the CPU the route's plain version runs. The
+  products run at ``precision`` (keyword, else ``XCORR_CC_PRECISION``,
+  read on every call; ``'high'`` by default): ``'default'`` is TF32.
 
 Normalization by the norm product and the unbiased lag weights apply on
 the clipped lag window only (index math identical to the reference's
@@ -28,19 +30,24 @@ the clipped lag window only (index math identical to the reference's
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from .fft import next_fast_len
 
-__all__ = ["correlate", "lag_slice_of_circular", "unbiased_weights",
-           "preferred_padded_len", "FOURSTEP_THRESHOLD"]
+__all__ = ["correlate", "correlate_fn", "lag_slice_of_circular",
+           "unbiased_weights", "preferred_padded_len", "FOURSTEP_THRESHOLD",
+           "CC_PRECISIONS"]
 
 #: windows at least this long take the four-step route on a CUDA device.
 #: Carried from the reference until a benchmark measures the crossover.
 FOURSTEP_THRESHOLD = 1 << 20
 
 _METHODS = ("auto", "monolithic", "fourstep")
+#: the four-step precisions ``correlate`` takes (the JAX package's)
+CC_PRECISIONS = ("default", "high", "high3", "highest")
 
 
 def preferred_padded_len(n: int, device="cuda"):
@@ -95,22 +102,37 @@ def lag_slice_of_circular(r, npts: int, nfft: int, index_min: int,
 def correlate(x, y, *, normalize: bool = True, index_min: int = None,
               index_max: int = None, unbiased: bool = False,
               nfft: int = None, clip_weight: float = None,
-              method: str = "auto", pre_padded_n: int = None):
+              method: str = "auto", pre_padded_n: int = None,
+              precision: str = None):
     """Normalized cross-correlation of ``x`` and ``y`` (``(B, n)`` tensors
     on one device), returned on that device.
 
     ``method``: ``'auto'`` routes a CUDA float32 batch with
     ``n >= FOURSTEP_THRESHOLD`` (and no ``unbiased``/``nfft``/
     ``clip_weight``) to the four-step path and everything else to the
-    monolithic path; ``'monolithic'`` and ``'fourstep'`` force one. The
-    four-step products run in full float32.
+    monolithic path; ``'monolithic'`` and ``'fourstep'`` force one.
 
     ``pre_padded_n``: the window length ``n`` when ``x``/``y`` are
     already zero-extended to the four-step stage-A length
     (``ops.fft4.padded_len(n)`` samples, see
     :func:`preferred_padded_len`): the four-step plan then skips its
     zero-extension copy; the monolithic path trims back to ``n``.
+
+    ``precision`` (four-step path only): ``'high'`` (the default: full
+    float32 products, K3's and K4's as three TF32 passes), ``'default'``
+    (TF32 products, K3's and K4's one pass: the speed knob for scans that
+    tolerate normalized CCFs ~6e-5 off float64; 5.1e-5 to 5.5e-5 on
+    each route at day scale on an H100), ``'high3'``/``'highest'`` (as
+    ``'high'``). ``None``
+    reads ``XCORR_CC_PRECISION`` (same values), so a campaign
+    (``xcorr-torch-cc --cc-precision``) selects it without plumbing; the
+    monolithic path is unaffected.
     """
+    if precision is None:
+        precision = os.environ.get("XCORR_CC_PRECISION") or "high"
+    if precision not in CC_PRECISIONS:
+        raise ValueError(f"precision={precision!r}: expected one of "
+                         f"{CC_PRECISIONS}")
     if method not in _METHODS:
         raise ValueError(f"method={method!r}: expected one of {_METHODS}")
     if x.shape != y.shape:
@@ -143,7 +165,8 @@ def correlate(x, y, *, normalize: bool = True, index_min: int = None,
                     f"pre-padded input is {x.shape[-1]} samples; the "
                     f"four-step plan expects padded_len({n}) = {want}")
         fn = plan_correlate4(n, index_min, index_max, normalize=normalize,
-                             pre_padded=pre_padded_n is not None)
+                             pre_padded=pre_padded_n is not None,
+                             precision=precision)
         return fn(x, y)
     if pre_padded_n is not None:
         x, y = x[..., :n], y[..., :n]
@@ -187,3 +210,13 @@ def _correlate_monolithic(x, y, *, normalize: bool = True,
                                      clip=clip_weight, dtype=out.dtype,
                                      device=out.device)
     return out.to(x.dtype)
+
+
+def correlate_fn(n: int, **kwargs):
+    """A correlation ``f(x, y) -> ccf`` for windows of ``n`` samples with
+    :func:`correlate`'s keywords fixed (the JAX package's jitted closure;
+    eager PyTorch compiles nothing, and the four-step plans are cached
+    by geometry)."""
+    def f(x, y):
+        return correlate(x, y, **kwargs)
+    return f

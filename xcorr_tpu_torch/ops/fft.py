@@ -9,14 +9,19 @@ spectral kernel pads to the next such length and keeps the lag bookkeeping
 exact.
 
 Counterpart of ``xcorr_tpu/ops/fft.py``, without the TPU-only restriction
-of the odd part to {1, 3, 5, 9, 15}.
+of the odd part to {1, 3, 5, 9, 15}; its spectral helpers :func:`rfft`,
+:func:`irfft` (``torch.fft`` on the tensor's device) and
+:func:`rfft_freqs` (numpy, on the host).
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
 
-__all__ = ["next_fast_len", "CUFFT_RADICES"]
+import numpy as np
+import torch
+
+__all__ = ["next_fast_len", "CUFFT_RADICES", "rfft_freqs", "rfft", "irfft"]
 
 #: prime factors cuFFT decomposes with its fastest kernels
 CUFFT_RADICES = (2, 3, 5, 7)
@@ -46,3 +51,18 @@ def next_fast_len(n: int, radices: tuple = CUFFT_RADICES) -> int:
         vals = new
     return min(v for v in vals if v >= n)
 
+
+
+def rfft_freqs(nfft: int, delta: float):
+    """Real-FFT frequency vector (numpy, host side)."""
+    return np.fft.rfftfreq(nfft, d=delta)
+
+
+def rfft(x, nfft: int):
+    """Batched real FFT along the last axis, zero-padded to ``nfft``."""
+    return torch.fft.rfft(x, n=nfft, dim=-1)
+
+
+def irfft(X, nfft: int):
+    """Batched inverse real FFT along the last axis."""
+    return torch.fft.irfft(X, n=nfft, dim=-1)

@@ -42,6 +42,7 @@ import scipy.signal as sp_signal
 import torch
 
 from .consts import HostConst
+from .precision import products
 
 __all__ = ["butter_sos", "sosfilt", "sosfiltfilt", "filtfilt_design"]
 
@@ -143,10 +144,13 @@ def _biquad(x, b, a, zi=None):
         u[..., 0, :] = zi
     if C > 1:
         u[..., 1:, 0] = v1[..., :-1, L - 1]
-        u[..., 1:, 1] = torch.matmul(xc[..., :-1, :],
-                                     plan["h2_rev"].like(x))
-        u = torch.matmul(u.reshape(*lead, 2 * C),
-                         plan["WT"].like(x)).reshape(*lead, C, 2)
+        # float32 products: never in TF32, whatever another thread's
+        # four-step call has switched on (ops.precision)
+        with products():
+            u[..., 1:, 1] = torch.matmul(xc[..., :-1, :],
+                                         plan["h2_rev"].like(x))
+            u = torch.matmul(u.reshape(*lead, 2 * C),
+                             plan["WT"].like(x)).reshape(*lead, C, 2)
     z1, z2 = u[..., 0:1], u[..., 1:2]     # (..., C, 1): state entering
     s1 = plan["m11"].like(x) * z1 + plan["m12"].like(x) * z2 + v1
     y = plan["b0"] * xc + torch.cat([z1, s1[..., :-1]], dim=-1)

@@ -39,9 +39,15 @@ products (K4's stage A, both pruned inverses) on the tensor cores in
 split TF32 (``csrc/gemm_tf32.cu``: ``hi·hi + hi·lo + lo·hi`` per
 product, float32 accumulation), each output one sum in ascending k: no
 partial planes and no float atomics, so two launches on the same inputs
-give the same bits. Not carried from the TPU: ``ROWS = 8``, the VMEM
-gates and the ``high_block`` / Karatsuba precision variants; K4's bf16
-hi/lo input split becomes the TF32 split.
+give the same bits. ``passes=1`` keeps ``hi·hi`` alone: one TF32
+product, the precision ``'default'`` of :mod:`ops.fft4`. Not carried
+from the TPU: ``ROWS = 8``, the VMEM gates and the ``high_block`` /
+Karatsuba precision variants; K4's bf16 hi/lo input split becomes the
+TF32 split.
+
+K2 is on the four-step's ``stageb='fft'`` branch (:mod:`ops.fft4`,
+``StageBPlan``): two forward launches and one inverse per call, one of
+each with ``packed``.
 
 N2 must be a power of two no larger than the kernel's own
 :data:`MAX_N2`, 16384 for every kernel. Each kernel has a plain
@@ -70,7 +76,7 @@ __all__ = ["fused_corr", "fused_corr_plain", "stageb_fwd",
            "stageb_fwd_plain", "stageb_inv", "stageb_inv_plain",
            "fused_corr_acc", "fused_corr_acc_plain", "fused_corr_full",
            "fused_corr_full_plain", "check_geometry", "spectrum_order",
-           "MAX_N2", "KERNELS", "launches", "reset_launches"]
+           "tf32_round", "MAX_N2", "KERNELS", "launches", "reset_launches"]
 
 #: largest row length per kernel: each block holds a row in registers
 #: and a row, the pass twiddles and an exchange buffer in shared memory
@@ -185,6 +191,22 @@ def _k1_twiddles(N2: int, device):
 
 # -- plain versions -----------------------------------------------------
 
+def tf32_round(a):
+    """float32 rounded to TF32's 10 mantissa bits, to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: half of the dropped
+    13 bits' range added to the magnitude, then those bits cleared."""
+    return ((a.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product(a, b, passes):
+    """``a @ b`` as K3's and K4's product computes it: float32 for three
+    TF32 passes (their split recovers float32's accuracy), one TF32
+    product of the rounded operands for one pass."""
+    if passes == 1:
+        return torch.matmul(tf32_round(a), tf32_round(b))
+    return torch.matmul(a, b)
+
+
 def _cplx(a):
     return torch.complex(a[:, 0], a[:, 1])
 
@@ -212,7 +234,7 @@ def stageb_fwd_plain(a, T):
 
 def stageb_inv_plain(fx, fy, T):
     """:func:`stageb_inv` in plain PyTorch: the cross spectrum back to
-    natural order, then ``torch.fft``."""
+    natural order, then ``torch.fft`` (a one-window ``fy`` broadcasts)."""
     t = torch.complex(T[0], T[1])
     s = _cplx(fx) * torch.conj(_cplx(fy))
     nat = torch.empty_like(s)
@@ -220,21 +242,22 @@ def stageb_inv_plain(fx, fy, T):
     return _packed(torch.fft.ifft(nat, dim=-1) * torch.conj(t))
 
 
-def fused_corr_acc_plain(ax, ay, T, wi):
+def fused_corr_acc_plain(ax, ay, T, wi, passes=3):
     """:func:`fused_corr_acc` in plain PyTorch: K1's plain version, then
-    ``wi @ C`` over the packed axis."""
+    ``wi @ C`` over the packed axis (:func:`_product`)."""
     B, _, H, N2 = ax.shape
-    return torch.matmul(wi, fused_corr_plain(ax, ay, T).view(B, 2 * H, N2))
+    return _product(wi, fused_corr_plain(ax, ay, T).view(B, 2 * H, N2),
+                    passes)
 
 
-def fused_corr_full_plain(vx, vy, w1, T, wi):
+def fused_corr_full_plain(vx, vy, w1, T, wi, passes=3):
     """:func:`fused_corr_full` in plain PyTorch: the stage-A product,
     K1's plain version and the pruned inverse product."""
     B, _, N2 = vx.shape
     H = w1.shape[0] // 2
-    ax = torch.matmul(w1, vx).view(B, 2, H, N2)
-    ay = torch.matmul(w1, vy).view(B, 2, H, N2)
-    return fused_corr_acc_plain(ax, ay, T, wi)
+    ax = _product(w1, vx, passes).view(B, 2, H, N2)
+    ay = _product(w1, vy, passes).view(B, 2, H, N2)
+    return fused_corr_acc_plain(ax, ay, T, wi, passes)
 
 
 # -- checks --------------------------------------------------------------
@@ -274,6 +297,12 @@ def _check_wi(wi, H, ref):
             f"wi must be (rows_out, {2 * H}), got {tuple(wi.shape)}")
     _check_tensors(ref, wi=wi)
     return wi.shape[0]
+
+
+def _check_passes(passes):
+    if passes not in (1, 3):
+        raise ValueError(f"passes={passes!r}: the products take 1 or 3 "
+                         "TF32 passes")
 
 
 def _device_of(a, name):
@@ -340,8 +369,14 @@ def stageb_fwd(a, T):
 
 def stageb_inv(fx, fy, T):
     """K2 inverse: ``IDFT_N2(fx·conj fy)·conj T`` per row of two spectra
-    in :func:`stageb_fwd`'s order, ``(B, 2, H, N2)`` in natural order."""
-    B, H, N2 = _check_planes("stageb_inv", T, fx=fx, fy=fy)
+    in :func:`stageb_fwd`'s order, ``(B, 2, H, N2)`` in natural order.
+    ``fy`` may also hold one window, ``(1, 2, H, N2)``, which every
+    window of ``fx`` reads."""
+    B, H, N2 = _check_planes("stageb_inv", T, fx=fx)
+    if fy.shape != fx.shape and fy.shape != (1, *fx.shape[1:]):
+        raise ValueError(f"fy {tuple(fy.shape)} is neither "
+                         f"{tuple(fx.shape)} nor one window of it")
+    _check_tensors(fx, fy=fy)
     if _device_of(fx, "stageb_inv") == "cpu":
         return stageb_inv_plain(fx, fy, T)
     from ._build import load
@@ -350,17 +385,19 @@ def stageb_inv(fx, fy, T):
     tw = _k1_twiddles(N2, fx.device)
     _launch("stageb_inv", fx.device, lib.xc_stageb_inv,
             *_ptrs(fx, fy, T, tw, out), B, H, N2, N2.bit_length() - 1,
-            _stream(fx))
+            int(fy.shape[0] == B), _stream(fx))
     return out
 
 
-def fused_corr_acc(ax, ay, T, wi):
+def fused_corr_acc(ax, ay, T, wi, passes=3):
     """K3: ``wi @ fused_corr(ax, ay, T)`` over the packed axis, the row
-    chain then the split-TF32 product -> ``(B, rows_out, N2)``."""
+    chain then the split-TF32 product in ``passes`` (3 or 1) TF32 passes
+    -> ``(B, rows_out, N2)``."""
     B, H, N2 = _check_planes("fused_corr_acc", T, ax=ax, ay=ay)
     rows_out = _check_wi(wi, H, ax)
+    _check_passes(passes)
     if _device_of(ax, "fused_corr_acc") == "cpu":
-        return fused_corr_acc_plain(ax, ay, T, wi)
+        return fused_corr_acc_plain(ax, ay, T, wi, passes)
     from ._build import load
     lib = load()
     kw = dict(dtype=torch.float32, device=ax.device)
@@ -370,14 +407,15 @@ def fused_corr_acc(ax, ay, T, wi):
     tw = _k1_twiddles(N2, ax.device)
     _launch("fused_corr_acc", ax.device, lib.xc_fused_corr_acc,
             *_ptrs(ax, ay, T, tw, wi, cscr, split, out), B, H, rows_out, N2,
-            N2.bit_length() - 1, _stream(ax))
+            N2.bit_length() - 1, passes, _stream(ax))
     return out
 
 
-def fused_corr_full(vx, vy, w1, T, wi):
+def fused_corr_full(vx, vy, w1, T, wi, passes=3):
     """K4: the whole four-step correlation of the zero-padded windows
     ``vx``, ``vy`` (``(B, rows_in, N2)``) -> ``(B, rows_out, N2)``, the
-    same function as :func:`fused_corr_full_plain`."""
+    same function as :func:`fused_corr_full_plain`, its products in
+    ``passes`` (3 or 1) TF32 passes."""
     if vx.dim() != 3 or vy.shape != vx.shape:
         raise ValueError(
             f"vx and vy must be one (B, rows_in, N2) shape, got "
@@ -392,8 +430,9 @@ def fused_corr_full(vx, vy, w1, T, wi):
         raise ValueError(f"T must be (2, {H}, {N2}), got {tuple(T.shape)}")
     _check_tensors(vx, vx=vx, vy=vy, w1=w1, T=T)
     rows_out = _check_wi(wi, H, vx)
+    _check_passes(passes)
     if _device_of(vx, "fused_corr_full") == "cpu":
-        return fused_corr_full_plain(vx, vy, w1, T, wi)
+        return fused_corr_full_plain(vx, vy, w1, T, wi, passes)
     from ._build import load
     lib = load()
     kw = dict(dtype=torch.float32, device=vx.device)
@@ -405,5 +444,5 @@ def fused_corr_full(vx, vy, w1, T, wi):
     tw = _k1_twiddles(N2, vx.device)
     _launch("fused_corr_full", vx.device, lib.xc_fused_corr_full,
             *_ptrs(vx, vy, w1, T, tw, wi, sx, sy, split, out), B, H,
-            rows_in, rows_out, N2, N2.bit_length() - 1, _stream(vx))
+            rows_in, rows_out, N2, N2.bit_length() - 1, passes, _stream(vx))
     return out

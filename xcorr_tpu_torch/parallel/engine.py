@@ -43,8 +43,10 @@ Not carried from the JAX package, with the reason:
   they padded tail chunks and batches so that XLA executables were
   reused, and eager PyTorch compiles nothing per shape. Results are
   unchanged: pad and phantom rows were sliced off before readback;
-* the ``XCORR_CC_PRECISION`` cache key: the port has no precision
-  setting (every product runs in float32).
+* the ``XCORR_CC_PRECISION`` cache key: the JAX package keys its
+  pipelines on the precision because it traces it into their
+  executables; the port traces nothing, and
+  :func:`..ops.cc.correlate` reads the variable on every call.
 """
 
 from __future__ import annotations

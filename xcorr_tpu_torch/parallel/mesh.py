@@ -7,6 +7,10 @@ embarrassingly parallel over (pair x window) items (SURVEY.md §2.8 P1), so
 a mesh is an ordered list of torch devices, each taking a contiguous share
 of a batch's rows; there is no sharding annotation to compile against.
 
+The four-step's sequence-parallel plan (``ops.fft4``, ``mesh=``) splits
+over two named axes at once (:func:`split2`): windows over one, the k1
+rows of each window's spectrum over the other.
+
 A mesh may name a device more than once (``make_mesh(devices=["cpu"] *
 4)``, or ``["cuda:0", "cuda:0"]`` on one card): such a *logical* mesh
 runs the split, the per-entry launches and the gather as a mesh of
@@ -20,7 +24,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "batch_sharding", "split",
+__all__ = ["Mesh", "make_mesh", "batch_sharding", "split", "split2",
            "pad_to_multiple", "mesh_fingerprint"]
 
 
@@ -90,13 +94,17 @@ def make_mesh(n_devices: int = None, axis_names=("batch",), shape=None,
     return Mesh(devices, axis_names, shape)
 
 
+def _shares(parts: int, rows: int):
+    bounds = np.linspace(0, int(rows), parts + 1).astype(int)
+    return [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
 def batch_sharding(mesh: Mesh, rows: int):
     """The contiguous ``(start, stop)`` row range of each mesh entry for a
     batch of ``rows``, divided as
     :func:`..parallel.distributed.host_slice` divides a work list
     (``np.linspace`` bounds: the shares differ by at most one row)."""
-    bounds = np.linspace(0, int(rows), mesh.size + 1).astype(int)
-    return [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
+    return _shares(mesh.size, rows)
 
 
 def split(mesh: Mesh, rows: int):
@@ -107,6 +115,33 @@ def split(mesh: Mesh, rows: int):
     return [(d, a, b) for d, (a, b) in zip(mesh.devices,
                                            batch_sharding(mesh, rows))
             if a < b]
+
+
+def split2(mesh: Mesh, rows: int, cols: int, axes=("batch", "seq")):
+    """Split ``rows`` over the mesh axis ``axes[0]`` and ``cols`` over
+    ``axes[1]``, with :func:`batch_sharding`'s shares on each: a list, in
+    row order, of ``(start, stop, entries)`` for each non-empty row share,
+    ``entries`` the ``(device, col_start, col_stop)`` of its non-empty
+    column shares in column order. An axis name the mesh lacks, or None,
+    splits nothing; the mesh's other axes take their first index."""
+    names = mesh.axis_names
+    row_ax, col_ax = (a if a in names else None for a in axes)
+    grid = np.empty(mesh.size, dtype=object)
+    for k, d in enumerate(mesh.devices):
+        grid[k] = d
+    grid = grid.reshape(mesh.shape)
+
+    def parts(ax):
+        return mesh.shape[names.index(ax)] if ax is not None else 1
+
+    def device(i, j):
+        return grid[tuple(i if a == row_ax else j if a == col_ax else 0
+                          for a in names)]
+
+    return [(a, b, [(device(i, j), c, d)
+                    for j, (c, d) in enumerate(_shares(parts(col_ax), cols))
+                    if c < d])
+            for i, (a, b) in enumerate(_shares(parts(row_ax), rows)) if a < b]
 
 
 def pad_to_multiple(x, multiple: int, axis: int = 0):

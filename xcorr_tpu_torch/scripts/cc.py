@@ -9,14 +9,14 @@ distances), client args, receiver pairs and the period, handed to
 :func:`xcorr_tpu_torch.lazy_process` on the torch device that
 ``--platform`` names (``cuda`` by default). Run directly or import the
 config dicts. ``default_config`` is the JAX package's, unchanged.
-
-No ``--cc-precision``: the port has no precision setting (every product
-of the correlation runs in float32).
+``--cc-precision`` sets ``XCORR_CC_PRECISION``, which
+:func:`xcorr_tpu_torch.ops.cc.correlate` reads on every call.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import pandas as pd
 
@@ -125,8 +125,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="xcorr-torch-cc",
         description="Batch-produce daily CCF shards for receiver pairs "
-                    "(PyTorch port; the correlation runs in float32, "
-                    "there is no --cc-precision).")
+                    "(PyTorch port).")
     parser.add_argument("--root", metavar="..", type=str, default="data/cc",
                         help="CCF output root")
     parser.add_argument("--sds-root", metavar="..", type=str,
@@ -148,8 +147,17 @@ def main(argv=None):
     parser.add_argument("--complevel", metavar="N", type=int, default=1,
                         help="zlib level for shard variables (default 1; "
                              "9 restores the reference's storage config)")
+    parser.add_argument("--cc-precision", metavar="..", type=str,
+                        default=None,
+                        choices=("default", "high", "high3", "highest"),
+                        help="four-step correlation precision: 'high' "
+                             "(default, float32 products) or 'default' "
+                             "(TF32 products: faster, normalized CCFs "
+                             "up to ~6e-5 off float64 at day scale)")
     utils.add_common_arguments(parser)
     args = parser.parse_args(argv)
+    if args.cc_precision:
+        os.environ["XCORR_CC_PRECISION"] = args.cc_precision
 
     log = utils.init_logging(args.debug)
     cfg = utils.init_compute(args)
