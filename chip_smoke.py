@@ -50,7 +50,7 @@ Phases, each printed on its own line; any failure exits non-zero:
    pair-day from ``SyntheticClient``: every status 1, all 8 CCF peaks on
    the injected delay, the CCFs within 1e-6 abs of the K1 route's, the
    route's kernel launched and no other; wall seconds and device share.
-   On the K1 route also ``write`` -> ``read`` where h5py is installed;
+   On the K1 route also ``write`` -> ``read``, equal;
 6. the device engine (``parallel.engine.device_process_bulk`` +
    ``finalize``) at production width: 4 consecutive pair-days of the EDH
    pair, raw 250 Hz through the production EDH chain of
@@ -172,7 +172,25 @@ Phases, each printed on its own line; any failure exits non-zero:
     ``torch.profiler`` in this process, over several sessions: after
     minutes of a run, a session of the card's torch 2.11 may report
     none or only some of the card's events. ``python3 chip_smoke.py --phase10`` runs phases 1, 2 (the build alone) and 10, with phase
-    4's oracle and phase 6's engine run made for it.
+    4's oracle and phase 6's engine run made for it;
+11. the production entry point on this machine, archive to shards to
+    analysis. A miniSEED SDS archive of ``IM.H10N1..EDH`` and
+    ``IM.H03S1..EDH`` (the first ``DELAY`` s late), 250 Hz raw over the
+    two pair-days and their windows' reach, written with the port's
+    Steim1 ``encode_mseed``, and phase 6's EDH inventory as a JSON
+    file; ``xcorr_tpu_torch.scripts.cc.main`` (``xcorr-torch-cc``, the
+    host engine on ``cuda``) over the two pair-days: K1 launched and no
+    other kernel, a shard written per pair-day through the port's HDF5
+    codec (``io/hdf5.py``: this machine has no HDF5 library). Each shard
+    read with ``io.read`` and checked with ``io.validate``: every status
+    1, CCFs within 1e-6 abs of an in-memory ``process(device='cuda')``
+    of the pair-day (bit-identity reported), every peak on the injected
+    delay. ``xcorr_tpu_torch.scripts.snr.main`` over the shards: snr, s
+    and n within 1e-5 (relative) of ``pair_snr`` on the in-memory
+    datasets, ``lag_s_max`` equal. Bytes, write seconds (in the
+    campaign) and read seconds per shard, the CLI's wall per pair-day;
+    h5py must not be imported. ``python3 chip_smoke.py --phase11`` runs
+    phases 1, 2 (the build alone) and 11.
 
 The line before the last is the kernels' JSON record (K1's launches from
 phase 6, K2's from phase 10b's ``'fft'`` call, K3's and K4's from their
@@ -181,7 +199,6 @@ at H = 576); the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX.
 """
 
-import importlib.util
 import json
 import math
 import os
@@ -780,18 +797,15 @@ def phase5_pair_days(xt, ff):
                  f"at {sorted(set(peaks))} s")
         if run != 1:
             continue
-        if importlib.util.find_spec("h5py") is not None:
-            with tempfile.TemporaryDirectory() as tmp:
-                path = xt.write(ds, os.path.join(tmp, "shard.nc"), verb=0)
-                back = xt.read(path)
-                check(back is not None, "read returned None")
-                check(np.array_equal(back["cc"].values, ccv),
-                      "read != written")
-                check(bool((back["status"].values == 1).all()),
-                      "read status")
-            phase(5, "write -> read round trip equal")
-        else:
-            phase(5, "write -> read not run: h5py is not installed")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = xt.write(ds, os.path.join(tmp, "shard.nc"), verb=0)
+            back = xt.read(path)
+            check(back is not None, "read returned None")
+            check(np.array_equal(back["cc"].values, ccv),
+                  "read != written")
+            check(bool((back["status"].values == 1).all()),
+                  "read status")
+        phase(5, "write -> read round trip equal")
     set_route("corr")
     return launches
 
@@ -2519,9 +2533,205 @@ def phase10(xt, ff, fft4, imin, imax, oracle, ref, ref_wall):
     return rec, k2, path
 
 
-def main(only10=False):
-    """The smoke run; with ``only10``, phases 1 and 2 (the build alone)
-    and phase 10, its references made afresh."""
+#: phase 11: the production CLI over an SDS archive on this machine
+P11_PAIR = "IM.H10N1..EDH-IM.H03S1..EDH"
+P11_DAYS = ("2014-02-01", "2014-02-02")
+#: archive days: the window buffer before the first pair-day, and each
+#: pair-day's last 24 h window, which starts at 21:00
+P11_ARCHIVE = pd.date_range("2014-01-31", "2014-02-04", freq="1D")
+
+
+def phase11_inventory(path):
+    """Phase 6's EDH inventory (sensitivity 1.5e9 counts per unit) for
+    the phase's two stations, written as the CLI's ``--inventory``."""
+    from xcorr_tpu_torch.stream import Channel, Inventory, PAZResponse
+    resp = PAZResponse(sensitivity=1.5e9)
+    inv = Inventory([
+        Channel("IM", "H10N1", "", "EDH", latitude=-6.34, longitude=71.01,
+                response=resp),
+        Channel("IM", "H03S1", "", "EDH", latitude=-33.6, longitude=-78.8,
+                response=resp)])
+    inv.to_json(path)
+    return inv
+
+
+#: samples per ``encode_mseed`` call: the carried Steim1 encoder
+#: (``native/mseed.cpp`` ``encode_steim1``) forms the differences of
+#: every remaining sample for each 512-byte record, so a call costs the
+#: square of its length (a 1.6 M-sample trace takes 7 s)
+P11_PIECE = 25_000
+
+
+def phase11_archive(root):
+    """A miniSEED SDS archive of both stations, 250 Hz raw, seeded
+    noise with a shared source train, H10N1 ``DELAY`` s late: one day
+    file per station and day, Steim1 (int32 counts) from the port's
+    ``encode_mseed`` in 100 s pieces, which the reader merges. Returns
+    the bytes written and the seconds it took."""
+    from xcorr_tpu_torch.native.mseed import encode_mseed
+    from xcorr_tpu_torch.stream import Stats, SyntheticClient, Trace
+    from xcorr_tpu_torch.stream.sds import sds_path
+    synth = SyntheticClient(
+        sampling_rate=RAW_FS, noise_amplitude=30.0, source_amplitude=600.0,
+        source_period=600.0, seed=SEED,
+        delays={"IM.H10N1..EDH": DELAY, "IM.H03S1..EDH": 0.0})
+    t0, nbytes = time.perf_counter(), 0
+    for receiver in P11_PAIR.split("-"):
+        net, sta, loc, cha = receiver.split(".")
+        for day in P11_ARCHIVE:
+            (tr,) = synth._synthesize_day(receiver, day)
+            payload = b"".join(encode_mseed(Trace(
+                tr.data[i:i + P11_PIECE], Stats(
+                    network=net, station=sta, location=loc, channel=cha,
+                    starttime=tr.stats.starttime + i / RAW_FS,
+                    sampling_rate=RAW_FS)))
+                for i in range(0, tr.stats.npts, P11_PIECE))
+            path = sds_path(root, net, sta, loc, cha, day)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "wb") as f:
+                f.write(payload)
+            nbytes += len(payload)
+    return nbytes, time.perf_counter() - t0
+
+
+def phase11_cli(xt, ff):
+    """The production entry point on the card, archive to shards to
+    analysis: ``xcorr-torch-cc`` (the host engine, K1 on the ``corr``
+    route) writes a shard per pair-day through the port's HDF5 codec;
+    every shard reads back and validates with status 1, peaking at the
+    injected delay, the first within 1e-6 of an in-memory ``process`` of
+    the same pair-day; ``xcorr-torch-snr`` reads the shards and matches
+    ``pair_snr`` (on the in-memory dataset, then on the second shard).
+    Returns K1's launches in the CLI run."""
+    from xcorr_tpu_torch.core import lazy
+    from xcorr_tpu_torch.io.netcdf import from_netcdf
+    from xcorr_tpu_torch.scripts import cc as cc_cli
+    from xcorr_tpu_torch.scripts import snr as snr_cli
+    from xcorr_tpu_torch.stream import Client
+    from xcorr_tpu_torch.stream import sds as sds_mod
+    set_route("corr")
+    tmp = tempfile.TemporaryDirectory()
+    sds, root = os.path.join(tmp.name, "sds"), os.path.join(tmp.name, "cc")
+    inv_path = os.path.join(tmp.name, "inventory.json")
+    inv = phase11_inventory(inv_path)
+    sds_bytes, sds_s = phase11_archive(sds)
+    phase(11, f"miniSEED SDS archive: 2 stations x {len(P11_ARCHIVE)} "
+              f"days at {RAW_FS:g} Hz, {sds_bytes / 1e6:.1f} MB, written "
+              f"in {sds_s:.2f} s")
+
+    # the CLI, its shard writes and day-file reads timed where the
+    # campaign makes them
+    writes, dayfiles = [], []
+    real_write, real_read = lazy.write, sds_mod.read_dayfile
+
+    def timed(fn, out):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            out.append(time.perf_counter() - t0)
+            return res
+        return call
+
+    lazy.write = timed(real_write, writes)
+    sds_mod.read_dayfile = timed(real_read, dayfiles)
+    ff.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = cc_cli.main(["--root", root, "--sds-root", sds, "--pair",
+                          P11_PAIR, "--start", P11_DAYS[0], "--end",
+                          P11_DAYS[1], "--inventory", inv_path])
+        torch.cuda.synchronize()
+    finally:
+        lazy.write, sds_mod.read_dayfile = real_write, real_read
+    cli_wall = time.perf_counter() - t0
+    counts = dict(ff.launches)
+    check(rc == 0, f"xcorr-torch-cc returned {rc}")
+    check(counts["fused_corr"] > 0,
+          f"xcorr-torch-cc never launched fused_corr: {counts}")
+    others = {k: v for k, v in counts.items() if k != "fused_corr" and v}
+    check(not others, f"xcorr-torch-cc also launched {others}")
+    days = pd.date_range(*P11_DAYS, freq="1D")
+    check(len(writes) == len(days), f"{len(writes)} shard writes for "
+                                    f"{len(days)} pair-days")
+
+    # every shard: read, validate, status; the first against an
+    # in-memory process of its pair-day (on this archive a pair-day
+    # takes about a minute of host time, most of it miniSEED decoding)
+    init_args, client_args, _, _ = cc_cli.default_config(sds)
+    client = Client(**client_args)
+    shards, snr_in, reads = [], [], []
+    for iday, day in enumerate(days):
+        path = xt.ncfile(P11_PAIR, day, root)
+        t0 = time.perf_counter()
+        ds = xt.read(path)
+        reads.append(time.perf_counter() - t0)
+        check(ds is not None, f"{path} did not read back")
+        check(xt.io.validate(ds) is not None, f"{path} did not validate")
+        status = ds["status"].values
+        check(bool((status == 1).all()), f"{day:%F} status "
+                                         f"{status.tolist()}")
+        if iday == 0:
+            want = xt.init(pair=P11_PAIR, starttime=day,
+                           endtime=day + pd.Timedelta("1D"),
+                           **{**init_args, "inventory": inv})
+            t0 = time.perf_counter()
+            xt.process(want, client, inventory=inv, device="cuda", verb=0)
+            torch.cuda.synchronize()
+            mem_wall = time.perf_counter() - t0
+            diff = float(np.abs(ds["cc"].values - want["cc"].values).max())
+            check(diff <= CCF_ATOL, f"{day:%F}: shard vs in-memory "
+                                    f"process {diff} > {CCF_ATOL}")
+            versus = (f"max |shard - in-memory process| {diff:.3e} "
+                      f"(bit-identical: {diff == 0.0}; process "
+                      f"{mem_wall:.2f} s)")
+        else:
+            want, versus = ds, "read back"
+        lag = ds.coords["lag"].values
+        ccv = ds["cc"].values
+        peaks = sorted({float(lag[int(np.argmax(ccv[0, i]))])
+                        for i in range(ccv.shape[1])})
+        check(all(abs(p - DELAY) < 1.0 / FS + 1e-9 for p in peaks),
+              f"{day:%F}: shard CCF peaks {peaks} s, injected {DELAY} s")
+        shards.append(os.path.getsize(path))
+        snr_in.append(want)
+        phase(11, f"{day:%F}: shard of {ccv.shape} {ccv.dtype}, status "
+                  f"all 1, {versus}, peaks at {peaks} s")
+
+    # the SNR CLI over the shards, against pair_snr in memory
+    snr_path = os.path.join(tmp.name, "snr.nc")
+    t0 = time.perf_counter()
+    rc = snr_cli.main([P11_DAYS[0], P11_DAYS[1], "--root", root, "--pair",
+                       P11_PAIR, "--out", snr_path])
+    torch.cuda.synchronize()
+    snr_wall = time.perf_counter() - t0
+    check(rc == 0, f"xcorr-torch-snr returned {rc}")
+    got = from_netcdf(snr_path)
+    want = [snr_cli.pair_snr(d, filter_kwargs={"frequency": 3.0,
+                                               "btype": "highpass",
+                                               "order": 2},
+                             device="cuda") for d in snr_in]
+    check(all(w is not None for w in want), "pair_snr gave no SNR")
+    want = xt.ndlabel.combine_by_coords(want)
+    err = hold_snr(got, want, "xcorr-torch-snr vs pair_snr")
+    check("h5py" not in sys.modules, "h5py was imported")
+    tmp.cleanup()
+    phase(11, f"xcorr-torch-cc: {len(days)} pair-days in {cli_wall:.2f} s "
+              f"wall, {cli_wall / len(days):.2f} s per pair-day; K1 "
+              f"launches {counts['fused_corr']}; bytes per shard "
+              f"{shards}; write s per shard (in the campaign) "
+              f"{[round(x, 4) for x in writes]}; read s per shard "
+              f"{[round(x, 4) for x in reads]}; miniSEED day-file reads "
+              f"{len(dayfiles)}, {sum(dayfiles):.2f} s summed over the "
+              f"campaign's threads ({np.median(dayfiles):.3f} s median)")
+    phase(11, f"xcorr-torch-snr over the shards: {snr_wall:.2f} s, snr/s/n "
+              f"within {err:.3e} (relative) of pair_snr in memory, "
+              f"lag_s_max equal; h5py not imported")
+    return counts["fused_corr"]
+
+
+def main(only=None):
+    """The smoke run; with ``only`` 10 or 11, phases 1 and 2 (the build
+    alone) and that phase (phase 10's references made afresh)."""
     t_start = time.perf_counter()
     # -- 1. the card ---------------------------------------------------
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -2541,7 +2751,7 @@ def main(only10=False):
 
     # -- 2. build ----------------------------------------------------------
     tmp = tempfile.TemporaryDirectory()
-    ptxas = {} if only10 else {unit: subprocess.Popen(
+    ptxas = {} if only else {unit: subprocess.Popen(
         [_build._nvcc(), *_build._FLAGS, "-Xptxas", "-v", "-c", "-o",
          os.path.join(tmp.name, f"{i}.o"), str(_build._CSRC / src)],
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
@@ -2550,8 +2760,13 @@ def main(only10=False):
     lib = _build.load()
     phase(2, f"kernels built in {_build.build_seconds:.2f} s "
              f"(load {time.perf_counter() - t0:.2f} s)")
-    if only10:
+    if only == 10:
         return main_phase10(xt, ff, fft4, t_start)
+    if only == 11:
+        k1 = phase11_cli(xt, ff)
+        phase(11, f"phase 11 alone passed: K1 launches {k1}, all "
+                  f"{time.perf_counter() - t_start:.1f} s")
+        return
     for unit, proc in ptxas.items():
         report = proc.communicate()[1]
         check(proc.returncode == 0, f"nvcc -Xptxas -v of {unit} failed: "
@@ -2663,6 +2878,15 @@ def main(only10=False):
     phase(10, f"command time: phase 10 {t10_end - t9_end:.1f} s, all "
               f"{t10_end - t_start:.1f} s")
 
+    # -- 11. the production CLI: archive -> shards -> analysis -------------
+    k1 = phase11_cli(xt, ff)
+    t11_end = time.perf_counter()
+    phase(11, "launches on this slice's path, the count reset just before "
+              "the CLI run and read just after: " + json.dumps(
+                  {"11 xcorr-torch-cc": {"fused_corr": k1}}))
+    phase(11, f"command time: phase 11 {t11_end - t10_end:.1f} s, all "
+              f"{t11_end - t_start:.1f} s")
+
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -2704,4 +2928,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
         worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     else:
-        main(only10=sys.argv[1:2] == ["--phase10"])
+        main(only={"--phase10": 10, "--phase11": 11}.get(
+            (sys.argv[1:2] or [None])[0]))

@@ -143,3 +143,55 @@ def test_next_fast_len_is_next_7_smooth(n):
     assert not any(_smooth(k) for k in range(n, m))
     assert tfft.next_fast_len(n, radices=(2,)) == 1 << max(n - 1, 0) \
         .bit_length()
+
+
+#: one day at 50 Hz and the production lag window, 0-9 h
+DAY_N, DAY_LAGS = 4_320_000, 1_620_000
+
+
+@pytest.fixture(scope="module")
+def day_windows():
+    """Two seeded day-scale windows, ``y`` a copy of ``x`` 4 s earlier
+    plus half as much noise (peak 0.89 at lag 200)."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, DAY_N)).astype(np.float32)
+    y = (np.roll(x, -200, axis=1)
+         + 0.5 * rng.normal(size=x.shape)).astype(np.float32)
+    return x, y
+
+
+def test_row_norm_at_day_scale(day_windows):
+    """The port's norm is within 1e-6 (relative) of ``jnp.linalg.norm``
+    and of the float64 norm at n = 4,320,000 on the CPU
+    (``torch.linalg.vector_norm`` is 9e-5 off there)."""
+    x, _ = day_windows
+    got = tcc.row_norm(torch.from_numpy(x))
+    assert got.shape == (2, 1) and got.dtype == torch.float32
+    got = got[:, 0].numpy().astype(np.float64)
+    f64 = np.linalg.norm(x.astype(np.float64), axis=-1)
+    jax_norm = np.asarray(jnp.linalg.norm(jnp.asarray(x), axis=-1),
+                          dtype=np.float64)
+    np.testing.assert_allclose(got, f64, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(got, jax_norm, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("method", ["monolithic", "fourstep"])
+def test_day_scale_ccf_on_cpu_matches_f64(day_windows, method):
+    """One day-scale correlation on the CPU (``process(device="cpu")``
+    takes the monolithic path; the four-step's epilogue shares the norm)
+    is within 1e-6 of the float64 oracle (with the float32
+    ``vector_norm`` it was 1.8e-4 off)."""
+    import scipy.fft as sfft
+    x, y = day_windows
+    imin, imax = DAY_N - 1, DAY_N - 1 + DAY_LAGS
+    got = tcc.correlate(torch.from_numpy(x), torch.from_numpy(y),
+                        index_min=imin, index_max=imax,
+                        method=method).numpy()
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    nfft = sfft.next_fast_len(2 * DAY_N - 1, real=True)
+    r = sfft.irfft(sfft.rfft(x64, nfft) * np.conj(sfft.rfft(y64, nfft)),
+                   nfft)
+    want = r[:, (np.arange(imin, imax) - (DAY_N - 1)) % nfft] / (
+        np.linalg.norm(x64, axis=-1) * np.linalg.norm(y64, axis=-1))[:, None]
+    assert np.abs(want).max() > 0.85
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_F64)

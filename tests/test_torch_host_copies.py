@@ -90,6 +90,37 @@ def _load():
     lib = ctypes.CDLL(_build())'''),
 ]
 
+#: HDF5 day files go through the port's codec (``io/hdf5.py``), which
+#: rewrites a file it adds to instead of editing it in place
+_SDS = [(
+    """        import h5py
+
+        def _s(v):""",
+    """        from ..io import hdf5
+
+        def _s(v):"""), (
+    """        with h5py.File(path, "r") as f:
+            for name in f:
+                a = f[name].attrs""",
+    """        with hdf5.File(path, "r") as f:
+            for name in f:
+                a = f[name].attrs"""), (
+    """def _read_dayfile_h5(path):
+    import h5py
+    traces = []
+    with h5py.File(path, "r") as f:""",
+    """def _read_dayfile_h5(path):
+    from ..io import hdf5
+    traces = []
+    with hdf5.File(path, "r") as f:"""), (
+    """def write_dayfile_h5(path, trace: Trace):
+    import h5py
+    with h5py.File(path, "a") as f:""",
+    """def write_dayfile_h5(path, trace: Trace):
+    from ..io import hdf5
+    with hdf5.File(path, "a") as f:"""),
+]
+
 _SYSMEM_SRC = (ROOT / "xcorr_tpu" / "util" / "sysmem.py").read_text()
 #: the heap settings are carried; the JAX compile cache (the module's
 #: last function, to its end) and the ``os`` import only it used are not
@@ -121,7 +152,7 @@ CARRIED = {
     "stream/inventory.py": [],
     "stream/process.py": [],
     "stream/client.py": [],
-    "stream/sds.py": [],
+    "stream/sds.py": _SDS,
     "stream/duration.py": [],
     "stream/vdms.py": [],
     "stream/running_rms.py": [],
@@ -129,7 +160,6 @@ CARRIED = {
     "native/__init__.py": [],
     "native/mseed.py": _MSEED,
     "io/__init__.py": [],
-    "io/netcdf.py": [],
     "io/write.py": [],
     "io/read.py": [],
     "io/filesystem.py": [],

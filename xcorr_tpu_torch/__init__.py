@@ -15,8 +15,9 @@ engine or ``engine='device'``; the device engine, meshes and
 multi-process campaigns in :mod:`.parallel`; ``postprocess(ds,
 device='cuda')``, ``merge`` and
 ``plot``. The shard I/O (``io``, ``read``, ``write``,
-``lazy_process``) needs h5py and is imported on first use, so a machine
-without h5py can still initialize, correlate and postprocess datasets.
+``lazy_process``) is imported on first use; it writes and reads the
+netCDF-4 shards through the port's own HDF5 codec (:mod:`.io.hdf5`,
+numpy and zlib), so it needs no HDF5 library.
 """
 
 __version__ = "0.1.0"

@@ -7,7 +7,7 @@ on a torch device (:func:`process`), the postprocess chain
 (:func:`postprocess`, on a torch device), merging (:func:`merge`,
 carried), the ``ds.xcorr`` accessor and the plots (:mod:`.plot`; both
 carried, matplotlib imported on use). :mod:`.lazy` (the pair-day batch
-runner) is imported on use: it writes shards, which needs h5py.
+runner) is imported on use.
 """
 
 from .init import init

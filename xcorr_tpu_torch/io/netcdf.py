@@ -1,14 +1,17 @@
-# Carried from xcorr_tpu/io/netcdf.py (see test_torch_host_copies).
 r"""
-:mod:`io.netcdf` -- h5py-backed netCDF-4 storage
-================================================
+:mod:`io.netcdf` -- netCDF-4 storage on the port's own HDF5 codec
+=================================================================
 
-Self-describing dataset persistence on plain HDF5 (netCDF4/h5netcdf are not
-part of this build). Files follow netCDF-4 conventions — dimension-scale
-coordinate datasets, gzip+shuffle encoding, CF attributes — so external
-netCDF tooling can open the shards, and carry a small set of ``_xcorr_*``
-attributes that make the round trip through :mod:`xcorr_tpu.ndlabel`
-type-exact (datetime64/bool/str restoration).
+Self-describing dataset persistence on plain HDF5, written and read by
+:mod:`io.hdf5` (numpy + zlib; no HDF5 library, so the shards are written
+and read wherever the port runs). Files follow netCDF-4 conventions —
+dimension-scale coordinate datasets, gzip+shuffle encoding, CF
+attributes — so external netCDF tooling can open the shards, and carry a
+small set of ``_xcorr_*`` attributes that make the round trip through
+:mod:`xcorr_tpu_torch.ndlabel` type-exact (datetime64/bool/str
+restoration). The API and its semantics are the JAX package's
+``xcorr_tpu/io/netcdf.py``: each package reads the other's files to the
+same Dataset.
 
 Reference behavior being reproduced: ``xcorr/io/read.py`` /
 ``xcorr/io/write.py`` persistence of the CCF Dataset with zlib-9+shuffle
@@ -23,20 +26,19 @@ import os
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
-import h5py
 import numpy as np
 
 from ..ndlabel import DataArray, Dataset
+from . import hdf5
 
 __all__ = ["to_netcdf", "from_netcdf"]
 
-_STR_DTYPE = h5py.string_dtype(encoding="utf-8")
+_STR_DTYPE = hdf5.string_dtype()
 
 # arrays at least this large go through the threaded chunk compressor
 # (zlib releases the GIL, so compression parallelizes across chunks;
-# h5py's normal write path compresses serially inside the HDF5 filter
-# pipeline — measured 1.14 s for a production CCF shard vs ~0.35 s
-# threaded). The file stays a standard shuffle+deflate HDF5/netCDF-4.
+# the codec's normal write path compresses chunk after chunk). The file
+# stays a standard shuffle+deflate HDF5/netCDF-4.
 _PARALLEL_WRITE_MIN = 4 << 20
 _PARALLEL_WRITE_THREADS = 8
 
@@ -63,9 +65,10 @@ def _default_chunks(shape, dtype):
 
 def _direct_chunk_write(dset, data, chunks, complevel, shuffle):
     """Compress chunks in a thread pool and store them verbatim via
-    ``write_direct_chunk`` (bit-identical to the serial HDF5 shuffle +
+    ``write_direct_chunk`` (bit-identical to the serial shuffle +
     deflate pipeline; edge chunks zero-padded to full chunk size, as
-    HDF5 itself stores them)."""
+    HDF5 itself stores them); the codec builds the chunk B-tree over
+    them when the file closes."""
     shape = data.shape
     coords = list(itertools.product(
         *[range(0, shape[i], chunks[i]) for i in range(len(shape))]))
@@ -84,7 +87,7 @@ def _direct_chunk_write(dset, data, chunks, complevel, shuffle):
     nthreads = min(_PARALLEL_WRITE_THREADS, len(coords))
     with ThreadPoolExecutor(max_workers=nthreads) as ex:
         for off, payload in ex.map(prep, coords):
-            dset.id.write_direct_chunk(off, payload)
+            dset.write_direct_chunk(off, payload)
 
 
 def _encode_data(data):
@@ -138,8 +141,9 @@ def _encode_attr(value):
         return json.dumps(value), True
     if value is None:
         return "n/a", False
-    # datetime64/timedelta64 have no native HDF5 equivalent (h5py
-    # raises); store ISO-8601 / str form like CF attribute conventions.
+    # datetime64/timedelta64 have no native HDF5 equivalent (the codec
+    # raises, as h5py does); store ISO-8601 / str form like CF attribute
+    # conventions.
     # np.datetime64 is an np.generic, so check before that branch.
     if isinstance(value, (np.datetime64, np.timedelta64)):
         return str(value), False
@@ -251,7 +255,7 @@ def to_netcdf(ds: Dataset, path, mode: str = "w", engine=None, **kw):
             "refusing to write a header-only dataset: its large data "
             "variables are zero placeholders (re-read without "
             "header_only=True to persist)")
-    with h5py.File(path, mode) as f:
+    with hdf5.File(path, mode) as f:
         _write_attrs(f, ds.attrs)
         dims = ds.dims
         # coordinate (dimension-scale) datasets first
@@ -322,7 +326,7 @@ def from_netcdf(path, header_only: bool = False, **kw) -> Dataset:
     ``encoding["header_only"]`` and :func:`to_netcdf` refuses to
     persist it (placeholder payloads must never reach disk)."""
     ds = Dataset()
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         ds.attrs = _read_attrs(f)
         coord_names = json.loads(ds.attrs.pop("_xcorr_coordinates", "[]"))
         ds.attrs.pop("_xcorr_phony_dims", None)

@@ -93,6 +93,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .cc import row_norm
 from .fft import next_fast_len
 from .fused_fft import (MAX_N2, check_geometry, fused_corr, fused_corr_acc,
                         fused_corr_full, spectrum_order, stageb_fwd,
@@ -252,9 +253,7 @@ def _finish_ccf(out_flat, x, y, segs_flat, normalize, scale=None):
     if scale is not None:
         r = r * scale
     if normalize:
-        nx = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
-        ny = torch.linalg.vector_norm(y, dim=-1, keepdim=True)
-        denom = nx * ny
+        denom = row_norm(x) * row_norm(y)
         r = r / torch.where(denom == 0, torch.ones_like(denom), denom)
     return r.to(x.dtype)
 

@@ -11,7 +11,7 @@ The chain and the co-array correlations run on the torch device that
 ``--platform`` names (``cuda`` by default, raising without a card).
 :func:`beamform_datasets` is the computation on datasets in memory, for
 callers that hold their CCFs without shards. The shard I/O is imported on
-use (it needs h5py).
+use.
 """
 
 from __future__ import annotations

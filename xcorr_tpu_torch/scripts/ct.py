@@ -7,7 +7,7 @@ function, export triggered periods (spec: ``xcorr/scripts/ct.py:28-164``;
 port of ``xcorr_tpu/scripts/ct.py``). The trigger runs on the host, as in
 the JAX package; the device ``--platform`` names (``cuda`` by default) is
 still resolved up front, so a run asked for a missing card raises. The
-shard I/O is imported on use (it needs h5py). ``--plot`` draws the SNR
+shard I/O is imported on use. ``--plot`` draws the SNR
 series with the triggered periods shaded (matplotlib, on the host).
 """
 

@@ -10,7 +10,7 @@ peak extraction -> long-form DataFrame, written as CSV or pandas HDF
 The chain, the spectrogram or scaleogram and the peak filter run on the
 torch device that ``--platform`` names (``cuda`` by default, raising
 without a card). :func:`pair_plmax` is the computation on a dataset in
-memory. The shard I/O is imported on use (it needs h5py).
+memory. The shard I/O is imported on use.
 """
 
 from __future__ import annotations

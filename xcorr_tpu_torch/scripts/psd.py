@@ -12,7 +12,7 @@ the SNR values and write one netCDF per period
 The chain and the spectrogram run on the torch device that ``--platform``
 names (``cuda`` by default, raising without a card). :func:`pair_psd` is
 the per-pair computation on a dataset in memory. The shard I/O is
-imported on use (it needs h5py). ``--plot`` is accepted and draws
+imported on use. ``--plot`` is accepted and draws
 nothing, as in the JAX package.
 """
 

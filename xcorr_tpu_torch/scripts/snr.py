@@ -10,8 +10,8 @@ estimate SNR, concatenate over pairs and days, write one netCDF
 The chain and the envelope run on the torch device that ``--platform``
 names (``cuda`` by default, raising without a card). :func:`pair_snr` is
 the per-pair computation on a dataset in memory, for callers that hold
-their CCFs without shards. The shard I/O is imported on use (it needs
-h5py). ``--plot`` draws the SNR series with matplotlib on the host.
+their CCFs without shards. The shard I/O is imported on use.
+``--plot`` draws the SNR series with matplotlib on the host.
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ amplitude ratio and phase = the surface-wave response
 The chain and the transforms run on the torch device that ``--platform``
 names (``cuda`` by default, raising without a card); the ratio and phase
 on the host. :func:`swresp_datasets` is the computation on datasets in
-memory. The shard I/O is imported on use (it needs h5py).
+memory. The shard I/O is imported on use.
 """
 
 from __future__ import annotations

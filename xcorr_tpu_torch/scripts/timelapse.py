@@ -13,7 +13,7 @@ upper-triangle cells are 2-D-correlated in batches on the torch device
 that ``--platform`` names (:func:`correlate_spectrograms`; ``cuda`` by
 default, raising without a card), or with ``mesh=`` each batch split
 over a mesh's devices (SURVEY.md §2.8 P2). The shard I/O is imported on
-use (it needs h5py).
+use.
 """
 
 from __future__ import annotations

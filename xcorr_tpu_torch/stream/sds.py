@@ -144,14 +144,14 @@ def scan_dayfile(path) -> list:
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic == _HDF5_MAGIC:
-        import h5py
+        from ..io import hdf5
 
         def _s(v):
             # fixed-length HDF5 strings round-trip as bytes
             return v.decode() if isinstance(v, bytes) else str(v)
 
         segs = []
-        with h5py.File(path, "r") as f:
+        with hdf5.File(path, "r") as f:
             for name in f:
                 a = f[name].attrs
                 seed_id = ".".join([
@@ -165,9 +165,9 @@ def scan_dayfile(path) -> list:
 
 
 def _read_dayfile_h5(path):
-    import h5py
+    from ..io import hdf5
     traces = []
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         for name in f:
             dset = f[name]
             stats = Stats({
@@ -180,8 +180,8 @@ def _read_dayfile_h5(path):
 
 
 def write_dayfile_h5(path, trace: Trace):
-    import h5py
-    with h5py.File(path, "a") as f:
+    from ..io import hdf5
+    with hdf5.File(path, "a") as f:
         name = f"{trace.id}.{trace.stats.starttime.ns}"
         if name in f:
             del f[name]
