@@ -86,8 +86,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    to the same calls on the CPU (``cc`` within 1e-5 of its peak; ``snr``,
    ``s``, ``n`` within 1e-5 relative; ``lag_s_max`` equal), with card ms
    per pair-day for each stage of the chain. (b) The campaign at the
-   production celerity window: the 8 pairs of ``scripts/cc.py`` for 7
-   days (56 pair-days) built with ``init`` at the production geometry and
+   production celerity window: the 8 pairs of ``scripts/cc.py`` for 5
+   days (40 pair-days) built with ``init`` at the production geometry and
    filled from a seeded generator (noise plus one arrival at
    distance / 1480 m/s, strong on two runs of windows), one day held at a
    time; per pair ``scripts.snr.pair_snr`` (``postprocess(clim=(1460,
@@ -190,7 +190,18 @@ Phases, each printed on its own line; any failure exits non-zero:
     datasets, ``lag_s_max`` equal. Bytes, write seconds (in the
     campaign) and read seconds per shard, the CLI's wall per pair-day;
     h5py must not be imported. ``python3 chip_smoke.py --phase11`` runs
-    phases 1, 2 (the build alone) and 11.
+    phases 1, 2 (the build alone) and 11;
+12. files that other HDF5 writers make, read on this machine without
+    h5py: every fixture of ``tests/fixtures_torch/hdf5`` (netCDF-C's
+    layout, each version-4 chunk index, fletcher32, lzf, and an xcorr
+    shard the JAX package wrote under netCDF-C's file settings, all made
+    by ``tools/make_hdf5_fixtures.py``) read by ``io.netcdf.from_netcdf``
+    to the sha256 of the view the JAX package reads (``expected.json``),
+    with and without ``header_only``, with the read time per file; the
+    shard read and validated with its hashes; ``xcorr-torch-snr`` over it
+    on the card within 1e-5 (relative) of the port's ``pair_snr`` on the
+    CPU, recorded in ``expected.json``; h5py must not be imported. No
+    kernel runs. ``python3 chip_smoke.py --phase12`` runs phases 1 and 12.
 
 The line before the last is the kernels' JSON record (K1's launches from
 phase 6, K2's from phase 10b's ``'fft'`` call, K3's and K4's from their
@@ -1342,7 +1353,9 @@ def phase7a_full_width(xt, dss, ndays):
         f"{name} {t / ndays:.1f}" for name, t in ms))
 
 
-CAMPAIGN_DAYS = 7
+#: days of the campaign: enough for both EVENTS; the script's time limit
+#: bounds the rest
+CAMPAIGN_DAYS = 5
 CAMPAIGN_START = pd.Timestamp("2014-03-01")
 NOISE = 1e-3
 #: (campaign day, first window, last window) of the strong arrivals
@@ -2729,9 +2742,77 @@ def phase11_cli(xt, ff):
     return counts["fused_corr"]
 
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+P12_FIXTURES = os.path.join(REPO, "tests", "fixtures_torch", "hdf5")
+P12_BUDGET_S = 30.0
+
+
+def phase12_foreign_files(xt):
+    """The port's HDF5 reader on files in the newer format, where no
+    h5py is: each fixture to its recorded digest, the shard validated,
+    ``xcorr-torch-snr`` over it against the CPU's ``pair_snr``."""
+    from xcorr_tpu_torch.io.netcdf import from_netcdf
+    from xcorr_tpu_torch.scripts import snr as snr_cli
+    from tools.hdf5_view import digest
+    t_start = time.perf_counter()
+    with open(os.path.join(P12_FIXTURES, "expected.json")) as fh:
+        exp = json.load(fh)
+    reads = {}
+    for name, want in exp["files"].items():
+        path = os.path.join(P12_FIXTURES, name)
+        t0 = time.perf_counter()
+        ds = from_netcdf(path)
+        reads[name] = (time.perf_counter() - t0) * 1e3
+        check(digest(ds) == want["digest"],
+              f"{name}: the view differs from the JAX package's")
+        check(digest(from_netcdf(path, header_only=True))
+              == want["digest_header_only"],
+              f"{name}: the header-only view differs from the JAX "
+              "package's")
+    phase(12, f"{len(reads)} fixtures read to the JAX package's views "
+              "(with and without header_only); read ms per file: "
+              + json.dumps({k: round(v, 3) for k, v in reads.items()}))
+    shard = exp["shard"]
+    tmp = tempfile.TemporaryDirectory()
+    day = pd.Timestamp(shard["day"])
+    path = xt.ncfile(shard["pair"], day, tmp.name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(os.path.join(P12_FIXTURES, shard["file"]), "rb") as src, \
+            open(path, "wb") as dst:
+        dst.write(src.read())
+    t0 = time.perf_counter()
+    ds = xt.read(path)
+    read_s = time.perf_counter() - t0
+    check(ds is not None, f"{shard['file']} did not read and validate")
+    check(bool((ds["status"].values == 1).all()), "shard status not all 1")
+    out = os.path.join(tmp.name, "snr.nc")
+    t0 = time.perf_counter()
+    rc = snr_cli.main([shard["day"], shard["day"], "--root", tmp.name,
+                       "--pair", shard["pair"], "--celerity",
+                       *map(str, shard["celerity"]), "--filter-freq",
+                       str(shard["filter"]["frequency"]), "--out", out])
+    torch.cuda.synchronize()
+    snr_s = time.perf_counter() - t0
+    check(rc == 0, f"xcorr-torch-snr returned {rc}")
+    got = from_netcdf(out)
+    err = max(rel_err(got[k].values.reshape(-1), shard["snr"][k])
+              for k in ("snr", "s", "n"))
+    check(err <= P7_TOL, f"xcorr-torch-snr vs the CPU's pair_snr: "
+                         f"relative error {err} > {P7_TOL}")
+    check("h5py" not in sys.modules, "h5py was imported")
+    tmp.cleanup()
+    wall = time.perf_counter() - t_start
+    check(wall <= P12_BUDGET_S, f"phase 12 took {wall:.1f} s")
+    phase(12, f"{shard['file']}: read and validated in {read_s:.4f} s; "
+              f"xcorr-torch-snr on the card {snr_s:.2f} s, snr/s/n within "
+              f"{err:.3e} (relative) of the CPU's pair_snr; h5py not "
+              f"imported; phase 12 {wall:.2f} s")
+
+
 def main(only=None):
     """The smoke run; with ``only`` 10 or 11, phases 1 and 2 (the build
-    alone) and that phase (phase 10's references made afresh)."""
+    alone) and that phase (phase 10's references made afresh); with 12,
+    phases 1 and 12."""
     t_start = time.perf_counter()
     # -- 1. the card ---------------------------------------------------
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -2748,6 +2829,11 @@ def main(only=None):
     phase(1, f"torch {torch.__version__} cuda {torch.version.cuda} "
              f"device {torch.cuda.get_device_name(0)} "
              f"count {torch.cuda.device_count()}")
+    if only == 12:
+        phase12_foreign_files(xt)
+        phase(12, f"phase 12 alone passed: all "
+                  f"{time.perf_counter() - t_start:.1f} s")
+        return
 
     # -- 2. build ----------------------------------------------------------
     tmp = tempfile.TemporaryDirectory()
@@ -2887,6 +2973,12 @@ def main(only=None):
     phase(11, f"command time: phase 11 {t11_end - t10_end:.1f} s, all "
               f"{t11_end - t_start:.1f} s")
 
+    # -- 12. files other HDF5 writers make, without h5py --------------------
+    phase12_foreign_files(xt)
+    t12_end = time.perf_counter()
+    phase(12, f"command time: phase 12 {t12_end - t11_end:.1f} s, all "
+              f"{t12_end - t_start:.1f} s")
+
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -2928,5 +3020,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
         worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     else:
-        main(only={"--phase10": 10, "--phase11": 11}.get(
+        main(only={"--phase10": 10, "--phase11": 11, "--phase12": 12}.get(
             (sys.argv[1:2] or [None])[0]))

@@ -1,10 +1,10 @@
 r"""
-:mod:`io.hdf5` -- the HDF5 subset of the shards, in numpy and zlib
-==================================================================
+:mod:`io.hdf5` -- the shards' HDF5, in numpy and zlib
+=====================================================
 
-A writer and a reader for the part of HDF5 (*HDF5 File Format
-Specification, Version 3.0*) that netCDF-4 shards use, so the shard store
-needs no HDF5 library:
+A writer and a reader of HDF5 (*HDF5 File Format Specification, Version
+3.0*) for netCDF-4 shards and the files other tools write, so the shard
+store needs no HDF5 library. The writer writes, and this module reads:
 
 - superblock version 0 (and 1 on read);
 - the root group as a symbol table: a version-1 B-tree of ``SNOD`` nodes
@@ -21,21 +21,31 @@ needs no HDF5 library:
   and ``REFERENCE_LIST``, as h5py's ``make_scale`` and ``attach_scale``
   write them, so netCDF tools and h5py's ``.dims`` see the scales.
 
+The reader also reads what HDF5 1.8 and later write (h5py's newer
+``libver`` settings, ``track_order``, every file of the netCDF-C
+library), through :mod:`io.hdf5_v2`: superblocks 2 and 3, version-2
+object headers, new-style groups (compact and dense links), dense
+attributes, the newer message versions (attribute 2-3, datatype 3-4,
+fill value 3, filter pipeline 2, data layout 4 with every chunk index),
+and the fletcher32 and lzf filters. Groups and attributes list in h5py's
+order: creation order where the object tracks it, by name otherwise.
+
 The API is the part of h5py's that :mod:`io.netcdf` uses, and values map
 to and from numpy as h5py maps them (a ``str`` attribute is a UTF-8
 variable-length string, a Python ``int`` an ``int64``, a ``bool`` h5py's
 enumeration; a string dataset reads as ``bytes``; chunks are guessed as
 h5py guesses them). ``File(path, "w")`` lays the whole file out when it
 closes: metadata first, raw data after it, every address known before
-any byte is written. A file is never edited in place.
+any byte is written. A file is never edited in place; the writer writes
+only the structures of the list above, as h5py does by default.
 
-A structure outside the subset raises :class:`NotImplementedError`
-naming it: superblock versions 2 and 3, version-2 object headers,
-new-style groups (link messages, fractal heaps), dense attribute
-storage, shared messages, version-4 layouts' chunk indexes (fixed and
-extensible arrays, version-2 B-trees), external storage and filters
-other than shuffle and deflate. A file that is not HDF5, or is cut
-short, raises :class:`OSError`.
+A structure outside what is read raises :class:`NotImplementedError`
+naming it: shared object header messages, groups below the root group,
+external storage and external links, virtual datasets, the szip, nbit,
+scaleoffset, blosc, zstd and unknown filters, offsets or lengths other
+than 8 bytes, region references, and the time, bitfield, opaque and
+array datatypes. A file that is not HDF5, is cut short, or fails a
+checksum raises :class:`OSError`.
 """
 
 from __future__ import annotations
@@ -48,6 +58,8 @@ from concurrent.futures import ThreadPoolExecutor
 from itertools import product
 
 import numpy as np
+
+from . import hdf5_v2
 
 __all__ = ["File", "string_dtype"]
 
@@ -65,10 +77,13 @@ _READ_THREADS = 8
 
 # object header message types
 _DATASPACE, _LINK_INFO, _DATATYPE, _FILL_OLD, _FILL = 0x1, 0x2, 0x3, 0x4, 0x5
-_LINK, _EXTERNAL, _LAYOUT, _GROUP_INFO = 0x6, 0x7, 0x8, 0xA
+_LINK, _EXTERNAL, _LAYOUT = 0x6, 0x7, 0x8
 _PIPELINE, _ATTRIBUTE, _CONTINUATION = 0xB, 0xC, 0x10
 _SYMBOL_TABLE, _ATTR_INFO = 0x11, 0x15
-_FILTER_DEFLATE, _FILTER_SHUFFLE = 1, 2
+_FILTER_DEFLATE, _FILTER_SHUFFLE, _FILTER_FLETCHER32 = 1, 2, 3
+_FILTER_LZF = 32000
+_FILTERS_READ = (_FILTER_DEFLATE, _FILTER_SHUFFLE, _FILTER_FLETCHER32,
+                 _FILTER_LZF)
 _FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip",
                  5: "nbit", 6: "scaleoffset", 32000: "lzf",
                  32001: "blosc", 32015: "zstd"}
@@ -174,7 +189,7 @@ class _Type:
 def _parse_type(b, p):
     """The datatype message at ``b[p:]``: ``(_Type, bytes used)``."""
     cls, ver = b[p] & 0x0F, b[p] >> 4
-    if ver not in (1, 2):
+    if ver not in (1, 2, 3, 4):
         raise NotImplementedError(f"datatype message version {ver}")
     bits = b[p + 1] | (b[p + 2] << 8) | (b[p + 3] << 16)
     size = struct.unpack_from("<I", b, p + 4)[0]
@@ -188,18 +203,23 @@ def _parse_type(b, p):
     if cls == 3:    # fixed-length string
         return _Type(np.dtype(f"S{size}")), 8
     if cls == 7:    # reference
-        if bits & 0x0F != 0:
+        if bits & 0x0F == 1:
             raise NotImplementedError("dataset region references")
+        if bits & 0x0F != 0:
+            raise NotImplementedError(
+                f"reference type {bits & 0x0F} (only object references)")
         return _Type(np.dtype("<u8")), 8
     if cls == 6:    # compound
         nmemb = bits & 0xFFFF
         names, formats, offsets = [], [], []
+        # version 3 on: names unpadded, offsets in the fewest bytes
+        owidth = hdf5_v2._enc_size(size) if ver >= 3 else 4
         for _ in range(nmemb):
             end = b.find(b"\0", q)
             names.append(bytes(b[q:end]).decode("utf-8"))
-            q += _align8(end + 1 - q)
-            off = struct.unpack_from("<I", b, q)[0]
-            q += 4
+            q += end + 1 - q if ver >= 3 else _align8(end + 1 - q)
+            off = int.from_bytes(b[q:q + owidth], "little")
+            q += owidth
             if ver == 1:
                 if b[q] != 0:
                     raise NotImplementedError(
@@ -229,7 +249,7 @@ def _parse_type(b, p):
         for _ in range(nmemb):
             end = b.find(b"\0", q)
             names.append(bytes(b[q:end]))
-            q += _align8(end + 1 - q)
+            q += end + 1 - q if ver >= 3 else _align8(end + 1 - q)
         values = np.frombuffer(bytes(b[q:q + nmemb * base.dtype.itemsize]),
                                base.dtype).tolist()
         q += nmemb * base.dtype.itemsize
@@ -337,19 +357,25 @@ def _space(shape):
             + b"".join(struct.pack("<Q", int(d)) for d in shape))
 
 
-def _parse_space(b, p):
+def _parse_space(b, p, maxshape=False):
     """``shape`` of the dataspace message at ``p``; ``None`` for a null
-    dataspace."""
+    dataspace. With ``maxshape``, ``(shape, maximum shape)``: the shape
+    where none is stored, ``_UNDEF`` for an unlimited dimension."""
     ver, nd = b[p], b[p + 1]
     if ver == 1:
         q = p + 8
     elif ver == 2:
         if b[p + 3] == 2:
-            return None
+            return (None, None) if maxshape else None
         q = p + 4
     else:
         raise NotImplementedError(f"dataspace message version {ver}")
-    return tuple(struct.unpack_from(f"<{nd}Q", b, q)) if nd else ()
+    shape = tuple(struct.unpack_from(f"<{nd}Q", b, q)) if nd else ()
+    if not maxshape:
+        return shape
+    if b[p + 2] & 0x01 and nd:
+        return shape, tuple(struct.unpack_from(f"<{nd}Q", b, q + 8 * nd))
+    return shape, shape
 
 
 # ---------------------------------------------------------------------------
@@ -357,15 +383,15 @@ def _parse_space(b, p):
 
 
 class _Attrs:
-    """Read-only attributes, in the library's name order."""
+    """Read-only attributes, in h5py's order: creation order where the
+    object header tracks it, by name otherwise. ``msgs`` holds ``(name,
+    type, shape, data, type bytes, creation order)``."""
 
-    def __init__(self, f, msgs):
+    def __init__(self, f, msgs, by_creation=False):
         self._f = f
-        raw = {}
-        for name, t, shape, data, tbytes in msgs:
-            raw[name] = (t, shape, data, tbytes)
-        self._raw = dict(sorted(raw.items(),
-                                key=lambda kv: kv[0].encode("utf-8")))
+        key = (lambda m: m[5]) if by_creation else \
+            (lambda m: m[0].encode("utf-8"))
+        self._raw = {m[0]: m[1:5] for m in sorted(msgs, key=key)}
 
     def __contains__(self, k):
         return k in self._raw
@@ -420,11 +446,12 @@ class _ReadDataset:
         self._f, self.name = f, name
         self.shape, self._type, self._layout = None, None, None
         self._filters, self._fill = [], None
-        attrs, group = [], False
-        for mtype, p, size in f._messages(addr):
+        group = False
+        msgs = f._messages(addr)
+        for mtype, p, size in msgs:
             b = f._b
             if mtype == _DATASPACE:
-                self.shape = _parse_space(b, p)
+                self.shape, self._maxshape = _parse_space(b, p, True)
             elif mtype == _DATATYPE:
                 self._type, used = _parse_type(b, p)
                 self._tbytes = bytes(b[p:p + used])
@@ -436,19 +463,18 @@ class _ReadDataset:
                 fill = f._parse_fill(mtype, p)
                 if mtype == _FILL or self._fill is None:
                     self._fill = fill
-            elif mtype == _ATTRIBUTE:
-                attrs.append(f._parse_attribute(p))
-            elif mtype == _ATTR_INFO:
-                f._check_attr_info(p)
             elif mtype == _EXTERNAL:
                 raise NotImplementedError("external data storage")
             elif mtype in (_SYMBOL_TABLE, _LINK, _LINK_INFO):
                 group = True
-        self.attrs = _Attrs(f, attrs)
+        if group:
+            raise NotImplementedError(
+                f"{name!r} is a group: groups below the root group")
+        self.attrs = f._attrs(msgs)
         if self._type is None or self._layout is None:
             raise NotImplementedError(
-                f"{name!r} is a {'group' if group else 'named object'}: "
-                "only datasets in the root group")
+                f"{name!r} is a named object: only datasets in the root "
+                "group")
         if self.shape is None:
             raise NotImplementedError(f"{name!r} has a null dataspace")
 
@@ -505,7 +531,7 @@ class _ReadDataset:
             raw = self._fill_bytes(n) if addr == _UNDEF else \
                 self._f._read(addr, n * esize)
         else:
-            raw = self._read_chunked(lay[1], lay[2], n)
+            raw = self._read_chunked(lay[1], n)
         return self._f._values(t, raw, shape)
 
     def _fill_bytes(self, n):
@@ -514,17 +540,27 @@ class _ReadDataset:
             return self._fill * n
         return bytes(n * esize)
 
-    def _read_chunked(self, cdims, btree, n):
+    def _chunks(self):
+        """``[(stored bytes, filter mask, offsets, address)]`` of every
+        written chunk, from the layout's chunk index."""
+        cdims, index = self._layout[1], self._layout[2]
+        if index[0] == 0:   # a version-1 B-tree (layout version 3)
+            return [] if index[1] == _UNDEF else \
+                self._f._chunk_btree(index[1], len(cdims) - 1)
+        return hdf5_v2.chunk_list(self._f, index, cdims[:-1], cdims[-1],
+                                  self.shape, self._maxshape,
+                                  bool(self._filters))
+
+    def _read_chunked(self, cdims, n):
         f, t, shape = self._f, self._type, self.shape
         chunk = tuple(cdims[:-1])
         esize = t.dtype.itemsize
         out = np.frombuffer(bytearray(self._fill_bytes(n)), t.dtype
                             ).reshape(shape)
-        if btree == _UNDEF:
-            return out.tobytes()
-        found = f._chunk_btree(btree, len(chunk))
+        found = self._chunks()
         filters = self._filters
         stored = sum(nb for nb, _, _, _ in found)
+        want = _nelem(chunk) * esize
 
         def load(item):
             nbytes, mask, offs, addr = item
@@ -538,6 +574,10 @@ class _ReadDataset:
                         buf = zlib.decompress(buf)
                     except zlib.error as e:
                         raise OSError(f"corrupt deflate chunk: {e}")
+                elif fid == _FILTER_FLETCHER32:
+                    buf = hdf5_v2.unfletcher32(buf)
+                elif fid == _FILTER_LZF:
+                    buf = hdf5_v2.unlzf(buf, cd[2] if len(cd) > 2 else want)
                 else:
                     buf = _unshuffle(buf, cd[0] if cd else esize)
             return offs, buf
@@ -548,7 +588,6 @@ class _ReadDataset:
                 loaded = list(ex.map(load, items))
         else:
             loaded = [load(it) for it in items]
-        want = _nelem(chunk) * esize
         for offs, buf in loaded:
             if len(buf) != want:
                 raise OSError(f"chunk at {offs} holds {len(buf)} bytes, "
@@ -572,7 +611,7 @@ class _ReadFile:
         except ValueError as e:     # an empty file
             self._fh.close()
             raise OSError(f"{path}: not an HDF5 file ({e})") from None
-        self._heaps, self._objects = {}, {}
+        self._heaps, self._objects, self._names = {}, {}, {}
         try:
             self._open()
         except NotImplementedError:
@@ -594,35 +633,23 @@ class _ReadFile:
                 break
         if base is None:
             raise OSError("file signature not found")
+        # addresses count from the superblock, wherever a user block puts
+        # it (the library moves the stored base address there too)
         self._base = base
         ver = b[base + 8]
-        if ver not in (0, 1):
-            raise NotImplementedError(f"superblock version {ver}")
-        so, sl = b[base + 13], b[base + 14]
-        if (so, sl) != (8, 8):
-            raise NotImplementedError(
-                f"{so}-byte offsets and {sl}-byte lengths")
-        p = base + 24 + (4 if ver == 1 else 0)
-        sb_base = struct.unpack_from("<Q", b, p)[0]
-        self._base = sb_base if sb_base != _UNDEF else base
-        root = p + 32
-        root_addr = struct.unpack_from("<Q", b, root + 8)[0]
-        self._root = root_addr
-        attrs, table = [], None
-        for mtype, q, size in self._messages(root_addr):
-            if mtype == _SYMBOL_TABLE:
-                table = struct.unpack_from("<QQ", b, q)
-            elif mtype in (_LINK, _LINK_INFO, _GROUP_INFO):
+        if ver in (2, 3):
+            self._root, ext = hdf5_v2.superblock(self, base)
+            hdf5_v2.check_extension(self, ext)
+        elif ver in (0, 1):
+            so, sl = b[base + 13], b[base + 14]
+            if (so, sl) != (8, 8):
                 raise NotImplementedError(
-                    "new-style groups (link messages, fractal heaps)")
-            elif mtype == _ATTRIBUTE:
-                attrs.append(self._parse_attribute(q))
-            elif mtype == _ATTR_INFO:
-                self._check_attr_info(q)
-        if table is None:
-            raise OSError("the root group has no symbol table")
-        self.attrs = _Attrs(self, attrs)
-        self._entries = self._group_entries(*table)
+                    f"{so}-byte offsets and {sl}-byte lengths")
+            root = base + 24 + (4 if ver == 1 else 0) + 32
+            self._root = struct.unpack_from("<Q", b, root + 8)[0]
+        else:
+            raise NotImplementedError(f"superblock version {ver}")
+        self._group(self._root)
 
     # -- low level --------------------------------------------------------
 
@@ -637,17 +664,18 @@ class _ReadFile:
 
     def _messages(self, addr):
         """``(type, data offset, size)`` of the object header at
-        ``addr``, continuation blocks followed."""
+        ``addr``, continuation blocks followed, as a
+        :class:`hdf5_v2.Messages` (version 2 headers: there)."""
         b = self._b
         a = self._addr(addr)
         if b[a:a + 4] == b"OHDR":
-            raise NotImplementedError("version 2 object headers")
+            return hdf5_v2.object_header(self, a)
         if b[a] != 1:
             raise OSError(f"bad object header version {b[a]} at {addr}")
         nmsgs, size = struct.unpack_from("<H", b, a + 2)[0], \
             struct.unpack_from("<I", b, a + 8)[0]
         blocks = [(a + 16, size)]
-        out, seen = [], 0
+        out, seen = hdf5_v2.Messages(), 0
         while blocks and seen < nmsgs:
             p, size = blocks.pop(0)
             end = p + size
@@ -669,39 +697,88 @@ class _ReadFile:
         return out
 
     def _parse_attribute(self, p):
+        """The attribute message at ``p`` (versions 1-3: version 1 pads
+        its parts to 8 bytes, version 3 adds a character set)."""
         b = self._b
-        if b[p] != 1:
-            raise NotImplementedError(f"attribute message version {b[p]}")
+        ver = b[p]
+        if ver not in (1, 2, 3):
+            raise NotImplementedError(f"attribute message version {ver}")
+        if ver > 1 and b[p + 1] & 0x03:
+            raise NotImplementedError("shared object header messages")
         nlen, tlen, slen = struct.unpack_from("<HHH", b, p + 2)
-        q = p + 8
+        q = p + 8 + (1 if ver == 3 else 0)
+        pad = _align8 if ver == 1 else (lambda n: n)
         name = bytes(b[q:q + nlen]).rstrip(b"\0")
-        tq = q + _align8(nlen)
-        sq = tq + _align8(tlen)
-        q = sq + _align8(slen)
+        tq = q + pad(nlen)
+        sq = tq + pad(tlen)
+        q = sq + pad(slen)
         t, used = _parse_type(b, tq)
         shape = _parse_space(b, sq)
         n = 0 if shape is None else _nelem(shape)
         data = bytes(b[q:q + n * t.dtype.itemsize])
         return name.decode("utf-8"), t, shape, data, bytes(b[tq:tq + used])
 
-    def _check_attr_info(self, p):
+    def _attrs(self, msgs):
+        """The attributes of an object header: its attribute messages and
+        its dense storage (attribute info message)."""
+        out = []
+        for mtype, q, _ in msgs:
+            if mtype == _ATTRIBUTE:
+                out.append((*self._parse_attribute(q), msgs.order.get(q, 0)))
+            elif mtype == _ATTR_INFO:
+                for p, order in hdf5_v2.dense_attrs(
+                        self, *hdf5_v2.attr_info(self._b, q)):
+                    out.append((*self._parse_attribute(p), order))
+        return _Attrs(self, out, msgs.attrs_by_creation)
+
+    def _group(self, addr):
+        """The root group: its attributes and its members' object header
+        addresses by name, in h5py's order (by name, or in creation order
+        where the group tracks it), from a symbol table or from links
+        (compact, or dense in a fractal heap)."""
         b = self._b
-        flags = b[p + 1]
-        q = p + 2 + (2 if flags & 1 else 0)
-        heap = struct.unpack_from("<Q", b, q)[0]
-        if heap != _UNDEF:
-            raise NotImplementedError(
-                "dense attribute storage (fractal heaps, version 2 B-trees)")
+        msgs = self._messages(addr)
+        table, info, links = None, None, []
+        for mtype, q, _ in msgs:
+            if mtype == _SYMBOL_TABLE:
+                table = struct.unpack_from("<QQ", b, q)
+            elif mtype == _LINK_INFO:
+                info = hdf5_v2.link_info(b, q)
+            elif mtype == _LINK:
+                links.append(q)
+        self.attrs = self._attrs(msgs)
+        if table is not None:
+            self._entries = dict(sorted(self._group_entries(*table).items(),
+                                        key=lambda kv: kv[0].encode("utf-8")))
+        elif info is not None:
+            tracked, heap, names = info
+            found = [hdf5_v2.parse_link(b, q) for q in
+                     links + hdf5_v2.dense_links(self, heap, names)]
+            found.sort(key=(lambda x: x[1]) if tracked else
+                       (lambda x: x[0].encode("utf-8")))
+            hard = {n: t for n, _, kind, t in found if kind == "hard"}
+            self._entries = {}
+            for name, _, kind, target in found:
+                if kind == "soft":
+                    target = hard.get(target[1:] if target.startswith("/")
+                                      else target)
+                    if target is None:
+                        raise NotImplementedError(
+                            f"soft link {name!r} (only to datasets in the "
+                            "root group)")
+                self._entries[name] = target
+        else:
+            raise OSError("the root group has no symbol table or links")
+        for name, a in self._entries.items():
+            self._names.setdefault(a, name)
 
     def _parse_layout(self, p):
         b = self._b
         ver, cls = b[p], b[p + 1]
+        if ver == 4:
+            return hdf5_v2.parse_layout4(b, p)
         if ver != 3:
-            raise NotImplementedError(
-                f"data layout message version {ver}" + (
-                    " (single-chunk, implicit, fixed-array, extensible-"
-                    "array and version 2 B-tree chunk indexes)"
-                    if ver == 4 else ""))
+            raise NotImplementedError(f"data layout message version {ver}")
         if cls == 0:
             n = struct.unpack_from("<H", b, p + 2)[0]
             return ("compact", bytes(b[p + 4:p + 4 + n]))
@@ -711,27 +788,34 @@ class _ReadFile:
             nd = b[p + 2]
             addr = struct.unpack_from("<Q", b, p + 3)[0]
             dims = struct.unpack_from(f"<{nd}I", b, p + 11)
-            return ("chunked", tuple(dims), addr)
+            return ("chunked", tuple(dims), (0, addr, (), 0))
         raise NotImplementedError(f"data layout class {cls}")
 
     def _parse_pipeline(self, p):
+        """The filter pipeline message, versions 1 and 2 (version 2: no
+        name below id 256, no padding)."""
         b = self._b
         ver, nf = b[p], b[p + 1]
-        if ver != 1:
+        if ver not in (1, 2):
             raise NotImplementedError(f"filter pipeline message version {ver}")
-        q = p + 8
+        q = p + (8 if ver == 1 else 2)
         out = []
         for _ in range(nf):
-            fid, nlen, _, ncd = struct.unpack_from("<HHHH", b, q)
-            q += 8
+            fid = struct.unpack_from("<H", b, q)[0]
+            if ver == 1 or fid >= 256:
+                nlen, _, ncd = struct.unpack_from("<HHH", b, q + 2)
+                q += 8
+            else:
+                nlen, (_, ncd) = 0, struct.unpack_from("<HH", b, q + 2)
+                q += 6
             name = bytes(b[q:q + nlen]).split(b"\0")[0].decode()
-            q += _align8(nlen)
+            q += _align8(nlen) if ver == 1 else nlen
             cd = struct.unpack_from(f"<{ncd}I", b, q)
-            q += 4 * ncd + 4 * (ncd % 2)
-            if fid not in (_FILTER_DEFLATE, _FILTER_SHUFFLE):
+            q += 4 * ncd + (4 * (ncd % 2) if ver == 1 else 0)
+            if fid not in _FILTERS_READ:
                 raise NotImplementedError(
                     f"filter {_FILTER_NAMES.get(fid, name or fid)} (id "
-                    f"{fid}; only shuffle and deflate)")
+                    f"{fid}; only shuffle, deflate, fletcher32 and lzf)")
             out.append((fid, cd))
         return out
 
@@ -741,6 +825,11 @@ class _ReadFile:
             n = struct.unpack_from("<I", b, p)[0]
             return bytes(b[p + 4:p + 4 + n]) or None
         ver = b[p]
+        if ver == 3:    # flags: bit 5, a value follows
+            if b[p + 1] & 0x20:
+                n = struct.unpack_from("<I", b, p + 2)[0]
+                return bytes(b[p + 6:p + 6 + n]) or None
+            return None
         if ver not in (1, 2):
             raise NotImplementedError(f"fill value message version {ver}")
         if ver == 1 or b[p + 3]:    # version 2 says whether it is defined
@@ -842,8 +931,7 @@ class _ReadFile:
     def _object(self, addr):
         obj = self._objects.get(addr)
         if obj is None:
-            name = next((k for k, v in self._entries.items() if v == addr),
-                        f"<object at {addr}>")
+            name = self._names.get(addr, f"<object at {addr}>")
             try:
                 obj = _ReadDataset(self, addr, name)
             except (struct.error, IndexError) as e:
@@ -855,7 +943,7 @@ class _ReadFile:
     # -- h5py-like API ----------------------------------------------------
 
     def keys(self):
-        return sorted(self._entries, key=lambda k: k.encode("utf-8"))
+        return list(self._entries)
 
     def __iter__(self):
         return iter(self.keys())
@@ -1020,8 +1108,12 @@ class _WriteDataset:
             for fid, cd in self._filters:
                 if fid == _FILTER_SHUFFLE:
                     buf = _shuffle(buf, esize)
-                else:
+                elif fid == _FILTER_DEFLATE:
                     buf = zlib.compress(buf, cd[0])
+                else:
+                    raise NotImplementedError(
+                        f"writing chunks through the "
+                        f"{_FILTER_NAMES.get(fid, fid)} filter")
             out.append((off, buf, 0))
         return out
 
@@ -1126,11 +1218,8 @@ class _WriteFile:
                 d = _WriteDataset(self, name, src.shape, dtype, None,
                                   src.chunks, list(src._filters))
                 d._tbytes = src._tbytes
-                btree = src._layout[2] if src.chunks else _UNDEF
                 if src.chunks and not t.vlen:
-                    for nbytes, mask, offs, addr in (
-                            [] if btree == _UNDEF else
-                            r._chunk_btree(btree, src.ndim)):
+                    for nbytes, mask, offs, addr in src._chunks():
                         d._direct[tuple(offs)] = (r._read(addr, nbytes),
                                                   mask)
                 elif src.size:
