@@ -176,10 +176,16 @@ Phases, each printed on its own line; any failure exits non-zero:
 11. the production entry point on this machine, archive to shards to
     analysis. A miniSEED SDS archive of ``IM.H10N1..EDH`` and
     ``IM.H03S1..EDH`` (the first ``DELAY`` s late), 250 Hz raw over the
-    two pair-days and their windows' reach, written with the port's
-    Steim1 ``encode_mseed``, and phase 6's EDH inventory as a JSON
-    file; ``xcorr_tpu_torch.scripts.cc.main`` (``xcorr-torch-cc``, the
-    host engine on ``cuda``) over the two pair-days: K1 launched and no
+    two pair-days and their windows' reach, each day file written whole
+    by ``SDSArchive(format="mseed").write`` (the port's linear Steim1
+    encoder; timed), and phase 6's EDH inventory as a JSON file. Every
+    day file, and a small file of gaps, overlaps and interleaved ids,
+    read by the port's run-merging ``read_mseed_bytes`` equal to the
+    per-record plain path, bit for bit, with both times.
+    ``xcorr_tpu_torch.scripts.cc.main`` (``xcorr-torch-cc``, the
+    host engine on ``cuda``) over the two pair-days, the day-file cache
+    empty at its start: each distinct day file decoded once (decodes,
+    cache hits and decode seconds printed), K1 launched and no
     other kernel, a shard written per pair-day through the port's HDF5
     codec (``io/hdf5.py``: this machine has no HDF5 library). Each shard
     read with ``io.read`` and checked with ``io.validate``: every status
@@ -2568,43 +2574,89 @@ def phase11_inventory(path):
     return inv
 
 
-#: samples per ``encode_mseed`` call: the carried Steim1 encoder
-#: (``native/mseed.cpp`` ``encode_steim1``) forms the differences of
-#: every remaining sample for each 512-byte record, so a call costs the
-#: square of its length (a 1.6 M-sample trace takes 7 s)
-P11_PIECE = 25_000
-
-
 def phase11_archive(root):
     """A miniSEED SDS archive of both stations, 250 Hz raw, seeded
     noise with a shared source train, H10N1 ``DELAY`` s late: one day
-    file per station and day, Steim1 (int32 counts) from the port's
-    ``encode_mseed`` in 100 s pieces, which the reader merges. Returns
-    the bytes written and the seconds it took."""
-    from xcorr_tpu_torch.native.mseed import encode_mseed
-    from xcorr_tpu_torch.stream import Stats, SyntheticClient, Trace
-    from xcorr_tpu_torch.stream.sds import sds_path
+    file per station and day, each written whole by
+    ``SDSArchive(format="mseed").write`` (Steim1, int32 counts). Returns
+    the day files, the bytes written and the seconds the writes took."""
+    from xcorr_tpu_torch.stream import Stream, SyntheticClient
+    from xcorr_tpu_torch.stream.sds import SDSArchive
     synth = SyntheticClient(
         sampling_rate=RAW_FS, noise_amplitude=30.0, source_amplitude=600.0,
         source_period=600.0, seed=SEED,
         delays={"IM.H10N1..EDH": DELAY, "IM.H03S1..EDH": 0.0})
-    t0, nbytes = time.perf_counter(), 0
+    archive = SDSArchive(root, format="mseed")
+    paths, seconds = [], 0.0
     for receiver in P11_PAIR.split("-"):
-        net, sta, loc, cha = receiver.split(".")
         for day in P11_ARCHIVE:
             (tr,) = synth._synthesize_day(receiver, day)
-            payload = b"".join(encode_mseed(Trace(
-                tr.data[i:i + P11_PIECE], Stats(
-                    network=net, station=sta, location=loc, channel=cha,
-                    starttime=tr.stats.starttime + i / RAW_FS,
-                    sampling_rate=RAW_FS)))
-                for i in range(0, tr.stats.npts, P11_PIECE))
-            path = sds_path(root, net, sta, loc, cha, day)
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            with open(path, "wb") as f:
-                f.write(payload)
-            nbytes += len(payload)
-    return nbytes, time.perf_counter() - t0
+            t0 = time.perf_counter()
+            archive.write(Stream([tr]))
+            seconds += time.perf_counter() - t0
+            s = tr.stats
+            paths.append(archive.path(s.network, s.station, s.location,
+                                      s.channel, s.starttime))
+    return paths, sum(map(os.path.getsize, paths)), seconds
+
+
+def phase11_mixed_file():
+    """A small miniSEED buffer of what a day file of a real archive may
+    hold: two stations' records interleaved one for one, each station in
+    pieces with gaps and overlaps, records of 512 and 4096 bytes."""
+    from xcorr_tpu_torch.native.mseed import encode_mseed
+    from xcorr_tpu_torch.stream import Stats, Trace
+    rng = np.random.default_rng(SEED)
+    t0 = pd.Timestamp(P11_DAYS[0]).value / 1e9
+    recs = {}
+    for sta, starts in (("H10N1", (0.0, 8.0, 30.0, 36.0, 35.0)),
+                        ("H03S1", (0.0, 7.996, 20.0, 60.0, 59.5))):
+        recs[sta] = []
+        for i, start in enumerate(starts):
+            reclen = 4096 if i == 2 else 512
+            payload = encode_mseed(Trace(
+                np.round(1e3 * rng.standard_normal(2000)).astype(np.int32),
+                Stats(network="IM", station=sta, location="",
+                      channel="EDH", starttime=t0 + start,
+                      sampling_rate=RAW_FS)), reclen=reclen)
+            recs[sta] += [payload[j:j + reclen]
+                          for j in range(0, len(payload), reclen)]
+    merged, a, b = [], recs["H10N1"], recs["H03S1"]
+    for k in range(max(len(a), len(b))):
+        merged += a[k:k + 1] + b[k:k + 1]
+    return b"".join(merged)
+
+
+def phase11_reads_equal(paths):
+    """Every day file and the mixed buffer through ``read_mseed_bytes``
+    and through the per-record plain path: the same Traces, bit for bit.
+    Returns the files' seconds by each path and the mixed buffer's
+    trace count."""
+    from xcorr_tpu_torch.native import mseed
+    payloads = []
+    for path in paths:
+        with open(path, "rb") as fh:
+            payloads.append(fh.read())
+    payloads.append(phase11_mixed_file())
+    fast_s = plain_s = 0.0
+    for payload in payloads:
+        t0 = time.perf_counter()
+        got = mseed.read_mseed_bytes(payload)
+        t1 = time.perf_counter()
+        want = mseed._read_mseed_bytes_plain(payload)
+        t2 = time.perf_counter()
+        fast_s, plain_s = fast_s + t1 - t0, plain_s + t2 - t1
+        check(len(got) == len(want), f"{len(got)} runs, plain {len(want)}")
+        for g, w in zip(got, want):
+            check(g.id == w.id and g.stats.starttime.ns == w.stats
+                  .starttime.ns and g.stats.sampling_rate == w.stats
+                  .sampling_rate and g.stats.npts == w.stats.npts
+                  and g.data.dtype == w.data.dtype
+                  and g.data.tobytes() == w.data.tobytes()
+                  and list(g.stats) == list(w.stats),
+                  f"read_mseed_bytes differs from the plain path: {g} "
+                  f"against {w}")
+    return fast_s, plain_s, len(got)
 
 
 def phase11_cli(xt, ff):
@@ -2621,32 +2673,43 @@ def phase11_cli(xt, ff):
     from xcorr_tpu_torch.scripts import cc as cc_cli
     from xcorr_tpu_torch.scripts import snr as snr_cli
     from xcorr_tpu_torch.stream import Client
+    from xcorr_tpu_torch.stream import _daycache
     from xcorr_tpu_torch.stream import sds as sds_mod
     set_route("corr")
     tmp = tempfile.TemporaryDirectory()
     sds, root = os.path.join(tmp.name, "sds"), os.path.join(tmp.name, "cc")
     inv_path = os.path.join(tmp.name, "inventory.json")
     inv = phase11_inventory(inv_path)
-    sds_bytes, sds_s = phase11_archive(sds)
+    paths, sds_bytes, sds_s = phase11_archive(sds)
     phase(11, f"miniSEED SDS archive: 2 stations x {len(P11_ARCHIVE)} "
-              f"days at {RAW_FS:g} Hz, {sds_bytes / 1e6:.1f} MB, written "
-              f"in {sds_s:.2f} s")
+              f"days at {RAW_FS:g} Hz, {sds_bytes / 1e6:.1f} MB, each day "
+              f"file written whole by SDSArchive.write in "
+              f"{sds_s / len(paths):.3f} s ({sds_s:.2f} s in all)")
+    fast_s, plain_s, nmixed = phase11_reads_equal(paths)
+    phase(11, f"read_mseed_bytes equal to the per-record plain path on "
+              f"all {len(paths)} day files and a mixed file ({nmixed} "
+              f"traces: gaps, overlaps, interleaved ids), bit for bit; "
+              f"{fast_s:.3f} s against {plain_s:.3f} s for them all, one "
+              f"thread")
 
-    # the CLI, its shard writes and day-file reads timed where the
-    # campaign makes them
-    writes, dayfiles = [], []
-    real_write, real_read = lazy.write, sds_mod.read_dayfile
+    # the CLI, its shard writes and day-file decodes timed where the
+    # campaign makes them; reads that found the decode cached are hits
+    writes, decodes, reads = [], [], []
+    real_write, real_decode = lazy.write, sds_mod._decode_dayfile
+    real_read = sds_mod.read_dayfile
 
     def timed(fn, out):
         def call(*a, **kw):
             t0 = time.perf_counter()
             res = fn(*a, **kw)
-            out.append(time.perf_counter() - t0)
+            out.append((time.perf_counter() - t0, a[0] if a else None))
             return res
         return call
 
     lazy.write = timed(real_write, writes)
-    sds_mod.read_dayfile = timed(real_read, dayfiles)
+    sds_mod._decode_dayfile = timed(real_decode, decodes)
+    sds_mod.read_dayfile = timed(real_read, reads)
+    _daycache.DAYS.clear()
     ff.reset_launches()
     t0 = time.perf_counter()
     try:
@@ -2655,8 +2718,13 @@ def phase11_cli(xt, ff):
                           P11_DAYS[1], "--inventory", inv_path])
         torch.cuda.synchronize()
     finally:
-        lazy.write, sds_mod.read_dayfile = real_write, real_read
+        lazy.write, sds_mod._decode_dayfile = real_write, real_decode
+        sds_mod.read_dayfile = real_read
     cli_wall = time.perf_counter() - t0
+    writes = [w for w, _ in writes]
+    decoded = [p for _, p in decodes]
+    check(len(decoded) == len(set(decoded)) and set(decoded) <= set(paths),
+          f"day files decoded more than once: {sorted(decoded)}")
     counts = dict(ff.launches)
     check(rc == 0, f"xcorr-torch-cc returned {rc}")
     check(counts["fused_corr"] > 0,
@@ -2668,16 +2736,16 @@ def phase11_cli(xt, ff):
                                     f"{len(days)} pair-days")
 
     # every shard: read, validate, status; the first against an
-    # in-memory process of its pair-day (on this archive a pair-day
-    # takes about a minute of host time, most of it miniSEED decoding)
+    # in-memory process of its pair-day (its day files already decoded
+    # by the CLI's run)
     init_args, client_args, _, _ = cc_cli.default_config(sds)
     client = Client(**client_args)
-    shards, snr_in, reads = [], [], []
+    shards, snr_in, shard_reads = [], [], []
     for iday, day in enumerate(days):
         path = xt.ncfile(P11_PAIR, day, root)
         t0 = time.perf_counter()
         ds = xt.read(path)
-        reads.append(time.perf_counter() - t0)
+        shard_reads.append(time.perf_counter() - t0)
         check(ds is not None, f"{path} did not read back")
         check(xt.io.validate(ds) is not None, f"{path} did not validate")
         status = ds["status"].values
@@ -2733,9 +2801,14 @@ def phase11_cli(xt, ff):
               f"launches {counts['fused_corr']}; bytes per shard "
               f"{shards}; write s per shard (in the campaign) "
               f"{[round(x, 4) for x in writes]}; read s per shard "
-              f"{[round(x, 4) for x in reads]}; miniSEED day-file reads "
-              f"{len(dayfiles)}, {sum(dayfiles):.2f} s summed over the "
-              f"campaign's threads ({np.median(dayfiles):.3f} s median)")
+              f"{[round(x, 4) for x in shard_reads]}; miniSEED day-file "
+              f"reads {len(reads)}: {len(decodes)} decodes of "
+              f"{len(set(decoded))} distinct files and "
+              f"{len(reads) - len(decodes)} cache hits; decode s "
+              f"{[round(d, 3) for d, _ in decodes]} "
+              f"({sum(d for d, _ in decodes):.2f} s summed over the "
+              f"campaign's threads); reads {sum(r for r, _ in reads):.2f} s "
+              f"summed ({np.median([r for r, _ in reads]):.3f} s median)")
     phase(11, f"xcorr-torch-snr over the shards: {snr_wall:.2f} s, snr/s/n "
               f"within {err:.3e} (relative) of pair_snr in memory, "
               f"lag_s_max equal; h5py not imported")

@@ -41,58 +41,40 @@ def list_versions(as_str: bool = True):
     '''        "h5py": _h5py_version(),'''),
 ]
 
-#: the codec's library is built by g++ into the port's build directory,
-#: never by ``make`` into the package directory
-_MSEED = [(
-    '''_DIR = os.path.dirname(os.path.abspath(__file__))
-_LIB_PATH = os.path.join(_DIR, "libxcmseed.so")
-''',
-    '''_DIR = os.path.dirname(os.path.abspath(__file__))
-'''), (
-    '''def _build():
-    subprocess.run(["make", "-C", _DIR, "-s"], check=True)
-
-
-def _load():
-    global _lib
-    if _lib is not None:
-        return _lib
-    if not os.path.exists(_LIB_PATH):
-        _build()
-    lib = ctypes.CDLL(_LIB_PATH)''',
-    '''def _build():
-    """Path of the shared library, built on first use with ``g++`` and
-    the flags of ``xcorr_tpu/native/Makefile`` into the port's build
-    directory (``ops._build.build_dir()``, git-ignored), never into the
-    package; the name carries a hash of ``mseed.cpp``, so an edited
-    source rebuilds."""
-    import hashlib
-    import threading
-    from ..ops._build import build_dir
-    src = os.path.join(_DIR, "mseed.cpp")
-    with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    path = build_dir() / f"libxcmseed-{tag}.so"
-    if not path.exists():
-        path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}"
-        subprocess.run([os.environ.get("CXX", "g++"), "-O3", "-Wall",
-                        "-fPIC", "-std=c++17", "-shared", "-o", tmp, src],
-                       check=True)
-        os.replace(tmp, path)
-    return str(path)
-
-
-def _load():
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(_build())'''),
-]
-
 #: HDF5 day files go through the port's codec (``io/hdf5.py``), which
-#: rewrites a file it adds to instead of editing it in place
+#: rewrites a file it adds to instead of editing it in place; a process
+#: decodes each day file once (``stream/_daycache.py``), and a write
+#: drops the path's decode
 _SDS = [(
+    """by the native C++ codec, :mod:`xcorr_tpu.native`); the format is sniffed
+from the file's magic bytes on read.""",
+    """by the native C++ codec, :mod:`xcorr_tpu_torch.native`); the format is
+sniffed from the file's magic bytes on read. A process decodes each day
+file once while it is unchanged (:mod:`._daycache`)."""), (
+    """from .trace import Stream, Stats, Trace, UTCDateTime
+""",
+    """from . import _daycache
+from .trace import Stream, Stats, Trace, UTCDateTime
+"""), (
+    """                else:
+                    write_dayfile_h5(path, tr)
+""",
+    """                else:
+                    write_dayfile_h5(path, tr)
+                _daycache.DAYS.invalidate(path)
+"""), (
+    '''def read_dayfile(path) -> list:
+    """Read one SDS day file, sniffing HDF5 vs miniSEED."""
+''',
+    '''def read_dayfile(path) -> list:
+    """Read one SDS day file: decoded once per process while it is
+    unchanged, the Traces the caller's own copies."""
+    return _daycache.DAYS.read(path, _decode_dayfile)
+
+
+def _decode_dayfile(path) -> list:
+    """Decode one SDS day file, sniffing HDF5 vs miniSEED."""
+'''), (
     """        import h5py
 
         def _s(v):""",
@@ -158,7 +140,6 @@ CARRIED = {
     "stream/running_rms.py": [],
     "stream/fdsn.py": [],
     "native/__init__.py": [],
-    "native/mseed.py": _MSEED,
     "io/__init__.py": [],
     "io/write.py": [],
     "io/read.py": [],

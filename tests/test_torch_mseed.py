@@ -1,7 +1,7 @@
 """The miniSEED path of the PyTorch port against the JAX package on the
-CPU: the carried codec (``xcorr_tpu_torch/native``) reads what the JAX
+CPU: the port's codec (``xcorr_tpu_torch/native``) reads what the JAX
 package writes and the reverse, bit for bit; the header scan agrees; the
-C++ source is a byte copy; and a host-engine campaign on a miniSEED SDS
+C++ source is a byte copy but for one declared hunk; and a host-engine campaign on a miniSEED SDS
 archive writes the JAX package's shards (CCFs within 1e-6 abs, the
 repository's bar; status and offsets exact). No network: the archive is
 written by the codec itself.
@@ -40,9 +40,29 @@ def _trace(pkg, n=120_000, seed=0):
         starttime="2014-01-02T03:04:05.120000", sampling_rate=50.0))
 
 
+#: the port's encoder hands ``encode_steim1`` at most the samples one
+#: record can hold, not the rest of the trace: the same bytes in linear
+#: time (``tests/test_torch_mseed_read.py`` holds them equal)
+_ENCODER = (
+    """        int got = encode_steim1(samples + i, npts - i, prev, maxframes,
+                                frames);""",
+    """        // one record holds at most 60 samples per frame: handing
+        // encode_steim1 the rest of the trace would make it difference
+        // samples it cannot place, for every record
+        int todo = npts - i < maxframes * 60 ? npts - i : maxframes * 60;
+        int got = encode_steim1(samples + i, todo, prev, maxframes,
+                                frames);""")
+
+
 def test_mseed_source_is_a_byte_copy():
+    """The port's ``mseed.cpp`` is the JAX package's, byte for byte, once
+    its one declared hunk (``_ENCODER``) is applied; the port's read path
+    is a source of its own (``mseed_runs.cpp``)."""
+    source = (ROOT / "xcorr_tpu/native/mseed.cpp").read_bytes()
+    old, new = (part.encode() for part in _ENCODER)
+    assert source.count(old) == 1, "the encoder's hunk moved"
     assert (ROOT / "xcorr_tpu_torch/native/mseed.cpp").read_bytes() == \
-        (ROOT / "xcorr_tpu/native/mseed.cpp").read_bytes()
+        source.replace(old, new)
 
 
 @pytest.mark.parametrize("writer", ["jax_writes", "port_writes"])

@@ -474,7 +474,11 @@ int64_t xcm_encode_steim1(const char* net, const char* sta, const char* loc,
     while (i < npts) {
         std::vector<uint8_t> frames;
         int32_t prev = i ? samples[i - 1] : samples[0];
-        int got = encode_steim1(samples + i, npts - i, prev, maxframes,
+        // one record holds at most 60 samples per frame: handing
+        // encode_steim1 the rest of the trace would make it difference
+        // samples it cannot place, for every record
+        int todo = npts - i < maxframes * 60 ? npts - i : maxframes * 60;
+        int got = encode_steim1(samples + i, todo, prev, maxframes,
                                 frames);
         if (got <= 0) return -2;
 

@@ -1,12 +1,19 @@
-# Carried from xcorr_tpu/native/mseed.py (see test_torch_host_copies).
 r"""
 :mod:`native.mseed` -- ctypes bindings for the miniSEED codec
 =============================================================
 
-Python interface to ``libxcmseed.so`` (see ``mseed.cpp``): read miniSEED
-files/buffers into :class:`xcorr_tpu.stream.Trace` objects and write
-Steim1-compressed records. Builds the shared library on first use when the
-compiled artifact is missing (g++ is part of the toolchain).
+Python interface to ``libxcmseed.so`` (``mseed.cpp`` and
+``mseed_runs.cpp``): read miniSEED files/buffers into
+:class:`xcorr_tpu_torch.stream.Trace` objects and write Steim1-compressed
+records. Builds the shared library on first use when the compiled artifact
+is missing (g++ is part of the toolchain).
+
+The codec began as a copy of ``xcorr_tpu/native/mseed.py`` and is held to
+it by ``tests/test_torch_mseed_read.py``. Where it differs: a buffer's
+records are joined into one array per contiguous run inside the library
+(``mseed_runs.cpp``), so a read makes one :class:`Trace` per run, not per
+record; the per-record path stays as :func:`_read_mseed_bytes_plain`, the
+reference the tests and ``chip_smoke.py`` hold the fast one to.
 """
 
 from __future__ import annotations
@@ -38,25 +45,58 @@ class _Segment(ctypes.Structure):
     ]
 
 
+class _Id(ctypes.Structure):
+    """A record's id fields, NUL-terminated (``mseed_runs.cpp`` ``Id``);
+    ctypes reads each up to its first NUL, as :class:`_Segment`'s."""
+    _fields_ = [
+        ("network", ctypes.c_char * 3),
+        ("station", ctypes.c_char * 6),
+        ("location", ctypes.c_char * 3),
+        ("channel", ctypes.c_char * 4),
+    ]
+
+
+class _Run(ctypes.Structure):
+    """One contiguous run of records (``mseed_runs.cpp`` ``Run``)."""
+    _fields_ = [
+        ("id", ctypes.c_int32),
+        ("dtype", ctypes.c_int32),
+        ("starttime", ctypes.c_double),
+        ("sampling_rate", ctypes.c_double),
+        ("npts", ctypes.c_int64),
+    ]
+
+
+_DTYPES = {0: np.int32, 1: np.float32, 2: np.float64}
+#: the library's sources; the last includes the others and is the one
+#: compiled
+_SOURCES = ("mseed.cpp", "mseed_runs.cpp")
+#: the flags of ``xcorr_tpu/native/Makefile``, and no contraction of a
+#: product and a sum into one rounding: the run merge repeats Python's
+#: float arithmetic operation by operation
+_FLAGS = ("-O3", "-Wall", "-fPIC", "-std=c++17", "-ffp-contract=off",
+          "-shared")
+
+
 def _build():
-    """Path of the shared library, built on first use with ``g++`` and
-    the flags of ``xcorr_tpu/native/Makefile`` into the port's build
-    directory (``ops._build.build_dir()``, git-ignored), never into the
-    package; the name carries a hash of ``mseed.cpp``, so an edited
-    source rebuilds."""
+    """Path of the shared library, built on first use with ``g++`` into
+    the port's build directory (``ops._build.build_dir()``, git-ignored),
+    never into the package; the name carries a hash of the sources and
+    flags, so an edited source rebuilds."""
     import hashlib
     import threading
     from ..ops._build import build_dir
-    src = os.path.join(_DIR, "mseed.cpp")
-    with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    path = build_dir() / f"libxcmseed-{tag}.so"
+    srcs = [os.path.join(_DIR, name) for name in _SOURCES]
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for src in srcs:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    path = build_dir() / f"libxcmseed-{h.hexdigest()[:16]}.so"
     if not path.exists():
         path.parent.mkdir(parents=True, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.{threading.get_ident()}"
-        subprocess.run([os.environ.get("CXX", "g++"), "-O3", "-Wall",
-                        "-fPIC", "-std=c++17", "-shared", "-o", tmp, src],
-                       check=True)
+        subprocess.run([os.environ.get("CXX", "g++"), *_FLAGS, "-o", tmp,
+                        srcs[-1]], check=True)
         os.replace(tmp, path)
     return str(path)
 
@@ -84,6 +124,21 @@ def _load():
     lib.xcm_encode_steim1.restype = ctypes.c_int64
     lib.xcm_free_bytes.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
     lib.xcm_free_bytes.restype = None
+    lib.xcm_runs_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p)]
+    lib.xcm_runs_decode.restype = ctypes.c_int
+    lib.xcm_runs_ids.argtypes = [ctypes.c_void_p, ctypes.POINTER(_Id)]
+    lib.xcm_runs_ids.restype = None
+    lib.xcm_runs_merge.argtypes = [ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_int32)]
+    lib.xcm_runs_merge.restype = ctypes.c_int
+    lib.xcm_runs_headers.argtypes = [ctypes.c_void_p, ctypes.POINTER(_Run)]
+    lib.xcm_runs_headers.restype = None
+    lib.xcm_runs_fill.argtypes = [ctypes.c_void_p,
+                                  ctypes.POINTER(ctypes.c_void_p)]
+    lib.xcm_runs_fill.restype = None
+    lib.xcm_runs_free.argtypes = [ctypes.c_void_p]
+    lib.xcm_runs_free.restype = None
     _lib = lib
     return lib
 
@@ -99,7 +154,55 @@ def available() -> bool:
 
 def read_mseed_bytes(payload: bytes):
     """Decode a miniSEED buffer into a list of Traces (merged per id where
-    contiguous)."""
+    contiguous).
+
+    The library decodes the records and joins each contiguous run into
+    one array (``mseed_runs.cpp``), by the rule of
+    :func:`_merge_contiguous`: the Traces equal
+    :func:`_read_mseed_bytes_plain`'s, bit for bit, in the same order.
+    The interpreter lock is released while the library decodes."""
+    from ..stream.trace import Stats, Trace
+
+    lib = _load()
+    state = ctypes.c_void_p()
+    try:
+        nids = lib.xcm_runs_decode(payload, len(payload),
+                                   ctypes.byref(state))
+        if nids < 0:
+            raise MemoryError("no memory for the decoded samples")
+        raw = (_Id * nids)()
+        lib.xcm_runs_ids(state, raw)
+        fields = [tuple(f.decode().strip() for f in (
+            r.network, r.station, r.location, r.channel)) for r in raw]
+        # Trace.id decides what joins: ids equal once stripped and joined
+        # share a key
+        first = {}
+        key = (ctypes.c_int32 * max(nids, 1))(*(
+            first.setdefault(".".join(f), i) for i, f in enumerate(fields)))
+        nruns = lib.xcm_runs_merge(state, key)
+        if nruns < 0:
+            raise ZeroDivisionError("float division by zero")
+        runs = (_Run * nruns)()
+        lib.xcm_runs_headers(state, runs)
+        datas = [np.empty(r.npts, dtype=_DTYPES[r.dtype]) for r in runs]
+        lib.xcm_runs_fill(state, (ctypes.c_void_p * max(nruns, 1))(
+            *(d.ctypes.data for d in datas)))
+    finally:
+        lib.xcm_runs_free(state)
+    traces = []
+    for r, data in zip(runs, datas):
+        net, sta, loc, cha = fields[r.id]
+        traces.append(Trace(data, Stats(
+            network=net, station=sta, location=loc, channel=cha,
+            starttime=float(r.starttime),
+            sampling_rate=float(r.sampling_rate))))
+    return traces
+
+
+def _read_mseed_bytes_plain(payload: bytes):
+    """The per-record read: one Trace per record, joined in Python by
+    :func:`_merge_contiguous`. The reference :func:`read_mseed_bytes` is
+    held to; no production path calls it."""
     from ..stream.trace import Stats, Trace
 
     lib = _load()
@@ -109,7 +212,7 @@ def read_mseed_bytes(payload: bytes):
     try:
         for i in range(n):
             s = segs[i]
-            npdtype = {0: np.int32, 1: np.float32, 2: np.float64}[s.dtype]
+            npdtype = _DTYPES[s.dtype]
             buf = ctypes.cast(
                 s.samples,
                 ctypes.POINTER(ctypes.c_uint8 * (

@@ -10,8 +10,9 @@ SeisComP Data Structure archive access: one file per
 ``xcorr/stream/to_SDS.py:35-251``).
 
 Day files are stored as HDF5 (samples + stats attrs) or miniSEED (decoded
-by the native C++ codec, :mod:`xcorr_tpu.native`); the format is sniffed
-from the file's magic bytes on read.
+by the native C++ codec, :mod:`xcorr_tpu_torch.native`); the format is
+sniffed from the file's magic bytes on read. A process decodes each day
+file once while it is unchanged (:mod:`._daycache`).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import os
 from glob import glob
 
+from . import _daycache
 from .trace import Stream, Stats, Trace, UTCDateTime
 
 __all__ = ["SDSArchive", "sds_path", "to_SDS"]
@@ -123,12 +125,19 @@ class SDSArchive:
                     write_mseed(path, tr)
                 else:
                     write_dayfile_h5(path, tr)
+                _daycache.DAYS.invalidate(path)
             if verb > 0:
                 print(f"SDS write: {path}")
 
 
 def read_dayfile(path) -> list:
-    """Read one SDS day file, sniffing HDF5 vs miniSEED."""
+    """Read one SDS day file: decoded once per process while it is
+    unchanged, the Traces the caller's own copies."""
+    return _daycache.DAYS.read(path, _decode_dayfile)
+
+
+def _decode_dayfile(path) -> list:
+    """Decode one SDS day file, sniffing HDF5 vs miniSEED."""
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic == _HDF5_MAGIC:
