@@ -65,20 +65,26 @@ Phases, each printed on its own line; any failure exits non-zero:
    offsets. The BHZ chain's device stages (filters, remove_response with
    a PAZ, Lanczos 40 -> 50 Hz) on two day-scale windows of 40 Hz noise,
    float32 on the card against float64 on the CPU, stage by stage; a
-   miniSEED round trip through ``SDSArchive(format="mseed")``. Then one
-   BHZ-EDH pair-day, ``IM.H03S1..EDH-IU.RAR.10.BHZ``: the BHZ side raw at
-   40 Hz with a PAZ response through the production BHZ chain of
+   miniSEED round trip through ``SDSArchive(format="mseed")``. The BH
+   chains' Lanczos step (40 -> 50 Hz, a = 20) on one buffered 24 h
+   window on the host: the native ``lanczos_interp`` bit-identical to
+   the carried numpy loop, both timed, then 8 windows in 8 threads. Then
+   one BHZ-EDH pair-day, ``IM.H03S1..EDH-IU.RAR.10.BHZ``: the BHZ side
+   raw at 40 Hz with a PAZ response through the production BHZ chain of
    ``xcorr_tpu/scripts/cc.py:46-60`` (``remove_response`` in float32 on
-   the card), through the device engine and the host engine, CCFs within
-   1e-6 abs. Then the BHR fallback: one ``device_process_bulk`` call of
-   an EDH-EDH pair-day and ``IM.H03S1..EDH-IU.RAR.10.BHR`` (BH1, BH2, BHZ
+   the card), through the device engine, the host engine (timed by
+   chain stage) and the host engine on the plain path (the carried
+   Lanczos loop): host CCFs bit-identical to the plain path's and within
+   1e-6 abs of the device engine's. Then the BHR fallback: one
+   ``device_process_bulk`` call of an EDH-EDH pair-day and
+   ``IM.H03S1..EDH-IU.RAR.10.BHR`` (BH1, BH2, BHZ
    raw at 40 Hz through the production BHR chain, whose rotations have
    no device stage): the BHR pair-day on the fallback list, the EDH-EDH
    one on the device engine, then the fallback through
    ``process(device='cuda')``: every status 1, every peak on the
    injected delay (the BHR-EDH one plus the lag between the two
    production chains, measured on noise-free arrivals), wall seconds of
-   each;
+   each, the fallback's by chain stage;
 7. the analysis slice on the card. (a) Full lag width: phase 6's 4
    pair-days (32 windows x 1.62 M lags, float32) through ``postprocess``
    (0-9 h lags, the scripts' 3 Hz highpass, no celerity clip) and ``snr``
@@ -176,9 +182,11 @@ Phases, each printed on its own line; any failure exits non-zero:
 11. the production entry point on this machine, archive to shards to
     analysis. A miniSEED SDS archive of ``IM.H10N1..EDH`` and
     ``IM.H03S1..EDH`` (the first ``DELAY`` s late), 250 Hz raw over the
-    two pair-days and their windows' reach, each day file written whole
-    by ``SDSArchive(format="mseed").write`` (the port's linear Steim1
-    encoder; timed), and phase 6's EDH inventory as a JSON file. Every
+    two pair-days and their windows' reach, and of ``IU.RAR.10.BHZ`` at
+    40 Hz carrying the same source train ``DELAY`` s early, each day
+    file written whole by ``SDSArchive(format="mseed").write`` (the
+    port's linear Steim1 encoder; timed), and phase 6's EDH and BHZ
+    inventory as a JSON file. Every
     day file, and a small file of gaps, overlaps and interleaved ids,
     read by the port's run-merging ``read_mseed_bytes`` equal to the
     per-record plain path, bit for bit, with both times.
@@ -193,9 +201,13 @@ Phases, each printed on its own line; any failure exits non-zero:
     of the pair-day (bit-identity reported), every peak on the injected
     delay. ``xcorr_tpu_torch.scripts.snr.main`` over the shards: snr, s
     and n within 1e-5 (relative) of ``pair_snr`` on the in-memory
-    datasets, ``lag_s_max`` equal. Bytes, write seconds (in the
-    campaign) and read seconds per shard, the CLI's wall per pair-day;
-    h5py must not be imported. ``python3 chip_smoke.py --phase11`` runs
+    datasets, ``lag_s_max`` equal. Then ``xcorr-torch-cc`` over one
+    BHZ-EDH pair-day, ``IM.H03S1..EDH-IU.RAR.10.BHZ`` (the BHZ chain's
+    Lanczos step on the host), held as above, its peaks on the delay
+    plus the lag between the EDH and BHZ chains (measured on noise-free
+    arrivals). Bytes, write seconds (in the campaign) and read seconds
+    per shard, the CLI's wall per pair-day of each pair; h5py must not
+    be imported. ``python3 chip_smoke.py --phase11`` runs
     phases 1, 2 (the build alone) and 11;
 12. files that other HDF5 writers make, read on this machine without
     h5py: every fixture of ``tests/fixtures_torch/hdf5`` (netCDF-C's
@@ -216,6 +228,7 @@ at H = 576); the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -223,6 +236,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -1012,9 +1026,115 @@ def phase6_device_engine(xt, ff):
     check(sum(s[2] for s in cov) == tr.stats.npts, f"coverage {cov[:2]}")
     phase(6, f"miniSEED SDS round trip of {tr.stats.npts} samples equal; "
              f"header scan covers them in {len(cov)} records")
+    phase6_lanczos()
     bhz_pair_day(xt, ff, resp, paz)
     bhr_fallback(xt, ff, resp, paz)
     return k1, dss, warm_wall
+
+
+#: the BH chains' Lanczos step (``scripts/cc.py``: 40 Hz raw to 50 Hz,
+#: a = 20)
+BH_FS = 40.0
+LANCZOS_A = 20
+
+
+def phase6_lanczos():
+    """The BH chains' Lanczos step on one buffered 24 h window (40 Hz,
+    3,801,600 samples, to 50 Hz), on this machine's host: the port's
+    native ``lanczos_interp`` against the carried numpy loop it replaces
+    (``stream/trace.py`` ``_lanczos_interp``, its plain version), bit
+    for bit, with both times; then 8 such windows in 8 threads, as the
+    host engine's 8 fetch threads run them."""
+    from concurrent.futures import ThreadPoolExecutor
+    from xcorr_tpu_torch.stream import _lanczos
+    from xcorr_tpu_torch.stream.trace import _lanczos_interp
+    n = int(round(WINDOW * 1.1 * BH_FS))
+    npts = int(np.floor((n - 1) / BH_FS * FS)) + 1
+    # Trace.interpolate's positions, starttime unchanged
+    pos = (0.0 + np.arange(npts) / FS) * BH_FS
+    xs = [np.random.default_rng(SEED + i).standard_normal(n) * 1e3
+          for i in range(8)]
+    t0 = time.perf_counter()
+    _lanczos._load()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = _lanczos.lanczos_interp(xs[0], pos, LANCZOS_A)
+    fast_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = _lanczos_interp(xs[0], pos, LANCZOS_A)
+    plain_s = time.perf_counter() - t0
+    check(got.tobytes() == want.tobytes(),
+          f"lanczos_interp differs from the carried loop: max |diff| "
+          f"{float(np.abs(got - want).max())}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda x: _lanczos.lanczos_interp(x, pos, LANCZOS_A),
+                    xs))
+    threads_s = time.perf_counter() - t0
+    phase(6, f"Lanczos {BH_FS:g} -> {FS:g} Hz (a = {LANCZOS_A}) of one "
+             f"buffered 24 h window ({n} -> {npts} samples) on the host: "
+             f"native lanczos_interp {fast_s:.3f} s, the carried numpy "
+             f"loop {plain_s:.3f} s ({plain_s / fast_s:.1f}x), "
+             f"bit-identical; 8 windows in 8 threads {threads_s:.3f} s; "
+             f"library loaded (built if new) in {load_s:.2f} s")
+
+
+@contextlib.contextmanager
+def chain_stages():
+    """Seconds of the host chain while it runs, summed over the fetch
+    threads: per (channel, operation) of ``stream.process``, the reads
+    (``Client.get_waveforms``) and each receiver's whole fetch
+    (``Client.get_processed_waveforms``), keyed by the channel the fetch
+    asked for. Yields the dict it fills."""
+    from xcorr_tpu_torch.stream import process as proc_mod
+    from xcorr_tpu_torch.stream.client import Client
+    acc, lock, local = {}, threading.Lock(), threading.local()
+    real = (proc_mod.apply_operation, Client.get_waveforms,
+            Client.get_processed_waveforms)
+
+    def add(key, seconds):
+        with lock:
+            acc[key] = acc.get(key, 0.0) + seconds
+
+    def timed(fn, label):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                op = kw.get("operation") if label is None else label
+                add((getattr(local, "cha", "?"), op),
+                    time.perf_counter() - t0)
+        return call
+
+    def fetch(self, receiver, *a, **kw):
+        local.cha = receiver.split(".")[3]
+        return timed(real[2], "fetch")(self, receiver, *a, **kw)
+
+    proc_mod.apply_operation = timed(real[0], None)
+    Client.get_waveforms = timed(real[1], "read")
+    Client.get_processed_waveforms = fetch
+    try:
+        yield acc
+    finally:
+        (proc_mod.apply_operation, Client.get_waveforms,
+         Client.get_processed_waveforms) = real
+
+
+def stage_report(acc):
+    """``chain_stages``' seconds as text, per channel: the whole fetch,
+    then its parts in falling order (an operation that runs twice in a
+    chain is summed)."""
+    parts = []
+    for cha in sorted({c for c, _ in acc}):
+        mine = {op: v for (c, op), v in acc.items() if c == cha}
+        total = mine.pop("fetch", 0.0)
+        rest = total - sum(mine.values())
+        parts.append(f"{cha} fetch {total:.2f} s = " + ", ".join(
+            f"{op} {v:.2f}" for op, v in sorted(
+                mine.items(), key=lambda kv: -kv[1]))
+            + f", other {rest:.2f}")
+    return "; ".join(parts)
 
 
 BHZ_PAIR = "IM.H03S1..EDH-IU.RAR.10.BHZ"
@@ -1074,24 +1194,55 @@ def bhz_pair_day(xt, ff, edh_resp, paz):
     check(not fallback, f"BHZ-EDH: device engine fell back: {fallback}")
     check(ff.launches["fused_corr"] == 1, f"BHZ-EDH: {ff.launches}")
     host = dataset()
-    t0 = time.perf_counter()
-    xt.process(host, client, inventory=inv, device="cuda", verb=0)
-    torch.cuda.synchronize()
-    host_wall = time.perf_counter() - t0
-    for name, d in (("device", dev), ("host", host)):
+    with chain_stages() as stages:
+        t0 = time.perf_counter()
+        xt.process(host, client, inventory=inv, device="cuda", verb=0)
+        torch.cuda.synchronize()
+        host_wall = time.perf_counter() - t0
+    # the same pair-day on the plain path: the carried numpy loop in
+    # Trace.interpolate
+    from xcorr_tpu_torch.stream import trace as trace_mod
+    plain, native = dataset(), trace_mod.lanczos_interp
+    trace_mod.lanczos_interp = trace_mod._lanczos_interp
+    try:
+        t0 = time.perf_counter()
+        xt.process(plain, client, inventory=inv, device="cuda", verb=0)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+    finally:
+        trace_mod.lanczos_interp = native
+    for name, d in (("device", dev), ("host", host), ("plain", plain)):
         check(bool((d["status"].values == 1).all()),
               f"BHZ-EDH {name} engine status {d['status'].values.tolist()}")
         check(bool(np.isfinite(d["cc"].values).all()),
               f"BHZ-EDH {name} engine: non-finite CCF")
     a, b = dev["cc"].values, host["cc"].values
     diff = float(np.abs(a - b).max())
+    same = np.array_equal(host["cc"].values, plain["cc"].values)
     phase(6, f"BHZ-EDH pair-day {BHZ_PAIR} (BHZ 40 Hz raw, PAZ, the "
              f"production BHZ chain): device engine {dev_wall:.2f} s, host "
-             f"engine {host_wall:.2f} s; max |CCF diff| {diff:.3e} (bar "
-             f"{CCF_ATOL}), max |CCF| {float(np.abs(b).max()):.3e}, rms "
-             f"diff {float(np.sqrt(np.mean((a - b) ** 2))):.3e}")
+             f"engine {host_wall:.2f} s, host engine on the plain path "
+             f"(the carried numpy Lanczos loop) {plain_wall:.2f} s; host "
+             f"engine CCFs bit-identical to the plain path's: {same}; max "
+             f"|CCF diff| device vs host {diff:.3e} (bar {CCF_ATOL}), max "
+             f"|CCF| {float(np.abs(b).max()):.3e}, rms diff "
+             f"{float(np.sqrt(np.mean((a - b) ** 2))):.3e}")
+    phase(6, f"BHZ-EDH host engine by chain stage, s summed over its fetch "
+             f"threads: {stage_report(stages)}")
+    check(same, "BHZ-EDH: the host engine's CCFs differ from the plain "
+                "path's")
     check(diff <= CCF_ATOL, f"BHZ-EDH: device engine vs host engine "
                             f"{diff} > {CCF_ATOL}")
+
+
+def peak_lag(a, b):
+    """Lag (s) of the peak of the full cross-correlation of two 50 Hz
+    chain outputs, over their common length."""
+    n = min(a.size, b.size)
+    c = np.fft.irfft(np.fft.rfft(a[:n], 2 * n)
+                     * np.conj(np.fft.rfft(b[:n], 2 * n)))
+    k = int(np.argmax(c))
+    return (k if k < n else k - 2 * n) / FS
 
 
 BHR_PAIR = "IM.H03S1..EDH-IU.RAR.10.BHR"
@@ -1188,13 +1339,8 @@ def bhr_fallback(xt, ff, edh_resp, paz):
             out = run_chain(Stream(traces), ops, inventory=inv)
             return out.select(channel=cha)[0].data
 
-        a = chain("EDH", ["IM.H03S1..EDH"])
-        b = chain("BHR", [f"IU.RAR.10.BH{c}" for c in "12Z"])
-        n = min(a.size, b.size)
-        c = np.fft.irfft(np.fft.rfft(a[:n], 2 * n)
-                         * np.conj(np.fft.rfft(b[:n], 2 * n)))
-        k = int(np.argmax(c))
-        return (k if k < n else k - 2 * n) / FS
+        return peak_lag(chain("EDH", ["IM.H03S1..EDH"]),
+                        chain("BHR", [f"IU.RAR.10.BH{c}" for c in "12Z"]))
 
     def held(d, label, want):
         status = d["status"].values
@@ -1227,11 +1373,12 @@ def bhr_fallback(xt, ff, edh_resp, paz):
     edh_peaks = held(edh, "EDH-EDH beside BHR (device engine)", DELAY)
     check(bool((bhr["status"].values == 0).all()),
           "the device engine touched the BHR pair-day")
-    t0 = time.perf_counter()
-    xt.process(bhr, client=client, inventory=inv, retry_missing=True,
-               verb=0, device="cuda")
-    torch.cuda.synchronize()
-    host_wall = time.perf_counter() - t0
+    with chain_stages() as stages:
+        t0 = time.perf_counter()
+        xt.process(bhr, client=client, inventory=inv, retry_missing=True,
+                   verb=0, device="cuda")
+        torch.cuda.synchronize()
+        host_wall = time.perf_counter() - t0
     lag = chain_lag()
     bhr_peaks = held(bhr, "BHR-EDH fallback (host engine)", DELAY + lag)
     phase(6, f"BHR fallback: one device_process_bulk call of {PAIR} and "
@@ -1243,6 +1390,8 @@ def bhr_fallback(xt, ff, edh_resp, paz):
              f"{bhr.dims['time']} windows, peaks at {bhr_peaks} s "
              f"(injected {DELAY} s, plus {lag:.2f} s between the EDH and "
              f"BHR chains for noise-free arrivals)")
+    phase(6, f"BHR fallback by chain stage, s summed over its fetch "
+             f"threads: {stage_report(stages)}")
 
 
 #: the analysis scripts' postprocess filter and celerity window
@@ -2560,37 +2709,96 @@ P11_DAYS = ("2014-02-01", "2014-02-02")
 P11_ARCHIVE = pd.date_range("2014-01-31", "2014-02-04", freq="1D")
 
 
+#: phase 11's BHZ-EDH pair-day, its first day alone
+P11_BHZ_PAIR = BHZ_PAIR
+P11_BHZ = "IU.RAR.10.BHZ"
+#: phase 6's BHZ response
+P11_PAZ = {"poles": [-0.037 + 0.037j, -0.037 - 0.037j], "zeros": [0j, 0j],
+           "gain": 1.0, "sensitivity": 2.5e8}
+
+
 def phase11_inventory(path):
     """Phase 6's EDH inventory (sensitivity 1.5e9 counts per unit) for
-    the phase's two stations, written as the CLI's ``--inventory``."""
+    the phase's two EDH stations and its BHZ PAZ for ``IU.RAR.10.BHZ``,
+    written as the CLI's ``--inventory``."""
     from xcorr_tpu_torch.stream import Channel, Inventory, PAZResponse
     resp = PAZResponse(sensitivity=1.5e9)
     inv = Inventory([
         Channel("IM", "H10N1", "", "EDH", latitude=-6.34, longitude=71.01,
                 response=resp),
         Channel("IM", "H03S1", "", "EDH", latitude=-33.6, longitude=-78.8,
-                response=resp)])
+                response=resp),
+        Channel("IU", "RAR", "10", "BHZ", latitude=-21.2,
+                longitude=-159.8, response=PAZResponse(**P11_PAZ))])
     inv.to_json(path)
     return inv
 
 
+def phase11_synth(noise=30.0, delays=None):
+    """Phase 11's 250 Hz generator: seeded noise of ``noise`` counts and
+    the shared source train, each receiver ``delays`` s late."""
+    from xcorr_tpu_torch.stream import SyntheticClient
+    return SyntheticClient(
+        sampling_rate=RAW_FS, noise_amplitude=noise, source_amplitude=600.0,
+        source_period=600.0, seed=SEED, delays=delays or {})
+
+
+def phase11_bhz_day(day, noise=30.0, delay=-DELAY):
+    """A day of ``IU.RAR.10.BHZ`` raw at 40 Hz that carries phase 11's
+    source train in seconds: the train made at 250 Hz ``delay`` s late
+    (early, since the pair's first receiver is the late one), resampled
+    by 4/25 (a zero-phase FIR), plus its own seeded noise."""
+    from scipy.signal import resample_poly
+    from xcorr_tpu_torch.stream import Stats, Trace
+    (src,) = phase11_synth(0.0, {P11_BHZ: delay})._synthesize_day(
+        P11_BHZ, day)
+    data = resample_poly(src.data.astype(np.float64), 4, 25)
+    rng = np.random.default_rng([SEED, pd.Timestamp(day).dayofyear])
+    data += noise * rng.standard_normal(data.size)
+    net, sta, loc, cha = P11_BHZ.split(".")
+    return Trace(data.astype(np.float32), Stats(
+        network=net, station=sta, location=loc, channel=cha,
+        starttime=src.stats.starttime, sampling_rate=BH_FS))
+
+
+def phase11_chain_lag(inv, hours=4):
+    """Lag (s) of the CCF peak of the production EDH and BHZ chains'
+    outputs for phase 11's noise-free source train, the first ``hours``
+    of a day: where the BHZ-EDH pair-day peaks beyond the delay."""
+    from xcorr_tpu_torch.scripts.cc import default_config
+    from xcorr_tpu_torch.stream import Stream
+    from xcorr_tpu_torch.stream.process import process as run_chain
+    chains = default_config()[0]["preprocess"]
+    day = P11_DAYS[0]
+    (edh,) = phase11_synth(0.0)._synthesize_day("IM.H03S1..EDH", day)
+    out = []
+    for tr, cha in ((edh, "EDH"), (phase11_bhz_day(day, 0.0, 0.0), "BHZ")):
+        tr.data = tr.data[:int(hours * 3600 * tr.stats.sampling_rate)]
+        tr.stats.npts = tr.data.size
+        ops = [o for o in chains[cha] if o[0] not in ("merge", "trim")]
+        out.append(run_chain(Stream([tr]), ops, inventory=inv)[0].data)
+    return peak_lag(*out)
+
+
 def phase11_archive(root):
-    """A miniSEED SDS archive of both stations, 250 Hz raw, seeded
-    noise with a shared source train, H10N1 ``DELAY`` s late: one day
-    file per station and day, each written whole by
+    """A miniSEED SDS archive of the EDH stations, 250 Hz raw, seeded
+    noise with a shared source train, H10N1 ``DELAY`` s late, and of
+    ``IU.RAR.10.BHZ`` at 40 Hz with the same train ``DELAY`` s early:
+    one day file per station and day, each written whole by
     ``SDSArchive(format="mseed").write`` (Steim1, int32 counts). Returns
     the day files, the bytes written and the seconds the writes took."""
-    from xcorr_tpu_torch.stream import Stream, SyntheticClient
+    from xcorr_tpu_torch.stream import Stream
     from xcorr_tpu_torch.stream.sds import SDSArchive
-    synth = SyntheticClient(
-        sampling_rate=RAW_FS, noise_amplitude=30.0, source_amplitude=600.0,
-        source_period=600.0, seed=SEED,
-        delays={"IM.H10N1..EDH": DELAY, "IM.H03S1..EDH": 0.0})
+    synth = phase11_synth(delays={"IM.H10N1..EDH": DELAY,
+                                  "IM.H03S1..EDH": 0.0})
     archive = SDSArchive(root, format="mseed")
     paths, seconds = [], 0.0
-    for receiver in P11_PAIR.split("-"):
+    for receiver in [*P11_PAIR.split("-"), P11_BHZ]:
         for day in P11_ARCHIVE:
-            (tr,) = synth._synthesize_day(receiver, day)
+            if receiver == P11_BHZ:
+                tr = phase11_bhz_day(day)
+            else:
+                (tr,) = synth._synthesize_day(receiver, day)
             t0 = time.perf_counter()
             archive.write(Stream([tr]))
             seconds += time.perf_counter() - t0
@@ -2662,12 +2870,15 @@ def phase11_reads_equal(paths):
 def phase11_cli(xt, ff):
     """The production entry point on the card, archive to shards to
     analysis: ``xcorr-torch-cc`` (the host engine, K1 on the ``corr``
-    route) writes a shard per pair-day through the port's HDF5 codec;
-    every shard reads back and validates with status 1, peaking at the
-    injected delay, the first within 1e-6 of an in-memory ``process`` of
-    the same pair-day; ``xcorr-torch-snr`` reads the shards and matches
+    route) writes a shard per pair-day through the port's HDF5 codec,
+    first for two EDH-EDH pair-days, then for one BHZ-EDH pair-day (the
+    BHZ chain's Lanczos step on the host); every shard reads back and
+    validates with status 1, peaking at the injected delay (the BHZ-EDH
+    one plus the lag between the two chains), the first of each within
+    1e-6 of an in-memory ``process`` of the same pair-day;
+    ``xcorr-torch-snr`` reads the EDH-EDH shards and matches
     ``pair_snr`` (on the in-memory dataset, then on the second shard).
-    Returns K1's launches in the CLI run."""
+    Returns K1's launches in each CLI run."""
     from xcorr_tpu_torch.core import lazy
     from xcorr_tpu_torch.io.netcdf import from_netcdf
     from xcorr_tpu_torch.scripts import cc as cc_cli
@@ -2681,10 +2892,11 @@ def phase11_cli(xt, ff):
     inv_path = os.path.join(tmp.name, "inventory.json")
     inv = phase11_inventory(inv_path)
     paths, sds_bytes, sds_s = phase11_archive(sds)
-    phase(11, f"miniSEED SDS archive: 2 stations x {len(P11_ARCHIVE)} "
-              f"days at {RAW_FS:g} Hz, {sds_bytes / 1e6:.1f} MB, each day "
-              f"file written whole by SDSArchive.write in "
-              f"{sds_s / len(paths):.3f} s ({sds_s:.2f} s in all)")
+    phase(11, f"miniSEED SDS archive: 2 EDH stations at {RAW_FS:g} Hz and "
+              f"{P11_BHZ} at {BH_FS:g} Hz x {len(P11_ARCHIVE)} days, "
+              f"{sds_bytes / 1e6:.1f} MB, each day file written whole by "
+              f"SDSArchive.write in {sds_s / len(paths):.3f} s "
+              f"({sds_s:.2f} s in all)")
     fast_s, plain_s, nmixed = phase11_reads_equal(paths)
     phase(11, f"read_mseed_bytes equal to the per-record plain path on "
               f"all {len(paths)} day files and a mixed file ({nmixed} "
@@ -2692,91 +2904,126 @@ def phase11_cli(xt, ff):
               f"{fast_s:.3f} s against {plain_s:.3f} s for them all, one "
               f"thread")
 
-    # the CLI, its shard writes and day-file decodes timed where the
-    # campaign makes them; reads that found the decode cached are hits
-    writes, decodes, reads = [], [], []
-    real_write, real_decode = lazy.write, sds_mod._decode_dayfile
-    real_read = sds_mod.read_dayfile
+    def run_cli(pair, days):
+        """``xcorr-torch-cc`` over ``pair``'s pair-days from an empty
+        day-file cache, its shard writes and day-file decodes timed where
+        the campaign makes them (reads that found the decode cached are
+        hits): wall, K1's and the other launches, write seconds, decodes
+        as (seconds, path), reads as (seconds, path)."""
+        writes, decodes, reads = [], [], []
+        real_write, real_decode = lazy.write, sds_mod._decode_dayfile
+        real_read = sds_mod.read_dayfile
 
-    def timed(fn, out):
-        def call(*a, **kw):
-            t0 = time.perf_counter()
-            res = fn(*a, **kw)
-            out.append((time.perf_counter() - t0, a[0] if a else None))
-            return res
-        return call
+        def timed(fn, out):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                res = fn(*a, **kw)
+                out.append((time.perf_counter() - t0, a[0] if a else None))
+                return res
+            return call
 
-    lazy.write = timed(real_write, writes)
-    sds_mod._decode_dayfile = timed(real_decode, decodes)
-    sds_mod.read_dayfile = timed(real_read, reads)
-    _daycache.DAYS.clear()
-    ff.reset_launches()
-    t0 = time.perf_counter()
-    try:
-        rc = cc_cli.main(["--root", root, "--sds-root", sds, "--pair",
-                          P11_PAIR, "--start", P11_DAYS[0], "--end",
-                          P11_DAYS[1], "--inventory", inv_path])
-        torch.cuda.synchronize()
-    finally:
-        lazy.write, sds_mod._decode_dayfile = real_write, real_decode
-        sds_mod.read_dayfile = real_read
-    cli_wall = time.perf_counter() - t0
-    writes = [w for w, _ in writes]
-    decoded = [p for _, p in decodes]
-    check(len(decoded) == len(set(decoded)) and set(decoded) <= set(paths),
-          f"day files decoded more than once: {sorted(decoded)}")
-    counts = dict(ff.launches)
-    check(rc == 0, f"xcorr-torch-cc returned {rc}")
-    check(counts["fused_corr"] > 0,
-          f"xcorr-torch-cc never launched fused_corr: {counts}")
-    others = {k: v for k, v in counts.items() if k != "fused_corr" and v}
-    check(not others, f"xcorr-torch-cc also launched {others}")
-    days = pd.date_range(*P11_DAYS, freq="1D")
-    check(len(writes) == len(days), f"{len(writes)} shard writes for "
-                                    f"{len(days)} pair-days")
-
-    # every shard: read, validate, status; the first against an
-    # in-memory process of its pair-day (its day files already decoded
-    # by the CLI's run)
-    init_args, client_args, _, _ = cc_cli.default_config(sds)
-    client = Client(**client_args)
-    shards, snr_in, shard_reads = [], [], []
-    for iday, day in enumerate(days):
-        path = xt.ncfile(P11_PAIR, day, root)
+        lazy.write = timed(real_write, writes)
+        sds_mod._decode_dayfile = timed(real_decode, decodes)
+        sds_mod.read_dayfile = timed(real_read, reads)
+        _daycache.DAYS.clear()
+        ff.reset_launches()
         t0 = time.perf_counter()
-        ds = xt.read(path)
-        shard_reads.append(time.perf_counter() - t0)
-        check(ds is not None, f"{path} did not read back")
-        check(xt.io.validate(ds) is not None, f"{path} did not validate")
-        status = ds["status"].values
-        check(bool((status == 1).all()), f"{day:%F} status "
-                                         f"{status.tolist()}")
-        if iday == 0:
-            want = xt.init(pair=P11_PAIR, starttime=day,
-                           endtime=day + pd.Timedelta("1D"),
-                           **{**init_args, "inventory": inv})
-            t0 = time.perf_counter()
-            xt.process(want, client, inventory=inv, device="cuda", verb=0)
+        try:
+            rc = cc_cli.main(["--root", root, "--sds-root", sds, "--pair",
+                              pair, "--start", f"{days[0]:%F}", "--end",
+                              f"{days[-1]:%F}", "--inventory", inv_path])
             torch.cuda.synchronize()
-            mem_wall = time.perf_counter() - t0
-            diff = float(np.abs(ds["cc"].values - want["cc"].values).max())
-            check(diff <= CCF_ATOL, f"{day:%F}: shard vs in-memory "
-                                    f"process {diff} > {CCF_ATOL}")
-            versus = (f"max |shard - in-memory process| {diff:.3e} "
-                      f"(bit-identical: {diff == 0.0}; process "
-                      f"{mem_wall:.2f} s)")
-        else:
-            want, versus = ds, "read back"
-        lag = ds.coords["lag"].values
-        ccv = ds["cc"].values
-        peaks = sorted({float(lag[int(np.argmax(ccv[0, i]))])
-                        for i in range(ccv.shape[1])})
-        check(all(abs(p - DELAY) < 1.0 / FS + 1e-9 for p in peaks),
-              f"{day:%F}: shard CCF peaks {peaks} s, injected {DELAY} s")
-        shards.append(os.path.getsize(path))
-        snr_in.append(want)
-        phase(11, f"{day:%F}: shard of {ccv.shape} {ccv.dtype}, status "
-                  f"all 1, {versus}, peaks at {peaks} s")
+        finally:
+            lazy.write, sds_mod._decode_dayfile = real_write, real_decode
+            sds_mod.read_dayfile = real_read
+        wall = time.perf_counter() - t0
+        decoded = [p for _, p in decodes]
+        check(len(decoded) == len(set(decoded))
+              and set(decoded) <= set(paths),
+              f"day files decoded more than once: {sorted(decoded)}")
+        counts = dict(ff.launches)
+        check(rc == 0, f"xcorr-torch-cc returned {rc}")
+        check(counts["fused_corr"] > 0,
+              f"xcorr-torch-cc never launched fused_corr: {counts}")
+        others = {k: v for k, v in counts.items()
+                  if k != "fused_corr" and v}
+        check(not others, f"xcorr-torch-cc also launched {others}")
+        check(len(writes) == len(days), f"{len(writes)} shard writes for "
+                                        f"{len(days)} pair-days")
+        return wall, counts["fused_corr"], [w for w, _ in writes], \
+            decodes, reads
+
+    def cli_line(pair, days, run, shards, shard_reads):
+        wall, k1, writes, decodes, reads = run
+        return (f"xcorr-torch-cc {pair}: {len(days)} pair-days in "
+                f"{wall:.2f} s wall, {wall / len(days):.2f} s per pair-day; "
+                f"K1 launches {k1}; bytes per shard {shards}; write s per "
+                f"shard (in the campaign) {[round(x, 4) for x in writes]}; "
+                f"read s per shard {[round(x, 4) for x in shard_reads]}; "
+                f"miniSEED day-file reads {len(reads)}: {len(decodes)} "
+                f"decodes of {len({p for _, p in decodes})} distinct files "
+                f"and {len(reads) - len(decodes)} cache hits; decode s "
+                f"{[round(d, 3) for d, _ in decodes]} "
+                f"({sum(d for d, _ in decodes):.2f} s summed over the "
+                f"campaign's threads); reads "
+                f"{sum(r for r, _ in reads):.2f} s summed "
+                f"({np.median([r for r, _ in reads]):.3f} s median)")
+
+    def held(pair, days, want_lag):
+        """Every shard of ``pair``: read, validate, status, peaks at
+        ``want_lag``; the first against an in-memory ``process`` of its
+        pair-day (its day files already decoded by the CLI's run).
+        Returns the shards' bytes and read seconds and the datasets the
+        SNR is held to."""
+        init_args, client_args, _, _ = cc_cli.default_config(sds)
+        client = Client(**client_args)
+        shards, snr_in, shard_reads = [], [], []
+        for iday, day in enumerate(days):
+            path = xt.ncfile(pair, day, root)
+            t0 = time.perf_counter()
+            ds = xt.read(path)
+            shard_reads.append(time.perf_counter() - t0)
+            check(ds is not None, f"{path} did not read back")
+            check(xt.io.validate(ds) is not None,
+                  f"{path} did not validate")
+            status = ds["status"].values
+            check(bool((status == 1).all()), f"{pair} {day:%F} status "
+                                             f"{status.tolist()}")
+            if iday == 0:
+                want = xt.init(pair=pair, starttime=day,
+                               endtime=day + pd.Timedelta("1D"),
+                               **{**init_args, "inventory": inv})
+                t0 = time.perf_counter()
+                xt.process(want, client, inventory=inv, device="cuda",
+                           verb=0)
+                torch.cuda.synchronize()
+                mem_wall = time.perf_counter() - t0
+                diff = float(np.abs(ds["cc"].values
+                                    - want["cc"].values).max())
+                check(diff <= CCF_ATOL, f"{pair} {day:%F}: shard vs "
+                                        f"in-memory process {diff} > "
+                                        f"{CCF_ATOL}")
+                versus = (f"max |shard - in-memory process| {diff:.3e} "
+                          f"(bit-identical: {diff == 0.0}; process "
+                          f"{mem_wall:.2f} s)")
+            else:
+                want, versus = ds, "read back"
+            lag = ds.coords["lag"].values
+            ccv = ds["cc"].values
+            peaks = sorted({float(lag[int(np.argmax(ccv[0, i]))])
+                            for i in range(ccv.shape[1])})
+            check(all(abs(p - want_lag) < 1.0 / FS + 1e-9 for p in peaks),
+                  f"{pair} {day:%F}: shard CCF peaks {peaks} s, expected "
+                  f"{want_lag} s")
+            shards.append(os.path.getsize(path))
+            snr_in.append(want)
+            phase(11, f"{pair} {day:%F}: shard of {ccv.shape} {ccv.dtype}, "
+                      f"status all 1, {versus}, peaks at {peaks} s")
+        return shards, shard_reads, snr_in
+
+    days = pd.date_range(*P11_DAYS, freq="1D")
+    edh = run_cli(P11_PAIR, days)
+    shards, shard_reads, snr_in = held(P11_PAIR, days, DELAY)
 
     # the SNR CLI over the shards, against pair_snr in memory
     snr_path = os.path.join(tmp.name, "snr.nc")
@@ -2794,25 +3041,26 @@ def phase11_cli(xt, ff):
     check(all(w is not None for w in want), "pair_snr gave no SNR")
     want = xt.ndlabel.combine_by_coords(want)
     err = hold_snr(got, want, "xcorr-torch-snr vs pair_snr")
-    check("h5py" not in sys.modules, "h5py was imported")
-    tmp.cleanup()
-    phase(11, f"xcorr-torch-cc: {len(days)} pair-days in {cli_wall:.2f} s "
-              f"wall, {cli_wall / len(days):.2f} s per pair-day; K1 "
-              f"launches {counts['fused_corr']}; bytes per shard "
-              f"{shards}; write s per shard (in the campaign) "
-              f"{[round(x, 4) for x in writes]}; read s per shard "
-              f"{[round(x, 4) for x in shard_reads]}; miniSEED day-file "
-              f"reads {len(reads)}: {len(decodes)} decodes of "
-              f"{len(set(decoded))} distinct files and "
-              f"{len(reads) - len(decodes)} cache hits; decode s "
-              f"{[round(d, 3) for d, _ in decodes]} "
-              f"({sum(d for d, _ in decodes):.2f} s summed over the "
-              f"campaign's threads); reads {sum(r for r, _ in reads):.2f} s "
-              f"summed ({np.median([r for r, _ in reads]):.3f} s median)")
+    phase(11, cli_line(P11_PAIR, days, edh, shards, shard_reads))
     phase(11, f"xcorr-torch-snr over the shards: {snr_wall:.2f} s, snr/s/n "
               f"within {err:.3e} (relative) of pair_snr in memory, "
               f"lag_s_max equal; h5py not imported")
-    return counts["fused_corr"]
+
+    # one BHZ-EDH pair-day: the BHZ side's Lanczos step on the host
+    lag = phase11_chain_lag(inv)
+    bhz_days = days[:1]
+    bhz = run_cli(P11_BHZ_PAIR, bhz_days)
+    bhz_shards, bhz_reads, _ = held(P11_BHZ_PAIR, bhz_days, DELAY + lag)
+    check("h5py" not in sys.modules, "h5py was imported")
+    tmp.cleanup()
+    phase(11, cli_line(P11_BHZ_PAIR, bhz_days, bhz, bhz_shards, bhz_reads)
+              + f"; peaks expected at {DELAY} s plus {lag:.2f} s between "
+              f"the EDH and BHZ chains for noise-free arrivals")
+    phase(11, f"xcorr-torch-cc wall per pair-day: EDH-EDH "
+              f"{edh[0] / len(days):.2f} s, BHZ-EDH "
+              f"{bhz[0] / len(bhz_days):.2f} s")
+    return {"11 xcorr-torch-cc": {"fused_corr": edh[1]},
+            "11 xcorr-torch-cc BHZ-EDH": {"fused_corr": bhz[1]}}
 
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -2923,7 +3171,7 @@ def main(only=None):
         return main_phase10(xt, ff, fft4, t_start)
     if only == 11:
         k1 = phase11_cli(xt, ff)
-        phase(11, f"phase 11 alone passed: K1 launches {k1}, all "
+        phase(11, f"phase 11 alone passed: launches {json.dumps(k1)}, all "
                   f"{time.perf_counter() - t_start:.1f} s")
         return
     for unit, proc in ptxas.items():
@@ -3038,11 +3286,10 @@ def main(only=None):
               f"{t10_end - t_start:.1f} s")
 
     # -- 11. the production CLI: archive -> shards -> analysis -------------
-    k1 = phase11_cli(xt, ff)
+    path11 = phase11_cli(xt, ff)
     t11_end = time.perf_counter()
-    phase(11, "launches on this slice's path, the count reset just before "
-              "the CLI run and read just after: " + json.dumps(
-                  {"11 xcorr-torch-cc": {"fused_corr": k1}}))
+    phase(11, "launches on this slice's path, each count reset just before "
+              "its CLI run and read just after: " + json.dumps(path11))
     phase(11, f"command time: phase 11 {t11_end - t10_end:.1f} s, all "
               f"{t11_end - t_start:.1f} s")
 

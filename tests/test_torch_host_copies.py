@@ -128,9 +128,14 @@ CARRIED = {
     "util/cc.py": [],
     "util/metadata.py": _METADATA,
     "util/sysmem.py": _SYSMEM,
-    # the host response division keeps the reference's FFT sizing
+    # the host response division keeps the reference's FFT sizing; the
+    # Lanczos interpolation runs in the port's native library, bit-equal
+    # to the carried loop, which stays as its plain version
     "stream/trace.py": [("from ..ops.fft import next_fast_len",
-                         "from ._fftlen import next_fast_len")],
+                         "from ._fftlen import next_fast_len\n"
+                         "from ._lanczos import lanczos_interp"),
+                        ("self.data = _lanczos_interp(self.data.astype(",
+                         "self.data = lanczos_interp(self.data.astype(")],
     "stream/inventory.py": [],
     "stream/process.py": [],
     "stream/client.py": [],

@@ -19,15 +19,15 @@ reference the tests and ``chip_smoke.py`` hold the fast one to.
 from __future__ import annotations
 
 import ctypes
-import os
 import subprocess
 
 import numpy as np
 
+from . import _cxx
+
 __all__ = ["read_mseed", "read_mseed_bytes", "write_mseed", "encode_mseed",
            "scan_mseed", "scan_mseed_bytes", "available"]
 
-_DIR = os.path.dirname(os.path.abspath(__file__))
 _lib = None
 
 
@@ -71,34 +71,13 @@ _DTYPES = {0: np.int32, 1: np.float32, 2: np.float64}
 #: the library's sources; the last includes the others and is the one
 #: compiled
 _SOURCES = ("mseed.cpp", "mseed_runs.cpp")
-#: the flags of ``xcorr_tpu/native/Makefile``, and no contraction of a
-#: product and a sum into one rounding: the run merge repeats Python's
-#: float arithmetic operation by operation
-_FLAGS = ("-O3", "-Wall", "-fPIC", "-std=c++17", "-ffp-contract=off",
-          "-shared")
 
 
 def _build():
-    """Path of the shared library, built on first use with ``g++`` into
-    the port's build directory (``ops._build.build_dir()``, git-ignored),
-    never into the package; the name carries a hash of the sources and
-    flags, so an edited source rebuilds."""
-    import hashlib
-    import threading
-    from ..ops._build import build_dir
-    srcs = [os.path.join(_DIR, name) for name in _SOURCES]
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in srcs:
-        with open(src, "rb") as f:
-            h.update(f.read())
-    path = build_dir() / f"libxcmseed-{h.hexdigest()[:16]}.so"
-    if not path.exists():
-        path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}"
-        subprocess.run([os.environ.get("CXX", "g++"), *_FLAGS, "-o", tmp,
-                        srcs[-1]], check=True)
-        os.replace(tmp, path)
-    return str(path)
+    """Path of the shared library, built on first use with ``g++``
+    (:func:`._cxx.build`: the run merge repeats Python's float
+    arithmetic, so no contraction)."""
+    return _cxx.build("libxcmseed", _SOURCES)
 
 
 def _load():

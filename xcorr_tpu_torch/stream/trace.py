@@ -19,6 +19,7 @@ import numpy as np
 import pandas as pd
 import scipy.signal as sp_signal
 from ._fftlen import next_fast_len
+from ._lanczos import lanczos_interp
 
 __all__ = ["UTCDateTime", "Stats", "Trace", "Stream"]
 
@@ -264,7 +265,7 @@ class Trace:
         new_times = offset + np.arange(npts) / sampling_rate  # in old-t0 sec
         pos = new_times * old_fs  # fractional sample positions
         if method == "lanczos":
-            self.data = _lanczos_interp(self.data.astype(np.float64), pos, a)
+            self.data = lanczos_interp(self.data.astype(np.float64), pos, a)
         else:
             self.data = np.interp(pos, np.arange(self.stats.npts),
                                   self.data.astype(np.float64))
