@@ -4,7 +4,9 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-Phases, each printed on its own line; any failure exits non-zero:
+Phases, each printed on its own line; any failure exits non-zero and
+prints ``FAIL:`` and its reason on stdout and, after the last phase
+line, on stderr:
 
 1. the card (``nvidia-smi``), torch, CUDA and the TF32 switches;
 2. build the hand-written kernels from ``xcorr_tpu_torch/csrc`` (one
@@ -175,9 +177,11 @@ Phases, each printed on its own line; any failure exits non-zero:
     device engine: K1 once, statuses and peaks as phase 6, CCFs within
     1e-4 of phase 6's warm run, the wall. Then phase 10's launches and
     its command time. 10c reads the kernels' names with
-    ``torch.profiler`` in this process, over several sessions: after
-    minutes of a run, a session of the card's torch 2.11 may report
-    none or only some of the card's events. ``python3 chip_smoke.py --phase10`` runs phases 1, 2 (the build alone) and 10, with phase
+    ``torch.profiler`` in a new process on the same seeded windows
+    (``--kernel-names``), over several sessions, and holds that
+    process's CCFs to this one's, bit for bit: after minutes of a run,
+    a session of the card's torch 2.11 may report none or only some of
+    the card's events. ``python3 chip_smoke.py --phase10`` runs phases 1, 2 (the build alone) and 10, with phase
     4's oracle and phase 6's engine run made for it;
 11. the production entry point on this machine, archive to shards to
     analysis. A miniSEED SDS archive of ``IM.H10N1..EDH`` and
@@ -229,6 +233,7 @@ nothing of JAX.
 """
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -287,8 +292,17 @@ SOURCES = {
 }
 
 
+#: the last phase line printed, which a failure repeats on stderr
+_last_phase = ["(before phase 1)"]
+
+
 def fail(msg):
+    """Print the failure on stdout, and on stderr after the last phase
+    line (a caller that keeps only the end of stderr still reads where
+    and why), then exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"after: {_last_phase[0]}\nFAIL: {msg}", file=sys.stderr,
+          flush=True)
     sys.exit(1)
 
 
@@ -298,7 +312,8 @@ def check(cond, msg):
 
 
 def phase(i, msg):
-    print(f"[phase {i}] {msg}", flush=True)
+    _last_phase[0] = f"[phase {i}] {msg}"
+    print(_last_phase[0], flush=True)
 
 
 def set_route(route):
@@ -1085,10 +1100,13 @@ def chain_stages():
     threads: per (channel, operation) of ``stream.process``, the reads
     (``Client.get_waveforms``) and each receiver's whole fetch
     (``Client.get_processed_waveforms``), keyed by the channel the fetch
-    asked for. Yields the dict it fills."""
+    asked for, and per channel the wall seconds from its first fetch's
+    start to its last fetch's end (``"wall"``), which the threads' sums
+    overlap. Yields the dict it fills."""
     from xcorr_tpu_torch.stream import process as proc_mod
     from xcorr_tpu_torch.stream.client import Client
     acc, lock, local = {}, threading.Lock(), threading.local()
+    spans = {}
     real = (proc_mod.apply_operation, Client.get_waveforms,
             Client.get_processed_waveforms)
 
@@ -1108,8 +1126,15 @@ def chain_stages():
         return call
 
     def fetch(self, receiver, *a, **kw):
-        local.cha = receiver.split(".")[3]
-        return timed(real[2], "fetch")(self, receiver, *a, **kw)
+        cha = local.cha = receiver.split(".")[3]
+        t0 = time.perf_counter()
+        try:
+            return timed(real[2], "fetch")(self, receiver, *a, **kw)
+        finally:
+            t1 = time.perf_counter()
+            with lock:
+                lo, hi = spans.get(cha, (t0, t1))
+                spans[cha] = (min(lo, t0), max(hi, t1))
 
     proc_mod.apply_operation = timed(real[0], None)
     Client.get_waveforms = timed(real[1], "read")
@@ -1119,22 +1144,52 @@ def chain_stages():
     finally:
         (proc_mod.apply_operation, Client.get_waveforms,
          Client.get_processed_waveforms) = real
+        acc.update({(cha, "wall"): hi - lo
+                    for cha, (lo, hi) in spans.items()})
 
 
 def stage_report(acc):
-    """``chain_stages``' seconds as text, per channel: the whole fetch,
-    then its parts in falling order (an operation that runs twice in a
-    chain is summed)."""
+    """``chain_stages``' seconds as text, per channel: the whole fetch
+    summed over the threads and the threads' wall, then its parts in
+    falling order (an operation that runs twice in a chain is
+    summed)."""
     parts = []
     for cha in sorted({c for c, _ in acc}):
         mine = {op: v for (c, op), v in acc.items() if c == cha}
         total = mine.pop("fetch", 0.0)
+        wall = mine.pop("wall", 0.0)
         rest = total - sum(mine.values())
-        parts.append(f"{cha} fetch {total:.2f} s = " + ", ".join(
+        parts.append(f"{cha} fetch {total:.2f} s in {wall:.2f} s of the "
+                     f"fetch threads' wall = " + ", ".join(
             f"{op} {v:.2f}" for op, v in sorted(
                 mine.items(), key=lambda kv: -kv[1]))
             + f", other {rest:.2f}")
     return "; ".join(parts)
+
+
+@contextlib.contextmanager
+def plain_host_path(lanczos=True):
+    """The host fetch's carried forms while it runs, its plain path: the
+    copying read of an archive's window (``stream/_window.py``
+    ``_read_window_plain``: each day file copied out of the cache, merged
+    over their union, then trimmed), the inverse response evaluated anew
+    for every window and component (``stream/_response.py``
+    ``_inverse_response_plain``) and, with ``lanczos``, the carried numpy
+    Lanczos loop (``stream/trace.py`` ``_lanczos_interp``)."""
+    from xcorr_tpu_torch.stream import _response, _window
+    from xcorr_tpu_torch.stream import client as client_mod
+    from xcorr_tpu_torch.stream import trace as trace_mod
+    real = (client_mod.read_window, _response.inverse_response,
+            trace_mod.lanczos_interp)
+    client_mod.read_window = _window._read_window_plain
+    _response.inverse_response = _response._inverse_response_plain
+    if lanczos:
+        trace_mod.lanczos_interp = trace_mod._lanczos_interp
+    try:
+        yield
+    finally:
+        (client_mod.read_window, _response.inverse_response,
+         trace_mod.lanczos_interp) = real
 
 
 BHZ_PAIR = "IM.H03S1..EDH-IU.RAR.10.BHZ"
@@ -1193,24 +1248,21 @@ def bhz_pair_day(xt, ff, edh_resp, paz):
     dev_wall = time.perf_counter() - t0
     check(not fallback, f"BHZ-EDH: device engine fell back: {fallback}")
     check(ff.launches["fused_corr"] == 1, f"BHZ-EDH: {ff.launches}")
+    from xcorr_tpu_torch.stream import _response
     host = dataset()
+    _response.RESPONSES.clear()
     with chain_stages() as stages:
         t0 = time.perf_counter()
         xt.process(host, client, inventory=inv, device="cuda", verb=0)
         torch.cuda.synchronize()
         host_wall = time.perf_counter() - t0
-    # the same pair-day on the plain path: the carried numpy loop in
-    # Trace.interpolate
-    from xcorr_tpu_torch.stream import trace as trace_mod
-    plain, native = dataset(), trace_mod.lanczos_interp
-    trace_mod.lanczos_interp = trace_mod._lanczos_interp
-    try:
+    # the same pair-day on the plain path
+    plain = dataset()
+    with plain_host_path(), chain_stages() as plain_stages:
         t0 = time.perf_counter()
         xt.process(plain, client, inventory=inv, device="cuda", verb=0)
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - t0
-    finally:
-        trace_mod.lanczos_interp = native
     for name, d in (("device", dev), ("host", host), ("plain", plain)):
         check(bool((d["status"].values == 1).all()),
               f"BHZ-EDH {name} engine status {d['status'].values.tolist()}")
@@ -1222,13 +1274,16 @@ def bhz_pair_day(xt, ff, edh_resp, paz):
     phase(6, f"BHZ-EDH pair-day {BHZ_PAIR} (BHZ 40 Hz raw, PAZ, the "
              f"production BHZ chain): device engine {dev_wall:.2f} s, host "
              f"engine {host_wall:.2f} s, host engine on the plain path "
-             f"(the carried numpy Lanczos loop) {plain_wall:.2f} s; host "
+             f"(the copying read, the uncached inverse response, the "
+             f"carried numpy Lanczos loop) {plain_wall:.2f} s; host "
              f"engine CCFs bit-identical to the plain path's: {same}; max "
              f"|CCF diff| device vs host {diff:.3e} (bar {CCF_ATOL}), max "
              f"|CCF| {float(np.abs(b).max()):.3e}, rms diff "
              f"{float(np.sqrt(np.mean((a - b) ** 2))):.3e}")
     phase(6, f"BHZ-EDH host engine by chain stage, s summed over its fetch "
              f"threads: {stage_report(stages)}")
+    phase(6, f"BHZ-EDH host engine on the plain path by chain stage: "
+             f"{stage_report(plain_stages)}")
     check(same, "BHZ-EDH: the host engine's CCFs differ from the plain "
                 "path's")
     check(diff <= CCF_ATOL, f"BHZ-EDH: device engine vs host engine "
@@ -1261,6 +1316,9 @@ def bhr_fallback(xt, ff, edh_resp, paz):
     while the EDH-EDH one runs on the device engine (K1 once); then the
     fallback runs through ``process(..., device="cuda")`` as the device
     engine's batch driver runs it (``core/lazy.py``: ``_device_bulk_run``).
+    It runs once more on the plain path of the read and the response
+    (``plain_host_path(lanczos=False)``), whose CCFs must be the same
+    bits.
     The data: every receiver gets its own noise and one source train,
     placed in seconds, so raw rates of 250 Hz (EDH) and 40 Hz (BH1, BH2,
     BHZ) carry the same arrivals; the horizontals carry the source as the
@@ -1373,12 +1431,25 @@ def bhr_fallback(xt, ff, edh_resp, paz):
     edh_peaks = held(edh, "EDH-EDH beside BHR (device engine)", DELAY)
     check(bool((bhr["status"].values == 0).all()),
           "the device engine touched the BHR pair-day")
+    from xcorr_tpu_torch.stream import _response
+    _response.RESPONSES.clear()
     with chain_stages() as stages:
         t0 = time.perf_counter()
         xt.process(bhr, client=client, inventory=inv, retry_missing=True,
                    verb=0, device="cuda")
         torch.cuda.synchronize()
         host_wall = time.perf_counter() - t0
+    # the same pair-day on the plain path of the read and the response
+    plain = dataset(BHR_PAIR)
+    with plain_host_path(lanczos=False), chain_stages() as plain_stages:
+        t0 = time.perf_counter()
+        xt.process(plain, client=client, inventory=inv, verb=0,
+                   device="cuda")
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+    same = bhr["cc"].values.tobytes() == plain["cc"].values.tobytes()
+    check(same, "BHR-EDH: the host engine's CCFs differ from the plain "
+                "path's")
     lag = chain_lag()
     bhr_peaks = held(bhr, "BHR-EDH fallback (host engine)", DELAY + lag)
     phase(6, f"BHR fallback: one device_process_bulk call of {PAIR} and "
@@ -1392,6 +1463,11 @@ def bhr_fallback(xt, ff, edh_resp, paz):
              f"BHR chains for noise-free arrivals)")
     phase(6, f"BHR fallback by chain stage, s summed over its fetch "
              f"threads: {stage_report(stages)}")
+    phase(6, f"BHR-EDH host engine on the plain path of the read and the "
+             f"response (the copying read, the uncached inverse response; "
+             f"the native Lanczos step) {plain_wall:.2f} s, CCFs "
+             f"bit-identical to the fallback's: {same}; by chain stage: "
+             f"{stage_report(plain_stages)}")
 
 
 #: the analysis scripts' postprocess filter and celerity window
@@ -2508,18 +2584,32 @@ def day_lags(xt):
     return int(lag["index_min"]), int(lag["index_max"])
 
 
-def phase10c_precision(fft4, x, y, imin, imax, oracle):
-    """precision='default' against 'high' on every route: errors against
-    the oracle (CCF_ATOL and DEFAULT_ATOL), ms per window, outputs that
-    differ, TF32 GEMMs by kernel name under 'default' and none under
-    'high', read in this process (:func:`device_kernels`); then the TF32
-    switches as they were and a 'high' call still within CCF_ATOL."""
-    B = x.shape[0]
-    switches = (torch.backends.cuda.matmul.allow_tf32,
-                torch.backends.cudnn.allow_tf32)
-    sessions = {}
+def ccf_digest(out):
+    """sha256 of a CCF tensor's bytes."""
+    return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+
+
+def kernel_names(out_path):
+    """10c's profiler reads in a process of their own
+    (``--kernel-names``): on phase 4's seeded windows, every route of
+    :data:`P10_ROUTES` under ``'high'`` and ``'default'``, the names of
+    the kernels the card ran (:func:`device_kernels`: ``'default'`` read
+    until a TF32 GEMM is named, at most :data:`P10_DEFAULT_SESSIONS`
+    sessions; ``'high'`` always :data:`P10_HIGH_SESSIONS`), the sessions
+    read and the sha256 of the call's CCFs, written to ``out_path`` as
+    JSON. After minutes of a process, the card's torch 2.11 profiler may
+    name some of a call's kernels in no session: on an H100, ten minutes
+    into this script, the ``matmul`` route's TF32 GEMM went unnamed in 20
+    of 20 sessions, though every such call gives the TF32 product's
+    CCFs; a new process named it in 25 of 25."""
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    import xcorr_tpu_torch as xt
+    from xcorr_tpu_torch.ops import fft4
+    set_route("corr")
+    imin, imax = day_lags(xt)
+    x, y = day_windows()
+    rec = {}
     for name, kw in P10_ROUTES.items():
-        res = {}
         for prec in ("high", "default"):
             plan = fft4.plan_correlate4(N, imin, imax, precision=prec, **kw)
             out = plan(x, y)
@@ -2531,7 +2621,64 @@ def phase10c_precision(fft4, x, y, imin, imax, oracle):
             else:
                 keys, n = device_kernels(lambda: plan(x, y),
                                          lambda ks: False, P10_HIGH_SESSIONS)
-            sessions[f"{name} {prec}"] = n
+            rec[f"{name} {prec}"] = {"keys": keys, "sessions": n,
+                                     "digest": ccf_digest(out)}
+            del plan, out
+    check("jax" not in sys.modules, "the kernel-name process imported jax")
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+
+
+def kernel_names_run():
+    """:func:`kernel_names` in a new process on the card; its record."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as outdir:
+        path = os.path.join(outdir, "names.json")
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--kernel-names",
+             path], cwd=here, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT)
+        try:
+            out = proc.communicate(timeout=WORKER_TIMEOUT)[0]
+        except subprocess.TimeoutExpired:
+            fail(f"10c: the kernel-name process ran past {WORKER_TIMEOUT} s")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        check(proc.returncode == 0, f"10c: the kernel-name process exited "
+                                    f"{proc.returncode}:\n{out[-4000:]}")
+        with open(path) as f:
+            return json.load(f)
+
+
+def phase10c_precision(fft4, x, y, imin, imax, oracle):
+    """precision='default' against 'high' on every route: errors against
+    the oracle (CCF_ATOL and DEFAULT_ATOL), ms per window, outputs that
+    differ, TF32 GEMMs by kernel name under 'default' and none under
+    'high', read in a new process on the same seeded windows
+    (:func:`kernel_names`), whose CCFs must be this process's, bit for
+    bit; then the TF32 switches as they were and a 'high' call still
+    within CCF_ATOL."""
+    B = x.shape[0]
+    switches = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    named = kernel_names_run()
+    names_s = time.perf_counter() - t0
+    sessions = {}
+    for name, kw in P10_ROUTES.items():
+        res = {}
+        for prec in ("high", "default"):
+            plan = fft4.plan_correlate4(N, imin, imax, precision=prec, **kw)
+            out = plan(x, y)
+            got = named[f"{name} {prec}"]
+            check(ccf_digest(out) == got["digest"],
+                  f"10c {name} {prec}: the kernel-name process's CCFs "
+                  f"differ from this process's")
+            keys = got["keys"]
+            sessions[f"{name} {prec}"] = got["sessions"]
             tf32 = [k for k in keys if tf32_gemm(k)]
             res[prec] = (out, ccf_err(out, oracle),
                          median_ms(lambda: plan(x, y), 5) / B,
@@ -2562,8 +2709,10 @@ def phase10c_precision(fft4, x, y, imin, imax, oracle):
                   f"{[k[:60] for k in cd]}, one-pass gemm_tf32_kernel "
                   f"{len(nd)}; under 'high': none")
         del res, oh, od
-    phase(10, f"10c profiler sessions read by route and precision "
-              f"('default': until a TF32 GEMM was named): {sessions}")
+    phase(10, f"10c profiler sessions read by route and precision in a "
+              f"new process ('default': until a TF32 GEMM was named; its "
+              f"CCFs this process's, bit for bit; {names_s:.1f} s): "
+              f"{sessions}")
     now = (torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32)
     check(now == switches, f"10c: TF32 switches {switches} -> {now}")
@@ -2709,10 +2858,15 @@ P11_DAYS = ("2014-02-01", "2014-02-02")
 P11_ARCHIVE = pd.date_range("2014-01-31", "2014-02-04", freq="1D")
 
 
-#: phase 11's BHZ-EDH pair-day, its first day alone
+#: phase 11's BHZ-EDH and BHR-EDH pair-days, the first day alone
 P11_BHZ_PAIR = BHZ_PAIR
+P11_BHR_PAIR = BHR_PAIR
 P11_BHZ = "IU.RAR.10.BHZ"
-#: phase 6's BHZ response
+#: the source train's weight on each raw BH component: BHZ carries it
+#: whole, BH1 and BH2 as the radial component of ``BHR_BAZ``
+P11_BH_GAIN = {"Z": 1.0, "1": -math.cos(math.radians(BHR_BAZ)),
+               "2": -math.sin(math.radians(BHR_BAZ))}
+#: phase 6's BHZ response, on every BH channel
 P11_PAZ = {"poles": [-0.037 + 0.037j, -0.037 - 0.037j], "zeros": [0j, 0j],
            "gain": 1.0, "sensitivity": 2.5e8}
 
@@ -2720,16 +2874,18 @@ P11_PAZ = {"poles": [-0.037 + 0.037j, -0.037 - 0.037j], "zeros": [0j, 0j],
 def phase11_inventory(path):
     """Phase 6's EDH inventory (sensitivity 1.5e9 counts per unit) for
     the phase's two EDH stations and its BHZ PAZ for ``IU.RAR.10.BHZ``,
-    written as the CLI's ``--inventory``."""
+    ``BH1``, ``BH2`` and ``BHR``, written as the CLI's
+    ``--inventory``."""
     from xcorr_tpu_torch.stream import Channel, Inventory, PAZResponse
     resp = PAZResponse(sensitivity=1.5e9)
     inv = Inventory([
         Channel("IM", "H10N1", "", "EDH", latitude=-6.34, longitude=71.01,
                 response=resp),
         Channel("IM", "H03S1", "", "EDH", latitude=-33.6, longitude=-78.8,
-                response=resp),
-        Channel("IU", "RAR", "10", "BHZ", latitude=-21.2,
-                longitude=-159.8, response=PAZResponse(**P11_PAZ))])
+                response=resp)] + [
+        Channel("IU", "RAR", "10", cha, latitude=-21.2, longitude=-159.8,
+                response=PAZResponse(**P11_PAZ))
+        for cha in ("BHZ", "BH1", "BH2", "BHR")])
     inv.to_json(path)
     return inv
 
@@ -2743,62 +2899,73 @@ def phase11_synth(noise=30.0, delays=None):
         source_period=600.0, seed=SEED, delays=delays or {})
 
 
-def phase11_bhz_day(day, noise=30.0, delay=-DELAY):
-    """A day of ``IU.RAR.10.BHZ`` raw at 40 Hz that carries phase 11's
-    source train in seconds: the train made at 250 Hz ``delay`` s late
-    (early, since the pair's first receiver is the late one), resampled
-    by 4/25 (a zero-phase FIR), plus its own seeded noise."""
+def phase11_bh_days(day, noise=30.0, delay=-DELAY):
+    """A day of ``IU.RAR.10.BH1``, ``BH2`` and ``BHZ`` raw at 40 Hz that
+    carry phase 11's source train in seconds: the train made at 250 Hz
+    ``delay`` s late (early, since the pair's first receiver is the late
+    one), resampled by 4/25 (a zero-phase FIR), weighted by
+    ``P11_BH_GAIN``, plus each component's own seeded noise. Returns the
+    Traces by component."""
     from scipy.signal import resample_poly
     from xcorr_tpu_torch.stream import Stats, Trace
     (src,) = phase11_synth(0.0, {P11_BHZ: delay})._synthesize_day(
         P11_BHZ, day)
-    data = resample_poly(src.data.astype(np.float64), 4, 25)
-    rng = np.random.default_rng([SEED, pd.Timestamp(day).dayofyear])
-    data += noise * rng.standard_normal(data.size)
-    net, sta, loc, cha = P11_BHZ.split(".")
-    return Trace(data.astype(np.float32), Stats(
-        network=net, station=sta, location=loc, channel=cha,
-        starttime=src.stats.starttime, sampling_rate=BH_FS))
+    train = resample_poly(src.data.astype(np.float64), 4, 25)
+    doy = pd.Timestamp(day).dayofyear
+    net, sta, loc, _ = P11_BHZ.split(".")
+    out = {}
+    for c, gain in P11_BH_GAIN.items():
+        rng = np.random.default_rng([SEED, doy] if c == "Z"
+                                    else [SEED, doy, int(c)])
+        data = gain * train + noise * rng.standard_normal(train.size)
+        out[c] = Trace(data.astype(np.float32), Stats(
+            network=net, station=sta, location=loc, channel="BH" + c,
+            starttime=src.stats.starttime, sampling_rate=BH_FS))
+    return out
 
 
-def phase11_chain_lag(inv, hours=4):
-    """Lag (s) of the CCF peak of the production EDH and BHZ chains'
-    outputs for phase 11's noise-free source train, the first ``hours``
-    of a day: where the BHZ-EDH pair-day peaks beyond the delay."""
+def phase11_chain_lag(inv, bh="BHZ", hours=4):
+    """Lag (s) of the CCF peak of the production EDH chain's and the
+    ``bh`` chain's outputs (``BHZ`` or ``BHR``) for phase 11's noise-free
+    source train, the first ``hours`` of a day: where the pair-day of
+    ``bh`` and EDH peaks beyond the delay."""
     from xcorr_tpu_torch.scripts.cc import default_config
     from xcorr_tpu_torch.stream import Stream
     from xcorr_tpu_torch.stream.process import process as run_chain
     chains = default_config()[0]["preprocess"]
     day = P11_DAYS[0]
     (edh,) = phase11_synth(0.0)._synthesize_day("IM.H03S1..EDH", day)
+    bhs = phase11_bh_days(day, 0.0, 0.0)
     out = []
-    for tr, cha in ((edh, "EDH"), (phase11_bhz_day(day, 0.0, 0.0), "BHZ")):
-        tr.data = tr.data[:int(hours * 3600 * tr.stats.sampling_rate)]
-        tr.stats.npts = tr.data.size
+    for traces, cha in (([edh], "EDH"), (
+            [bhs["Z"]] if bh == "BHZ" else list(bhs.values()), bh)):
+        for tr in traces:
+            tr.data = tr.data[:int(hours * 3600 * tr.stats.sampling_rate)]
+            tr.stats.npts = tr.data.size
         ops = [o for o in chains[cha] if o[0] not in ("merge", "trim")]
-        out.append(run_chain(Stream([tr]), ops, inventory=inv)[0].data)
+        out.append(run_chain(Stream(traces), ops, inventory=inv)
+                   .select(channel=cha)[0].data)
     return peak_lag(*out)
 
 
 def phase11_archive(root):
     """A miniSEED SDS archive of the EDH stations, 250 Hz raw, seeded
     noise with a shared source train, H10N1 ``DELAY`` s late, and of
-    ``IU.RAR.10.BHZ`` at 40 Hz with the same train ``DELAY`` s early:
-    one day file per station and day, each written whole by
-    ``SDSArchive(format="mseed").write`` (Steim1, int32 counts). Returns
-    the day files, the bytes written and the seconds the writes took."""
+    ``IU.RAR.10.BH1``, ``BH2`` and ``BHZ`` at 40 Hz with the same train
+    ``DELAY`` s early: one day file per channel and day, each written
+    whole by ``SDSArchive(format="mseed").write`` (Steim1, int32 counts).
+    Returns the day files, the bytes written and the seconds the writes
+    took."""
     from xcorr_tpu_torch.stream import Stream
     from xcorr_tpu_torch.stream.sds import SDSArchive
     synth = phase11_synth(delays={"IM.H10N1..EDH": DELAY,
                                   "IM.H03S1..EDH": 0.0})
     archive = SDSArchive(root, format="mseed")
     paths, seconds = [], 0.0
-    for receiver in [*P11_PAIR.split("-"), P11_BHZ]:
-        for day in P11_ARCHIVE:
-            if receiver == P11_BHZ:
-                tr = phase11_bhz_day(day)
-            else:
-                (tr,) = synth._synthesize_day(receiver, day)
+    for day in P11_ARCHIVE:
+        traces = [synth._synthesize_day(r, day)[0]
+                  for r in P11_PAIR.split("-")]
+        for tr in [*traces, *phase11_bh_days(day).values()]:
             t0 = time.perf_counter()
             archive.write(Stream([tr]))
             seconds += time.perf_counter() - t0
@@ -2867,24 +3034,42 @@ def phase11_reads_equal(paths):
     return fast_s, plain_s, len(got)
 
 
+def carried_merge_bytes(traces):
+    """Bytes the carried window read allocates for ``traces``: a copy of
+    each day file's samples out of the cache, and each id's merged union
+    (float64 for integer samples) before its trim."""
+    groups = {}
+    for tr in traces:
+        groups.setdefault((tr.id, tr.stats.sampling_rate), []).append(tr)
+    union = 0
+    for (_, fs), group in groups.items():
+        t0 = min(tr.stats.starttime for tr in group)
+        t1 = max(tr.stats.endtime for tr in group)
+        dtype = np.result_type(*(tr.data.dtype for tr in group))
+        union += (int(round((t1 - t0) * fs)) + 1) * (
+            dtype.itemsize if np.issubdtype(dtype, np.floating) else 8)
+    return sum(tr.data.nbytes for tr in traces) + union
+
+
 def phase11_cli(xt, ff):
     """The production entry point on the card, archive to shards to
     analysis: ``xcorr-torch-cc`` (the host engine, K1 on the ``corr``
     route) writes a shard per pair-day through the port's HDF5 codec,
-    first for two EDH-EDH pair-days, then for one BHZ-EDH pair-day (the
-    BHZ chain's Lanczos step on the host); every shard reads back and
-    validates with status 1, peaking at the injected delay (the BHZ-EDH
-    one plus the lag between the two chains), the first of each within
-    1e-6 of an in-memory ``process`` of the same pair-day;
-    ``xcorr-torch-snr`` reads the EDH-EDH shards and matches
-    ``pair_snr`` (on the in-memory dataset, then on the second shard).
-    Returns K1's launches in each CLI run."""
+    first for two EDH-EDH pair-days, then for one BHZ-EDH and one BHR-EDH
+    pair-day (the BH chains' response and Lanczos steps on the host);
+    every shard reads back and validates with status 1, peaking at the
+    injected delay (the BH ones plus the lag between the two chains), the
+    first of each bit-identical to an in-memory ``process`` of the same
+    pair-day on the plain path of the read and the response
+    (``plain_host_path``); ``xcorr-torch-snr`` reads the EDH-EDH shards
+    and matches ``pair_snr`` (on the in-memory dataset, then on the second
+    shard). Returns K1's launches in each CLI run."""
     from xcorr_tpu_torch.core import lazy
     from xcorr_tpu_torch.io.netcdf import from_netcdf
     from xcorr_tpu_torch.scripts import cc as cc_cli
     from xcorr_tpu_torch.scripts import snr as snr_cli
     from xcorr_tpu_torch.stream import Client
-    from xcorr_tpu_torch.stream import _daycache
+    from xcorr_tpu_torch.stream import _daycache, _response, _window
     from xcorr_tpu_torch.stream import sds as sds_mod
     set_route("corr")
     tmp = tempfile.TemporaryDirectory()
@@ -2893,7 +3078,8 @@ def phase11_cli(xt, ff):
     inv = phase11_inventory(inv_path)
     paths, sds_bytes, sds_s = phase11_archive(sds)
     phase(11, f"miniSEED SDS archive: 2 EDH stations at {RAW_FS:g} Hz and "
-              f"{P11_BHZ} at {BH_FS:g} Hz x {len(P11_ARCHIVE)} days, "
+              f"IU.RAR.10.BH1/BH2/BHZ at {BH_FS:g} Hz x {len(P11_ARCHIVE)} "
+              f"days, "
               f"{sds_bytes / 1e6:.1f} MB, each day file written whole by "
               f"SDSArchive.write in {sds_s / len(paths):.3f} s "
               f"({sds_s:.2f} s in all)")
@@ -2906,26 +3092,39 @@ def phase11_cli(xt, ff):
 
     def run_cli(pair, days):
         """``xcorr-torch-cc`` over ``pair``'s pair-days from an empty
-        day-file cache, its shard writes and day-file decodes timed where
-        the campaign makes them (reads that found the decode cached are
-        hits): wall, K1's and the other launches, write seconds, decodes
-        as (seconds, path), reads as (seconds, path)."""
-        writes, decodes, reads = [], [], []
-        real_write, real_decode = lazy.write, sds_mod._decode_dayfile
-        real_read = sds_mod.read_dayfile
+        day-file cache and response cache, its shard writes, day-file
+        reads (views of the cache; those that found the decode cached are
+        hits), decodes and window merges timed where the campaign makes
+        them: wall, K1's and the other launches, write seconds, decodes
+        as (seconds, path), reads as (seconds, day), merges as (seconds,
+        bytes the merge allocated, bytes the carried merge allocates for
+        the same traces: a copy of each and the union)."""
+        writes, decodes, reads, merges = [], [], [], []
+        real = (lazy.write, sds_mod._decode_dayfile, _window.day_views,
+                _window.merge_window)
 
-        def timed(fn, out):
+        def timed(fn, out, arg=0):
             def call(*a, **kw):
                 t0 = time.perf_counter()
                 res = fn(*a, **kw)
-                out.append((time.perf_counter() - t0, a[0] if a else None))
+                out.append((time.perf_counter() - t0, a[arg] if a else None))
                 return res
             return call
 
-        lazy.write = timed(real_write, writes)
-        sds_mod._decode_dayfile = timed(real_decode, decodes)
-        sds_mod.read_dayfile = timed(real_read, reads)
+        def merge(traces, start, end):
+            t0 = time.perf_counter()
+            st = real[3](traces, start, end)
+            merges.append((time.perf_counter() - t0,
+                           sum(tr.data.nbytes for tr in st),
+                           carried_merge_bytes(traces)))
+            return st
+
+        lazy.write = timed(real[0], writes)
+        sds_mod._decode_dayfile = timed(real[1], decodes)
+        _window.day_views = timed(real[2], reads, 2)
+        _window.merge_window = merge
         _daycache.DAYS.clear()
+        _response.RESPONSES.clear()
         ff.reset_launches()
         t0 = time.perf_counter()
         try:
@@ -2934,8 +3133,8 @@ def phase11_cli(xt, ff):
                               f"{days[-1]:%F}", "--inventory", inv_path])
             torch.cuda.synchronize()
         finally:
-            lazy.write, sds_mod._decode_dayfile = real_write, real_decode
-            sds_mod.read_dayfile = real_read
+            (lazy.write, sds_mod._decode_dayfile, _window.day_views,
+             _window.merge_window) = real
         wall = time.perf_counter() - t0
         decoded = [p for _, p in decodes]
         check(len(decoded) == len(set(decoded))
@@ -2951,10 +3150,12 @@ def phase11_cli(xt, ff):
         check(len(writes) == len(days), f"{len(writes)} shard writes for "
                                         f"{len(days)} pair-days")
         return wall, counts["fused_corr"], [w for w, _ in writes], \
-            decodes, reads
+            decodes, reads, merges
 
     def cli_line(pair, days, run, shards, shard_reads):
-        wall, k1, writes, decodes, reads = run
+        wall, k1, writes, decodes, reads, merges = run
+        mb = [b / 1e6 for _, b, _ in merges]
+        carried = [c / 1e6 for _, _, c in merges]
         return (f"xcorr-torch-cc {pair}: {len(days)} pair-days in "
                 f"{wall:.2f} s wall, {wall / len(days):.2f} s per pair-day; "
                 f"K1 launches {k1}; bytes per shard {shards}; write s per "
@@ -2967,7 +3168,14 @@ def phase11_cli(xt, ff):
                 f"({sum(d for d, _ in decodes):.2f} s summed over the "
                 f"campaign's threads); reads "
                 f"{sum(r for r, _ in reads):.2f} s summed "
-                f"({np.median([r for r, _ in reads]):.3f} s median)")
+                f"({np.median([r for r, _ in reads]):.3f} s median); "
+                f"window merges {len(merges)}: "
+                f"{sum(m for m, _, _ in merges):.2f} s summed "
+                f"({np.median([m for m, _, _ in merges]):.3f} s median), "
+                f"{min(mb):.1f}-{max(mb):.1f} MB allocated per window "
+                f"(the carried merge {min(carried):.1f}-"
+                f"{max(carried):.1f} MB: a copy of each day file and the "
+                f"union)")
 
     def held(pair, days, want_lag):
         """Every shard of ``pair``: read, validate, status, peaks at
@@ -2993,19 +3201,22 @@ def phase11_cli(xt, ff):
                 want = xt.init(pair=pair, starttime=day,
                                endtime=day + pd.Timedelta("1D"),
                                **{**init_args, "inventory": inv})
+                _response.RESPONSES.clear()
                 t0 = time.perf_counter()
-                xt.process(want, client, inventory=inv, device="cuda",
-                           verb=0)
-                torch.cuda.synchronize()
+                with plain_host_path(lanczos=False):
+                    xt.process(want, client, inventory=inv, device="cuda",
+                               verb=0)
+                    torch.cuda.synchronize()
                 mem_wall = time.perf_counter() - t0
-                diff = float(np.abs(ds["cc"].values
-                                    - want["cc"].values).max())
-                check(diff <= CCF_ATOL, f"{pair} {day:%F}: shard vs "
-                                        f"in-memory process {diff} > "
-                                        f"{CCF_ATOL}")
-                versus = (f"max |shard - in-memory process| {diff:.3e} "
-                          f"(bit-identical: {diff == 0.0}; process "
-                          f"{mem_wall:.2f} s)")
+                a, b = ds["cc"].values, want["cc"].values
+                diff = float(np.abs(a - b).max())
+                same = a.dtype == b.dtype and a.tobytes() == b.tobytes()
+                check(same, f"{pair} {day:%F}: shard vs in-memory process "
+                            f"on the plain path: max |diff| {diff}, "
+                            f"dtypes {a.dtype} {b.dtype}")
+                versus = (f"bit-identical to an in-memory process on the "
+                          f"plain path of the read and the response "
+                          f"({mem_wall:.2f} s)")
             else:
                 want, versus = ds, "read back"
             lag = ds.coords["lag"].values
@@ -3046,21 +3257,26 @@ def phase11_cli(xt, ff):
               f"within {err:.3e} (relative) of pair_snr in memory, "
               f"lag_s_max equal; h5py not imported")
 
-    # one BHZ-EDH pair-day: the BHZ side's Lanczos step on the host
-    lag = phase11_chain_lag(inv)
-    bhz_days = days[:1]
-    bhz = run_cli(P11_BHZ_PAIR, bhz_days)
-    bhz_shards, bhz_reads, _ = held(P11_BHZ_PAIR, bhz_days, DELAY + lag)
+    # one BHZ-EDH and one BHR-EDH pair-day: the BH chains' response and
+    # Lanczos steps on the host
+    bh_days, wall = days[:1], {}
+    for bh, pair in (("BHZ", P11_BHZ_PAIR), ("BHR", P11_BHR_PAIR)):
+        lag = phase11_chain_lag(inv, bh)
+        run = run_cli(pair, bh_days)
+        bh_shards, bh_reads, _ = held(pair, bh_days, DELAY + lag)
+        phase(11, cli_line(pair, bh_days, run, bh_shards, bh_reads)
+                  + f"; peaks expected at {DELAY} s plus {lag:.2f} s "
+                  f"between the EDH and {bh} chains for noise-free "
+                  f"arrivals")
+        wall[bh] = run[:2]
     check("h5py" not in sys.modules, "h5py was imported")
     tmp.cleanup()
-    phase(11, cli_line(P11_BHZ_PAIR, bhz_days, bhz, bhz_shards, bhz_reads)
-              + f"; peaks expected at {DELAY} s plus {lag:.2f} s between "
-              f"the EDH and BHZ chains for noise-free arrivals")
     phase(11, f"xcorr-torch-cc wall per pair-day: EDH-EDH "
               f"{edh[0] / len(days):.2f} s, BHZ-EDH "
-              f"{bhz[0] / len(bhz_days):.2f} s")
+              f"{wall['BHZ'][0]:.2f} s, BHR-EDH {wall['BHR'][0]:.2f} s")
     return {"11 xcorr-torch-cc": {"fused_corr": edh[1]},
-            "11 xcorr-torch-cc BHZ-EDH": {"fused_corr": bhz[1]}}
+            "11 xcorr-torch-cc BHZ-EDH": {"fused_corr": wall["BHZ"][1]},
+            "11 xcorr-torch-cc BHR-EDH": {"fused_corr": wall["BHR"][1]}}
 
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -3339,6 +3555,8 @@ def main_phase10(xt, ff, fft4, t_start):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
         worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    elif sys.argv[1:2] == ["--kernel-names"]:
+        kernel_names(sys.argv[2])
     else:
         main(only={"--phase10": 10, "--phase11": 11, "--phase12": 12}.get(
             (sys.argv[1:2] or [None])[0]))

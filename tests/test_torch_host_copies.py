@@ -103,6 +103,51 @@ def _decode_dayfile(path) -> list:
     with hdf5.File(path, "a") as f:"""),
 ]
 
+#: ``remove_response`` takes the inverse response and the pre_filt taper
+#: from ``stream/_response.py``, in the carried order of operations
+_REMOVE_RESPONSE = [(
+    """        from .inventory import flat_response
+""",
+    """        from ._response import inverse_response
+        from .inventory import flat_response
+"""), (
+    """        freqs = np.fft.rfftfreq(nfft, d=self.stats.delta)
+        r = resp.evaluate(freqs, output=output)
+        spec = np.fft.rfft(self.data.astype(np.float64), nfft)
+        if pre_filt is not None:
+            spec *= _cosine_sac_taper(freqs, pre_filt)
+        inv_r = _invert_spectrum_water_level(r, water_level)
+""",
+    """        inv_r, taper = inverse_response(resp, nfft, self.stats.delta,
+                                        output, water_level, pre_filt)
+        spec = np.fft.rfft(self.data.astype(np.float64), nfft)
+        if taper is not None:
+            spec *= taper
+"""),
+]
+
+#: the exact window of an archive is read without copying a day file and
+#: merged over the window's span alone (``stream/_window.py``), the
+#: carried read its plain version there
+_CLIENT = [(
+    """from .sds import SDSArchive
+""",
+    """from ._window import read_window
+from .sds import SDSArchive
+"""), (
+    """            traces = []
+            for day in get_dates(start, end):
+                st = archive.read(receiver, day)
+                traces.extend(st.traces)
+            if not traces:
+                continue
+            st = Stream(traces).merge(method=1, fill_value="interpolate")
+            st.trim(start, end)
+""",
+    """            st = read_window(archive, receiver, start, end)
+"""),
+]
+
 _SYSMEM_SRC = (ROOT / "xcorr_tpu" / "util" / "sysmem.py").read_text()
 #: the heap settings are carried; the JAX compile cache (the module's
 #: last function, to its end) and the ``os`` import only it used are not
@@ -130,15 +175,18 @@ CARRIED = {
     "util/sysmem.py": _SYSMEM,
     # the host response division keeps the reference's FFT sizing; the
     # Lanczos interpolation runs in the port's native library, bit-equal
-    # to the carried loop, which stays as its plain version
+    # to the carried loop, which stays as its plain version; the inverse
+    # response comes from a cache by response values and grid
+    # (stream/_response.py), its plain version the carried expressions
     "stream/trace.py": [("from ..ops.fft import next_fast_len",
                          "from ._fftlen import next_fast_len\n"
                          "from ._lanczos import lanczos_interp"),
                         ("self.data = _lanczos_interp(self.data.astype(",
-                         "self.data = lanczos_interp(self.data.astype(")],
+                         "self.data = lanczos_interp(self.data.astype("),
+                        *_REMOVE_RESPONSE],
     "stream/inventory.py": [],
     "stream/process.py": [],
-    "stream/client.py": [],
+    "stream/client.py": _CLIENT,
     "stream/sds.py": _SDS,
     "stream/duration.py": [],
     "stream/vdms.py": [],

@@ -628,6 +628,8 @@ def test_host_campaign_same_shards_with_and_without_cache(tmp_path,
 
     real, decodes = tsds._decode_dayfile, []
     monkeypatch.setattr(tsds, "read_dayfile", real)
+    monkeypatch.setattr(_daycache.DAYS, "views",
+                        lambda path, decode: decode(path))
     want = campaign("fresh")
     monkeypatch.undo()
     monkeypatch.setattr(tsds, "_decode_dayfile",

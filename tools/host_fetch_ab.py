@@ -1,0 +1,119 @@
+"""The host fetch's two forms in turns, on the card's machine.
+
+    python3 tools/host_fetch_ab.py [--pairs 10]
+
+Writes ``chip_smoke.py``'s phase 11 miniSEED archive (2 EDH stations at
+250 Hz, ``IU.RAR.10.BH1/BH2/BHZ`` at 40 Hz, 5 days), then, ``--pairs``
+times, runs each of phase 11's pair kinds through ``xcorr-torch-cc``
+(EDH-EDH over 2 pair-days, BHZ-EDH and BHR-EDH over 1) once on the
+port's window read and inverse-response cache and once on their carried
+forms (``chip_smoke.plain_host_path(lanczos=False)``: the copying read,
+the response evaluated for every window and component), from empty
+day-file and response caches, alternating which form runs first. Both
+forms' shards must be the same bits. Prints the card's name and power
+limit, each wall per pair-day, and per pair kind the medians, the
+carried form's quartile spread and the rounds the cache won; the last
+line is the walls as JSON. Needs one card; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import pandas as pd
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke as cs  # noqa: E402
+
+
+def run_cli(pair, days, root, sds, inv_path, plain):
+    """Seconds per pair-day of ``xcorr-torch-cc`` over ``pair``'s
+    ``days`` into ``root``, from empty caches, on the carried forms if
+    ``plain``."""
+    from xcorr_tpu_torch.scripts import cc as cc_cli
+    from xcorr_tpu_torch.stream import _daycache, _response
+    _daycache.DAYS.clear()
+    _response.RESPONSES.clear()
+    form = cs.plain_host_path(lanczos=False) if plain \
+        else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    with form:
+        rc = cc_cli.main(["--root", root, "--sds-root", sds, "--pair", pair,
+                          "--start", f"{days[0]:%F}", "--end",
+                          f"{days[-1]:%F}", "--inventory", inv_path])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cs.check(rc == 0, f"xcorr-torch-cc returned {rc}")
+    return wall / len(days)
+
+
+def ab(pairs):
+    """The turns; returns the walls by pair kind and form."""
+    import xcorr_tpu_torch as xt
+    tmp = tempfile.TemporaryDirectory()
+    sds = os.path.join(tmp.name, "sds")
+    inv_path = os.path.join(tmp.name, "inventory.json")
+    cs.phase11_inventory(inv_path)
+    cs.phase11_archive(sds)
+    days = pd.date_range(*cs.P11_DAYS, freq="1D")
+    kinds = {"EDH-EDH": (cs.P11_PAIR, days),
+             "BHZ-EDH": (cs.P11_BHZ_PAIR, days[:1]),
+             "BHR-EDH": (cs.P11_BHR_PAIR, days[:1])}
+    walls = {k: {"cached": [], "plain": []} for k in kinds}
+    for i in range(pairs):
+        order = ("plain", "cached") if i % 2 == 0 else ("cached", "plain")
+        for kind, (pair, kdays) in kinds.items():
+            roots = {f: os.path.join(tmp.name, f"{kind}-{f}") for f in order}
+            for f in order:
+                walls[kind][f].append(run_cli(pair, kdays, roots[f], sds,
+                                              inv_path, f == "plain"))
+            for day in kdays:
+                a, b = (xt.read(xt.ncfile(pair, day, roots[f]))["cc"].values
+                        for f in ("cached", "plain"))
+                cs.check(a.dtype == b.dtype and a.tobytes() == b.tobytes(),
+                         f"{kind} {day:%F}: the forms' shards differ")
+            for root in roots.values():
+                shutil.rmtree(root)
+            print(f"round {i + 1} ({order[0]} first) {kind}: "
+                  + ", ".join(f"{f} {walls[kind][f][-1]:.3f} s"
+                              for f in order), flush=True)
+    tmp.cleanup()
+    for kind, w in walls.items():
+        q = statistics.quantiles(w["plain"], n=4) if pairs > 1 else [0, 0, 0]
+        wins = sum(c < p for c, p in zip(w["cached"], w["plain"]))
+        print(f"{kind} s per pair-day: cached median "
+              f"{statistics.median(w['cached']):.3f}, carried median "
+              f"{statistics.median(w['plain']):.3f} (quartile spread "
+              f"{q[2] - q[0]:.3f}); the cache faster in {wins} of "
+              f"{pairs} rounds; shards the same bits", flush=True)
+    return walls
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--pairs", type=int, default=10)
+    args = parser.parse_args()
+    cs.check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    from xcorr_tpu_torch.ops import _build
+    _build.load()
+    cs.set_route("corr")
+    print(json.dumps(ab(args.pairs)))
+
+
+if __name__ == "__main__":
+    main()

@@ -27,6 +27,7 @@ from ..ndlabel import DataArray
 from ..util.receiver import check_receiver, split_pair
 from ..util.time import get_dates, to_datetime
 from . import process as stream_process
+from ._window import read_window
 from .sds import SDSArchive
 from .trace import Stream, Stats, Trace, UTCDateTime
 
@@ -138,14 +139,7 @@ class Client:
                            verb: int = 0):
         """Scan all read roots for the receiver covering [start, end]."""
         for archive in self.archives:
-            traces = []
-            for day in get_dates(start, end):
-                st = archive.read(receiver, day)
-                traces.extend(st.traces)
-            if not traces:
-                continue
-            st = Stream(traces).merge(method=1, fill_value="interpolate")
-            st.trim(start, end)
+            st = read_window(archive, receiver, start, end)
             if len(st) and st[0].stats.npts > 0:
                 got = st[0].stats.endtime - st[0].stats.starttime
                 if got >= duration - 2.0 / st[0].stats.sampling_rate:

@@ -343,17 +343,17 @@ class Trace:
                         water_level=60.0, pre_filt=None, **kw):
         """Deconvolve the instrument response by water-level spectral
         division (obspy.Trace.remove_response algorithm)."""
+        from ._response import inverse_response
         from .inventory import flat_response
         resp = (inventory.get_response(self.id, self.stats.starttime)
                 if inventory is not None else flat_response())
         n = self.stats.npts
         nfft = next_fast_len(2 * n)
-        freqs = np.fft.rfftfreq(nfft, d=self.stats.delta)
-        r = resp.evaluate(freqs, output=output)
+        inv_r, taper = inverse_response(resp, nfft, self.stats.delta,
+                                        output, water_level, pre_filt)
         spec = np.fft.rfft(self.data.astype(np.float64), nfft)
-        if pre_filt is not None:
-            spec *= _cosine_sac_taper(freqs, pre_filt)
-        inv_r = _invert_spectrum_water_level(r, water_level)
+        if taper is not None:
+            spec *= taper
         self.data = np.fft.irfft(spec * inv_r, nfft)[:n]
         return self
 
