@@ -86,7 +86,10 @@ line, on stderr:
    ``process(device='cuda')``: every status 1, every peak on the
    injected delay (the BHR-EDH one plus the lag between the two
    production chains, measured on noise-free arrivals), wall seconds of
-   each, the fallback's by chain stage;
+   each, the fallback's by chain stage: its BHR chain fetched BHZ and
+   ran no operation on it, while the plain path (every fetched
+   component, the steps' carried expressions) ran them and gave the
+   same CCF bits;
 7. the analysis slice on the card. (a) Full lag width: phase 6's 4
    pair-days (32 windows x 1.62 M lags, float32) through ``postprocess``
    (0-9 h lags, the scripts' 3 Hz highpass, no celerity clip) and ``snr``
@@ -105,7 +108,9 @@ line, on stderr:
    ``spectrogram(duration=2.5, padding_factor=4)`` to 20 Hz). All held to
    the same run on the CPU (``snr`` 1e-5 relative, periods identical, PSD
    within 1e-5 of its max), with wall per pair-day on the card and on the
-   CPU, the device share and the device operations per pair-day, and the
+   CPU, the device share (``lost`` where a profiler session saw fewer
+   device records than host-side launch calls) and the device
+   operations per pair-day, and the
    last day's card wall taken apart: ``postprocess``, ``snr`` and each
    stage of the chain on the clipped lag window. The Z and R pairs of one
    receiver share a distance, and so do the three array pairs, whose
@@ -210,9 +215,15 @@ line, on stderr:
     Lanczos step on the host), held as above, its peaks on the delay
     plus the lag between the EDH and BHZ chains (measured on noise-free
     arrivals). Bytes, write seconds (in the campaign) and read seconds
-    per shard, the CLI's wall per pair-day of each pair; h5py must not
-    be imported. ``python3 chip_smoke.py --phase11`` runs
-    phases 1, 2 (the build alone) and 11;
+    per shard, the CLI's wall per pair-day of each pair, each chain step's
+    seconds summed over the fetch threads; the BHR-EDH pair-day's chain
+    fetched BHZ and ran no operation on it. One 250 Hz window alone, in
+    one thread, by step, on the carried forms and the port's in turns
+    (the same bits), and its window merge by part (allocation, the cast,
+    eight at once into fresh and into touched memory, a compute
+    control). h5py must not be imported.
+    ``python3 chip_smoke.py --phase11`` runs phases 1, 2 (the build
+    alone) and 11;
 12. files that other HDF5 writers make, read on this machine without
     h5py: every fixture of ``tests/fixtures_torch/hdf5`` (netCDF-C's
     layout, each version-4 chunk index, fletcher32, lzf, and an xcorr
@@ -1094,21 +1105,40 @@ def phase6_lanczos():
              f"library loaded (built if new) in {load_s:.2f} s")
 
 
+class Stages(dict):
+    """``chain_stages``' record: seconds by (channel, operation); per
+    chain channel the channels its operations ran on (``ran_on``) and the
+    channels it fetched (``fetched``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ran_on, self.fetched = {}, {}
+
+
+def thread_faults():
+    """Minor page faults this thread has taken."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_THREAD).ru_minflt
+
+
 @contextlib.contextmanager
 def chain_stages():
     """Seconds of the host chain while it runs, summed over the fetch
     threads: per (channel, operation) of ``stream.process``, the reads
-    (``Client.get_waveforms``) and each receiver's whole fetch
+    (``Client.get_waveforms``), the window merges inside them
+    (``_window.merge_window``) and each receiver's whole fetch
     (``Client.get_processed_waveforms``), keyed by the channel the fetch
     asked for, and per channel the wall seconds from its first fetch's
     start to its last fetch's end (``"wall"``), which the threads' sums
-    overlap. Yields the dict it fills."""
+    overlap. Also the channels each chain's operations ran on and the
+    channels each fetched. Yields the :class:`Stages` it fills."""
+    from xcorr_tpu_torch.stream import _window
     from xcorr_tpu_torch.stream import process as proc_mod
     from xcorr_tpu_torch.stream.client import Client
-    acc, lock, local = {}, threading.Lock(), threading.local()
+    acc, lock, local = Stages(), threading.Lock(), threading.local()
     spans = {}
     real = (proc_mod.apply_operation, Client.get_waveforms,
-            Client.get_processed_waveforms)
+            Client.get_processed_waveforms, _window.merge_window)
 
     def add(key, seconds):
         with lock:
@@ -1116,13 +1146,24 @@ def chain_stages():
 
     def timed(fn, label):
         def call(*a, **kw):
+            cha = getattr(local, "cha", "?")
+            if label is None:
+                ws = kw.get("waveforms")
+                with lock:
+                    acc.ran_on.setdefault(cha, set()).update(
+                        t.stats.channel for t in getattr(ws, "traces",
+                                                         [ws]))
+            elif label == "read":
+                receiver = kw.get("receiver") or a[1]
+                with lock:
+                    acc.fetched.setdefault(cha, set()).add(
+                        receiver.split(".")[3])
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
                 op = kw.get("operation") if label is None else label
-                add((getattr(local, "cha", "?"), op),
-                    time.perf_counter() - t0)
+                add((cha, op), time.perf_counter() - t0)
         return call
 
     def fetch(self, receiver, *a, **kw):
@@ -1139,11 +1180,12 @@ def chain_stages():
     proc_mod.apply_operation = timed(real[0], None)
     Client.get_waveforms = timed(real[1], "read")
     Client.get_processed_waveforms = fetch
+    _window.merge_window = timed(real[3], "window merge")
     try:
         yield acc
     finally:
         (proc_mod.apply_operation, Client.get_waveforms,
-         Client.get_processed_waveforms) = real
+         Client.get_processed_waveforms, _window.merge_window) = real
         acc.update({(cha, "wall"): hi - lo
                     for cha, (lo, hi) in spans.items()})
 
@@ -1151,20 +1193,33 @@ def chain_stages():
 def stage_report(acc):
     """``chain_stages``' seconds as text, per channel: the whole fetch
     summed over the threads and the threads' wall, then its parts in
-    falling order (an operation that runs twice in a chain is
-    summed)."""
+    falling order (an operation that runs twice in a chain is summed;
+    the window merge is a part of the read), and the channels the chain
+    fetched and ran on."""
     parts = []
     for cha in sorted({c for c, _ in acc}):
         mine = {op: v for (c, op), v in acc.items() if c == cha}
         total = mine.pop("fetch", 0.0)
         wall = mine.pop("wall", 0.0)
-        rest = total - sum(mine.values())
-        parts.append(f"{cha} fetch {total:.2f} s in {wall:.2f} s of the "
-                     f"fetch threads' wall = " + ", ".join(
-            f"{op} {v:.2f}" for op, v in sorted(
-                mine.items(), key=lambda kv: -kv[1]))
-            + f", other {rest:.2f}")
+        rest = total - sum(v for op, v in mine.items()
+                           if op != "window merge")
+        parts.append(
+            f"{cha} fetch {total:.2f} s in {wall:.2f} s of the fetch "
+            f"threads' wall = " + ", ".join(
+                f"{op} {v:.2f}" for op, v in sorted(
+                    mine.items(), key=lambda kv: -kv[1]))
+            + f", other {rest:.2f}; fetched "
+            f"{sorted(acc.fetched.get(cha, ()))}, ran on "
+            f"{sorted(acc.ran_on.get(cha, ()))}")
     return "; ".join(parts)
+
+
+def check_unread_z(stages, label):
+    """The BHR chain fetched BHZ and ran no operation on it."""
+    check("BHZ" in stages.fetched.get("BHR", ()),
+          f"{label}: BHZ not fetched ({stages.fetched})")
+    check("BHZ" not in stages.ran_on.get("BHR", ()),
+          f"{label}: the BHR chain ran on {sorted(stages.ran_on['BHR'])}")
 
 
 @contextlib.contextmanager
@@ -1174,22 +1229,31 @@ def plain_host_path(lanczos=True):
     ``_read_window_plain``: each day file copied out of the cache, merged
     over their union, then trimmed), the inverse response evaluated anew
     for every window and component (``stream/_response.py``
-    ``_inverse_response_plain``) and, with ``lanczos``, the carried numpy
-    Lanczos loop (``stream/trace.py`` ``_lanczos_interp``)."""
-    from xcorr_tpu_torch.stream import _response, _window
+    ``_inverse_response_plain``), the chain over every fetched component
+    (``stream/_live.py`` ``_drop_unread_plain``), the steps' carried
+    expressions (``stream/_steps.py``: each form's ``_<name>_plain``)
+    and, with ``lanczos``, the carried numpy Lanczos loop
+    (``stream/trace.py`` ``_lanczos_interp``)."""
+    from xcorr_tpu_torch.stream import _live, _response, _steps, _window
     from xcorr_tpu_torch.stream import client as client_mod
     from xcorr_tpu_torch.stream import trace as trace_mod
     real = (client_mod.read_window, _response.inverse_response,
-            trace_mod.lanczos_interp)
+            trace_mod.lanczos_interp, client_mod.drop_unread)
+    forms = {name: getattr(_steps, name) for name in _steps.FORMS}
     client_mod.read_window = _window._read_window_plain
     _response.inverse_response = _response._inverse_response_plain
+    client_mod.drop_unread = _live._drop_unread_plain
+    for name in _steps.FORMS:
+        setattr(_steps, name, getattr(_steps, f"_{name}_plain"))
     if lanczos:
         trace_mod.lanczos_interp = trace_mod._lanczos_interp
     try:
         yield
     finally:
         (client_mod.read_window, _response.inverse_response,
-         trace_mod.lanczos_interp) = real
+         trace_mod.lanczos_interp, client_mod.drop_unread) = real
+        for name, form in forms.items():
+            setattr(_steps, name, form)
 
 
 BHZ_PAIR = "IM.H03S1..EDH-IU.RAR.10.BHZ"
@@ -1450,6 +1514,9 @@ def bhr_fallback(xt, ff, edh_resp, paz):
     same = bhr["cc"].values.tobytes() == plain["cc"].values.tobytes()
     check(same, "BHR-EDH: the host engine's CCFs differ from the plain "
                 "path's")
+    check_unread_z(stages, "BHR fallback")
+    check("BHZ" in plain_stages.ran_on.get("BHR", ()),
+          "BHR fallback: the plain path ran no step on BHZ")
     lag = chain_lag()
     bhr_peaks = held(bhr, "BHR-EDH fallback (host engine)", DELAY + lag)
     phase(6, f"BHR fallback: one device_process_bulk call of {PAIR} and "
@@ -1483,13 +1550,40 @@ def device_profile():
     return profile(activities=[ProfilerActivity.CUDA])
 
 
+#: the host-side records of the CUDA runtime's and driver's calls that put
+#: an operation on the card
+LAUNCH_CALL = re.compile(
+    r"^cuda?(LaunchKernel|LaunchCooperativeKernel|Memcpy|Memset)")
+
+
 def device_ops(prof):
-    """(device ms, kernels, copies) of a profiled run."""
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    copies = sum(e.count for e in events if e.key.startswith("Memcpy")
-                 or e.key.startswith("Memset"))
-    return (sum(e.self_device_time_total for e in events) / 1e3,
-            sum(e.count for e in events) - copies, copies)
+    """(device ms, kernels, copies, launched, missing) of a profiled run:
+    the card's own records of the session; the operations the call put on
+    the card, as the session's host-side records of the runtime's and
+    driver's launch, copy and set calls count them; and how many more
+    such calls than device records there are. A session with a missing
+    record lost device events (the card's torch 2.11 profiler does in a
+    long process): its device ms and share are not to be read
+    (``share_text``)."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    launched = sum(e.device_type == DeviceType.CPU
+                   and LAUNCH_CALL.match(e.name) is not None
+                   for e in events)
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in dev)
+    return (sum(e.time_range.elapsed_us() for e in dev) / 1e3,
+            len(dev) - copies, copies, launched,
+            max(launched - len(dev), 0))
+
+
+def share_text(dev_ms, wall, lost):
+    """A device share as printed: ``lost`` where a session lost device
+    events (``device_ops``), never the low number such a session gives."""
+    if lost:
+        return (f"lost ({lost} profiler sessions saw fewer device "
+                f"operations than their calls launched)")
+    return f"{dev_ms / 1e3 / wall:.4f}" if dev_ms > 0 else "not measured"
 
 
 def timed(fn):
@@ -1711,14 +1805,16 @@ def phase7b_campaign(xt, p8):
     days = {"cuda": [], "cpu": []}
     wall = {"cuda": 0.0, "cpu": 0.0}
     dev_ms, kernels, copies, err, first = 0.0, 0, 0, 0.0, None
+    launched = lost = 0
     for iday in range(CAMPAIGN_DAYS):
         dss = campaign_day(xt, init_args, pairs, dists, offsets, iday)
         with device_profile() as prof:
             card, t = timed(lambda: snr_day(dss, "cuda"))
         wall["cuda"] += t
         first = t if first is None else first
-        ms, k, c = device_ops(prof)
+        ms, k, c, n, miss = device_ops(prof)
         dev_ms, kernels, copies = dev_ms + ms, kernels + k, copies + c
+        launched, lost = launched + n, lost + (miss > 0)
         cpu, t = timed(lambda: snr_day(dss, "cpu"))
         wall["cpu"] += t
         err = max(err, hold_snr(card, cpu, f"7b day {iday}"))
@@ -1734,8 +1830,7 @@ def phase7b_campaign(xt, p8):
         p8["seconds"] += time.perf_counter() - t8
         del dss
     npd = CAMPAIGN_DAYS * len(pairs)
-    share = f"{dev_ms / 1e3 / wall['cuda']:.4f}" if dev_ms > 0 \
-        else "not measured"
+    share = share_text(dev_ms, wall["cuda"], lost)
     phase(7, f"7b snr, {len(pairs)} pairs x {CAMPAIGN_DAYS} days = {npd} "
              f"pair-days at clim {CELERITY}: card {wall['cuda']:.2f} s "
              f"({1e3 * wall['cuda'] / npd:.1f} ms per pair-day; first day "
@@ -1743,7 +1838,8 @@ def phase7b_campaign(xt, p8):
              f"({1e3 * wall['cpu'] / npd:.1f} ms per pair-day); device "
              f"{dev_ms:.1f} ms, share {share}; device operations per "
              f"pair-day {(kernels + copies) / npd:.1f} (kernels "
-             f"{kernels / npd:.1f}, copies {copies / npd:.1f}); card vs "
+             f"{kernels / npd:.1f}, copies {copies / npd:.1f}; launched "
+             f"{launched / npd:.1f}); card vs "
              f"CPU snr/s/n {err:.2e} relative, lag_s_max equal")
     whole = ("pair_snr", "postprocess", "snr")
     stages = {k: v for k, v in split.items() if k not in whole}
@@ -1843,25 +1939,27 @@ def new_phase8():
 def tally(acc, key, card, cpu, prof, units):
     """Add one profiled card run's wall, device ms and operations, and
     its CPU twin's wall, to ``acc[key]``."""
-    ms, k, c = device_ops(prof)
+    ms, k, c, n, miss = device_ops(prof)
     r = acc.setdefault(key, {"card": 0.0, "cpu": 0.0, "dev_ms": 0.0,
-                             "ops": 0, "units": 0, "err": 0.0})
+                             "ops": 0, "launched": 0, "lost": 0,
+                             "units": 0, "err": 0.0})
     r["card"] += card
     r["cpu"] += cpu
     r["dev_ms"] += ms
     r["ops"] += k + c
+    r["launched"] += n
+    r["lost"] += miss > 0
     r["units"] += units
     return r
 
 
 def tally_line(label, r, unit):
-    share = f"{r['dev_ms'] / 1e3 / r['card']:.4f}" if r["dev_ms"] > 0 \
-        else "not measured"
+    share = share_text(r["dev_ms"], r["card"], r["lost"])
     n = r["units"]
     return (f"{label}: card {1e3 * r['card'] / n:.1f} ms per {unit}, CPU "
             f"{1e3 * r['cpu'] / n:.1f} ms per {unit} ({n} {unit}s); device "
             f"{r['dev_ms']:.1f} ms, share {share}, device operations per "
-            f"{unit} {r['ops'] / n:.1f}")
+            f"{unit} {r['ops'] / n:.1f} (launched {r['launched'] / n:.1f})")
 
 
 def hold_close(got, want, tol, label, angle=False):
@@ -2088,8 +2186,10 @@ def phase8d_timelapse(xt, p8):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    cache = {"card": 0.0, "dev_ms": 0.0, "ops": 0}
-    cells = {"card": 0.0, "dev_ms": 0.0, "ops": 0, "n": 0}
+    cache = {"card": 0.0, "dev_ms": 0.0, "ops": 0, "launched": 0,
+             "lost": 0}
+    cells = {"card": 0.0, "dev_ms": 0.0, "ops": 0, "launched": 0,
+             "lost": 0, "n": 0}
     err = {"spec": 0.0, "cc2": 0.0}
     shapes, ties = {}, 0
     for ip in TL_PAIRS:
@@ -2097,10 +2197,12 @@ def phase8d_timelapse(xt, p8):
         with device_profile() as prof:
             (specs, freq), t = timed(lambda: pair_spectrograms(
                 days(ip, range(TL_DAYS)), times, device="cuda", **kw))
-        ms, k, c = device_ops(prof)
+        ms, k, c, n, miss = device_ops(prof)
         cache["card"] += t - gen[0]
         cache["dev_ms"] += ms
         cache["ops"] += k + c
+        cache["launched"] += n
+        cache["lost"] += miss > 0
         check(all(s is not None for s in specs), "8d: a day had no data")
         sample = np.sort(rng.choice(TL_DAYS, TL_SAMPLE_TIMES, replace=False))
         cpu_specs, _ = pair_spectrograms(days(ip, sample), times[sample],
@@ -2118,10 +2220,12 @@ def phase8d_timelapse(xt, p8):
             with device_profile() as prof:
                 (pk, df_, dl_), t = timed(lambda: correlate_spectrograms(
                     stack, iu, ju, device="cuda"))
-            ms, k, c = device_ops(prof)
+            ms, k, c, n, miss = device_ops(prof)
             cells["card"] += t
             cells["dev_ms"] += ms
             cells["ops"] += k + c
+            cells["launched"] += n
+            cells["lost"] += miss > 0
             cells["n"] += iu.size
             # one (pair, band) stack and its cells go on to phase 9d
             p8.setdefault("tl_stack", (stack, (pk, df_, dl_),
@@ -2153,18 +2257,20 @@ def phase8d_timelapse(xt, p8):
     npd = len(TL_PAIRS) * TL_DAYS
 
     def share(r, wall):
-        return f"{r['dev_ms'] / 1e3 / wall:.4f}" if r["dev_ms"] > 0 \
-            else "not measured"
+        return share_text(r["dev_ms"], wall, r["lost"])
     phase(8, f"8d timelapse, {len(TL_PAIRS)} pairs x {TL_DAYS} days x "
              f"{len(TL_BANDS)} bands: spectrogram cache {npd} pair-days, "
              f"card {1e3 * cache['card'] / npd:.1f} ms per pair-day "
              f"(postprocess + spectrogram; making the data timed apart), "
              f"device share {share(cache, cache['card'])}, device "
-             f"operations per pair-day {cache['ops'] / npd:.1f}")
+             f"operations per pair-day {cache['ops'] / npd:.1f} "
+             f"(launched {cache['launched'] / npd:.1f})")
     phase(8, f"8d cells on the card: {cells['n']} in {cells['card']:.2f} s "
              f"= {cells['n'] / cells['card']:.0f} cells/s, device share "
              f"{share(cells, cells['card'])}, device operations per cell "
-             f"{cells['ops'] / cells['n']:.2f}; stacks (times, freqs, lags) "
+             f"{cells['ops'] / cells['n']:.2f} (launched "
+             f"{cells['launched'] / cells['n']:.2f}); stacks (times, freqs, "
+             f"lags) "
              + "; ".join(f"{f0:g}-{f1:g} Hz {v}"
                          for (f0, f1), v in shapes.items())
              + f"; peak device memory {peak_gb:.2f} GB above "
@@ -3051,6 +3157,148 @@ def carried_merge_bytes(traces):
     return sum(tr.data.nbytes for tr in traces) + union
 
 
+P11_WINDOW = ("IM.H03S1..EDH", "2014-02-02")
+
+
+def merge_hypotheses(traces, start, end, threads=8, reps=5):
+    """What a 250 Hz window merge costs, part by part, on this machine's
+    host: ``traces`` the day files' read-only views, ``[start, end]`` the
+    window. One thread, medians of ``reps``: ``np.zeros`` of the window
+    (``calloc``, which clears a reused heap chunk) against ``np.empty``;
+    the fill from the views (the int32 -> float64 cast) against a float64
+    copy of the same count. Then ``threads`` at once, each in its own
+    thread, as the campaign's fetch threads run: merges (``np.zeros`` and
+    the fill), with their slowest allocation call and the minor page
+    faults the thread and the process counted; fills into buffers the
+    threads touched before (no allocation, no first touch: the memory's
+    bandwidth alone); and the EDH chain's bandpass (``sosfilt``) over a
+    2 MB slice, which stays in the caches (the cores alone). Returns the
+    text."""
+    import resource
+    from concurrent.futures import ThreadPoolExecutor
+    from xcorr_tpu_torch.stream import _window
+    n = _window.merge_window(traces, start, end)[0].stats.npts
+    src = np.ones(n)
+
+    def med(fn):
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            out.append(time.perf_counter() - t0)
+        return float(np.median(out))
+
+    def fill(dst):
+        k = 0
+        for tr in traces:
+            m = min(tr.data.size, n - k)
+            dst[k:k + m] = tr.data[:m]
+            k += m
+            if k == n:
+                break
+        return dst
+
+    zeros, empty = med(lambda: np.zeros(n)), med(lambda: np.empty(n))
+    cast = med(lambda: fill(np.empty(n)))
+    copy64 = med(lambda: np.copyto(np.empty(n), src))
+
+    def merge(_):
+        f0, t0 = thread_faults(), time.perf_counter()
+        buf = np.zeros(n)
+        t1 = time.perf_counter()
+        fill(buf)
+        return time.perf_counter() - t0, t1 - t0, thread_faults() - f0
+
+    def timed_call(fn, arg):
+        t0 = time.perf_counter()
+        fn(arg)
+        return time.perf_counter() - t0
+
+    import scipy.signal as sp_signal
+    sos = sp_signal.butter(4, [3.0 / 125.0, 20.0 / 125.0], btype="bandpass",
+                           output="sos")
+    small = np.random.default_rng(SEED).standard_normal(1 << 18)
+
+    def bandpass(x):
+        return sp_signal.sosfilt(sos, x)
+
+    def process_faults():
+        return resource.getrusage(resource.RUSAGE_SELF).ru_minflt
+
+    alone = med(lambda: bandpass(small))
+    with ThreadPoolExecutor(threads) as ex:
+        list(ex.map(merge, range(threads)))  # the threads' first touch
+        f0, t0 = process_faults(), time.perf_counter()
+        runs = list(ex.map(merge, range(threads)))
+        wall = time.perf_counter() - t0
+        pf = process_faults() - f0
+        bufs = [fill(np.empty(n)) for _ in range(threads)]
+        t0 = time.perf_counter()
+        refills = list(ex.map(lambda b: timed_call(fill, b), bufs))
+        refill_wall = time.perf_counter() - t0
+        del bufs
+        t0 = time.perf_counter()
+        calls = list(ex.map(lambda x: timed_call(bandpass, x),
+                            [small.copy() for _ in range(threads)]))
+        calls_wall = time.perf_counter() - t0
+    moved = threads * n * (8 + traces[0].data.dtype.itemsize)
+    return (f"{n} samples, {traces[0].data.dtype} views -> float64; one "
+            f"thread: np.zeros {zeros:.4f} s, np.empty {empty:.6f} s; the "
+            f"fill from the views {cast:.4f} s, a float64 copy of as many "
+            f"{copy64:.4f} s; {threads} merges (np.zeros + fill) in "
+            f"{threads} threads {wall:.4f} s wall, each "
+            f"{float(np.median([r[0] for r in runs])):.4f} s median "
+            f"(alone: {zeros + cast:.4f}), {moved / wall / 1e9:.2f} GB/s "
+            f"summed, the slowest np.zeros call "
+            f"{max(r[1] for r in runs):.4f} s, minor page faults "
+            f"{sum(r[2] for r in runs) * 4096 / 1e6:.0f} MB by the "
+            f"threads' counters, {pf * 4096 / 1e6:.0f} MB by the "
+            f"process's; {threads} fills into buffers touched before "
+            f"{refill_wall:.4f} s wall, each "
+            f"{float(np.median(refills)):.4f} s median (alone: "
+            f"{cast:.4f}), {moved / refill_wall / 1e9:.2f} GB/s summed; "
+            f"the bandpass of a 2 MB slice alone {alone:.4f} s, "
+            f"{threads} at once {calls_wall:.4f} s wall, each "
+            f"{float(np.median(calls)):.4f} s median")
+
+
+def phase11_window_steps(sds, inv):
+    """One 250 Hz window of phase 11's archive (``P11_WINDOW``: the
+    window centred on that midnight) fetched and run through the
+    production EDH chain alone, in one thread, by step: on the carried
+    forms (``plain_host_path(lanczos=False)``) and the port's, in turns
+    (carried, port, port, carried), every output the same bits; then the
+    window merge's parts (``merge_hypotheses``). Returns the text."""
+    from xcorr_tpu_torch.scripts.cc import default_config
+    from xcorr_tpu_torch.stream import Client, _window
+    from xcorr_tpu_torch.util.time import get_dates
+    receiver, day = P11_WINDOW
+    client = Client(sds_root=sds)
+    ops = {"EDH": default_config()[0]["preprocess"]["EDH"]}
+    lines, bits = [], None
+    for plain in (True, False, False, True):
+        form = plain_host_path(lanczos=False) if plain \
+            else contextlib.nullcontext()
+        with form, chain_stages() as stages:
+            st = client.get_processed_waveforms(
+                receiver, pd.Timestamp(day), ops, duration=WINDOW,
+                inventory=inv, sampling_rate=FS, strict=True)
+        check(len(st) == 1, f"window of {receiver}: {st}")
+        out = st[0].data.tobytes()
+        check(bits is None or out == bits,
+              "the window's chain output differs between the forms")
+        bits = out
+        lines.append(("carried: " if plain else "port: ")
+                     + stage_report(stages))
+    t = pd.Timestamp(day)
+    start = t - pd.Timedelta(seconds=WINDOW * 0.55)
+    end = start + pd.Timedelta(seconds=WINDOW * 1.1)
+    archive = client.archives[0]
+    traces = [tr for d in get_dates(start, end)
+              for tr in _window.day_views(archive, receiver, d)]
+    return lines, merge_hypotheses(traces, start, end)
+
+
 def phase11_cli(xt, ff):
     """The production entry point on the card, archive to shards to
     analysis: ``xcorr-torch-cc`` (the host engine, K1 on the ``corr``
@@ -3128,10 +3376,12 @@ def phase11_cli(xt, ff):
         ff.reset_launches()
         t0 = time.perf_counter()
         try:
-            rc = cc_cli.main(["--root", root, "--sds-root", sds, "--pair",
-                              pair, "--start", f"{days[0]:%F}", "--end",
-                              f"{days[-1]:%F}", "--inventory", inv_path])
-            torch.cuda.synchronize()
+            with chain_stages() as stages:
+                rc = cc_cli.main(["--root", root, "--sds-root", sds,
+                                  "--pair", pair, "--start",
+                                  f"{days[0]:%F}", "--end", f"{days[-1]:%F}",
+                                  "--inventory", inv_path])
+                torch.cuda.synchronize()
         finally:
             (lazy.write, sds_mod._decode_dayfile, _window.day_views,
              _window.merge_window) = real
@@ -3150,10 +3400,10 @@ def phase11_cli(xt, ff):
         check(len(writes) == len(days), f"{len(writes)} shard writes for "
                                         f"{len(days)} pair-days")
         return wall, counts["fused_corr"], [w for w, _ in writes], \
-            decodes, reads, merges
+            decodes, reads, merges, stages
 
     def cli_line(pair, days, run, shards, shard_reads):
-        wall, k1, writes, decodes, reads, merges = run
+        wall, k1, writes, decodes, reads, merges, _ = run
         mb = [b / 1e6 for _, b, _ in merges]
         carried = [c / 1e6 for _, _, c in merges]
         return (f"xcorr-torch-cc {pair}: {len(days)} pair-days in "
@@ -3253,6 +3503,16 @@ def phase11_cli(xt, ff):
     want = xt.ndlabel.combine_by_coords(want)
     err = hold_snr(got, want, "xcorr-torch-snr vs pair_snr")
     phase(11, cli_line(P11_PAIR, days, edh, shards, shard_reads))
+    phase(11, f"xcorr-torch-cc {P11_PAIR} by chain stage, s summed over "
+              f"its fetch threads: {stage_report(edh[6])}")
+    t0 = time.perf_counter()
+    lines, parts = phase11_window_steps(sds, inv)
+    for line in lines:
+        phase(11, f"one 250 Hz window of {P11_WINDOW[0]} alone, one thread, "
+                  f"by step, {line}")
+    phase(11, f"its window merge by part: {parts}; the window's outputs "
+              f"bit-identical on both forms ({time.perf_counter() - t0:.1f}"
+              f" s for this part)")
     phase(11, f"xcorr-torch-snr over the shards: {snr_wall:.2f} s, snr/s/n "
               f"within {err:.3e} (relative) of pair_snr in memory, "
               f"lag_s_max equal; h5py not imported")
@@ -3268,6 +3528,10 @@ def phase11_cli(xt, ff):
                   + f"; peaks expected at {DELAY} s plus {lag:.2f} s "
                   f"between the EDH and {bh} chains for noise-free "
                   f"arrivals")
+        phase(11, f"xcorr-torch-cc {pair} by chain stage, s summed over "
+                  f"its fetch threads: {stage_report(run[6])}")
+        if bh == "BHR":
+            check_unread_z(run[6], "phase 11 BHR-EDH")
         wall[bh] = run[:2]
     check("h5py" not in sys.modules, "h5py was imported")
     tmp.cleanup()

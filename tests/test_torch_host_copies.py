@@ -126,9 +126,46 @@ _REMOVE_RESPONSE = [(
 """),
 ]
 
+#: the chain's steps without the copies they make and drop
+#: (``stream/_steps.py``: in place only on arrays the chain allocated,
+#: each form's plain version the carried expression)
+_STEPS = [(
+    """        x = self.data.astype(np.float64)
+        if type in ("demean", "constant"):
+            self.data = x - x.mean()""",
+    """        x = _steps.as_float64(self.data)
+        if type in ("demean", "constant"):
+            self.data = _steps.demean(x)"""), (
+    """        if zerophase:
+            self.data = sp_signal.sosfiltfilt(sos, self.data.astype(
+                np.float64))
+        else:
+            self.data = sp_signal.sosfilt(sos, self.data.astype(np.float64))
+""",
+    """        if zerophase:
+            self.data = _steps.sosfiltfilt(sos, self.data)
+        else:
+            self.data = _steps.sosfilt(sos, self.data)
+"""), (
+    """            self.data = sp_signal.sosfilt(sos, self.data.astype(np.float64))
+        self.data = self.data[::factor]""",
+    """            self.data = _steps.sosfilt(sos, self.data)
+        self.data = _steps.every(self.data, factor)"""), (
+    "self.data = self.data / float(sens)",
+    "self.data = _steps.divide(self.data, float(sens))"), (
+    """            data = np.zeros(npts, dtype=out_dtype)
+            for i0, t in zip(spans, traces):
+                data[i0:i0 + t.stats.npts] = t.data
+""",
+    """            data = _steps.merged(traces, spans, npts, out_dtype)
+"""),
+]
+
 #: the exact window of an archive is read without copying a day file and
 #: merged over the window's span alone (``stream/_window.py``), the
-#: carried read its plain version there
+#: carried read its plain version there; a fetch and its chain are one
+#: scope of ``stream/_steps.py``, and the fetched components that the
+#: chain never reads are dropped before it runs (``stream/_live.py``)
 _CLIENT = [(
     """from .sds import SDSArchive
 """,
@@ -145,7 +182,25 @@ from .sds import SDSArchive
             st.trim(start, end)
 """,
     """            st = read_window(archive, receiver, start, end)
-"""),
+"""), (
+    """from . import process as stream_process
+""",
+    """from . import _steps
+from . import process as stream_process
+from ._live import drop_unread
+"""), (
+    """    def get_processed_waveforms(self, receiver: str, time, operations: dict,""",
+    """    @_steps.chained
+    def get_processed_waveforms(self, receiver: str, time, operations: dict,"""), (
+    """        if not len(st):
+            return Stream()
+
+        time = to_datetime(time)""",
+    """        if not len(st):
+            return Stream()
+        st = drop_unread(st, ops_list, cha, inventory)
+
+        time = to_datetime(time)"""),
 ]
 
 _SYSMEM_SRC = (ROOT / "xcorr_tpu" / "util" / "sysmem.py").read_text()
@@ -177,13 +232,15 @@ CARRIED = {
     # Lanczos interpolation runs in the port's native library, bit-equal
     # to the carried loop, which stays as its plain version; the inverse
     # response comes from a cache by response values and grid
-    # (stream/_response.py), its plain version the carried expressions
+    # (stream/_response.py), its plain version the carried expressions;
+    # the steps' forms without their dropped copies (stream/_steps.py)
     "stream/trace.py": [("from ..ops.fft import next_fast_len",
+                         "from . import _steps\n"
                          "from ._fftlen import next_fast_len\n"
                          "from ._lanczos import lanczos_interp"),
                         ("self.data = _lanczos_interp(self.data.astype(",
                          "self.data = lanczos_interp(self.data.astype("),
-                        *_REMOVE_RESPONSE],
+                        *_REMOVE_RESPONSE, *_STEPS],
     "stream/inventory.py": [],
     "stream/process.py": [],
     "stream/client.py": _CLIENT,

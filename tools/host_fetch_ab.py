@@ -1,19 +1,26 @@
 """The host fetch's two forms in turns, on the card's machine.
 
-    python3 tools/host_fetch_ab.py [--pairs 10]
+    python3 tools/host_fetch_ab.py [--pairs 10] [--against TREE]
 
 Writes ``chip_smoke.py``'s phase 11 miniSEED archive (2 EDH stations at
 250 Hz, ``IU.RAR.10.BH1/BH2/BHZ`` at 40 Hz, 5 days), then, ``--pairs``
 times, runs each of phase 11's pair kinds through ``xcorr-torch-cc``
 (EDH-EDH over 2 pair-days, BHZ-EDH and BHR-EDH over 1) once on the
-port's window read and inverse-response cache and once on their carried
-forms (``chip_smoke.plain_host_path(lanczos=False)``: the copying read,
-the response evaluated for every window and component), from empty
-day-file and response caches, alternating which form runs first. Both
-forms' shards must be the same bits. Prints the card's name and power
-limit, each wall per pair-day, and per pair kind the medians, the
-carried form's quartile spread and the rounds the cache won; the last
-line is the walls as JSON. Needs one card; imports no JAX.
+port's host fetch and chain (the window read, the inverse-response
+cache, the chain without the components it never reads, the steps
+without their dropped copies) and once on their carried forms
+(``chip_smoke.plain_host_path(lanczos=False)``: the copying read, the
+response evaluated for every window and component, every fetched
+component through the chain, the steps' carried expressions), from
+empty day-file and response caches, alternating which form runs first.
+With ``--against TREE`` (another checkout of the repository, say the
+parent commit unpacked by ``git archive``), each run is instead a new
+process, in this checkout or in ``TREE``, each building its kernels in
+its own ``build/`` first. Both forms' shards must be the same bits.
+Prints the card's name and power limit, each wall per pair-day, and per
+pair kind the medians, the second form's quartile spread and the rounds
+the first won; the last line is the walls as JSON. Needs one card;
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -59,7 +66,43 @@ def run_cli(pair, days, root, sds, inv_path, plain):
     return wall / len(days)
 
 
-def ab(pairs):
+#: a run of ``xcorr-torch-cc`` in a new process, in the checkout it
+#: names: the card and the kernels made ready first, the wall per
+#: pair-day printed as JSON
+RUN = """
+import json, sys, time
+sys.path.insert(0, {tree!r})
+import torch
+from xcorr_tpu_torch.ops import _build
+from xcorr_tpu_torch.scripts import cc as cc_cli
+_build.load()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+rc = cc_cli.main({argv!r})
+torch.cuda.synchronize()
+print(json.dumps({{"rc": rc, "wall": time.perf_counter() - t0}}))
+"""
+
+
+def run_tree(tree, pair, days, root, sds, inv_path):
+    """Seconds per pair-day of ``xcorr-torch-cc`` over ``pair``'s
+    ``days`` into ``root``, in a new process of the checkout ``tree``."""
+    argv = ["--root", root, "--sds-root", sds, "--pair", pair, "--start",
+            f"{days[0]:%F}", "--end", f"{days[-1]:%F}", "--inventory",
+            inv_path]
+    env = {k: v for k, v in os.environ.items() if k not in cs.ROUTE_VARS}
+    proc = subprocess.run([sys.executable, "-c",
+                           RUN.format(tree=tree, argv=argv)], cwd=tree,
+                          env=env, capture_output=True, text=True,
+                          timeout=900)
+    cs.check(proc.returncode == 0, f"{tree}: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    cs.check(out["rc"] == 0, f"{tree}: xcorr-torch-cc returned {out['rc']}")
+    return out["wall"] / len(days)
+
+
+def ab(pairs, against=None):
     """The turns; returns the walls by pair kind and form."""
     import xcorr_tpu_torch as xt
     tmp = tempfile.TemporaryDirectory()
@@ -71,17 +114,27 @@ def ab(pairs):
     kinds = {"EDH-EDH": (cs.P11_PAIR, days),
              "BHZ-EDH": (cs.P11_BHZ_PAIR, days[:1]),
              "BHR-EDH": (cs.P11_BHR_PAIR, days[:1])}
-    walls = {k: {"cached": [], "plain": []} for k in kinds}
+    if against is None:
+        forms = ("port", "plain")
+
+        def run(form, pair, kdays, root):
+            return run_cli(pair, kdays, root, sds, inv_path, form == "plain")
+    else:
+        trees = {"this": cs.REPO, "against": os.path.abspath(against)}
+        forms = tuple(trees)
+
+        def run(form, pair, kdays, root):
+            return run_tree(trees[form], pair, kdays, root, sds, inv_path)
+    walls = {k: {f: [] for f in forms} for k in kinds}
     for i in range(pairs):
-        order = ("plain", "cached") if i % 2 == 0 else ("cached", "plain")
+        order = forms[::-1] if i % 2 == 0 else forms
         for kind, (pair, kdays) in kinds.items():
             roots = {f: os.path.join(tmp.name, f"{kind}-{f}") for f in order}
             for f in order:
-                walls[kind][f].append(run_cli(pair, kdays, roots[f], sds,
-                                              inv_path, f == "plain"))
+                walls[kind][f].append(run(f, pair, kdays, roots[f]))
             for day in kdays:
                 a, b = (xt.read(xt.ncfile(pair, day, roots[f]))["cc"].values
-                        for f in ("cached", "plain"))
+                        for f in forms)
                 cs.check(a.dtype == b.dtype and a.tobytes() == b.tobytes(),
                          f"{kind} {day:%F}: the forms' shards differ")
             for root in roots.values():
@@ -90,13 +143,15 @@ def ab(pairs):
                   + ", ".join(f"{f} {walls[kind][f][-1]:.3f} s"
                               for f in order), flush=True)
     tmp.cleanup()
+    first, second = forms
     for kind, w in walls.items():
-        q = statistics.quantiles(w["plain"], n=4) if pairs > 1 else [0, 0, 0]
-        wins = sum(c < p for c, p in zip(w["cached"], w["plain"]))
-        print(f"{kind} s per pair-day: cached median "
-              f"{statistics.median(w['cached']):.3f}, carried median "
-              f"{statistics.median(w['plain']):.3f} (quartile spread "
-              f"{q[2] - q[0]:.3f}); the cache faster in {wins} of "
+        q = statistics.quantiles(w[second], n=4) if pairs > 1 \
+            else [0, 0, 0]
+        wins = sum(a < b for a, b in zip(w[first], w[second]))
+        print(f"{kind} s per pair-day: {first} median "
+              f"{statistics.median(w[first]):.3f}, {second} median "
+              f"{statistics.median(w[second]):.3f} (quartile spread "
+              f"{q[2] - q[0]:.3f}); {first} faster in {wins} of "
               f"{pairs} rounds; shards the same bits", flush=True)
     return walls
 
@@ -104,6 +159,8 @@ def ab(pairs):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--pairs", type=int, default=10)
+    parser.add_argument("--against", default=None,
+                        help="another checkout to run in turns with this")
     args = parser.parse_args()
     cs.check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -112,7 +169,7 @@ def main():
     from xcorr_tpu_torch.ops import _build
     _build.load()
     cs.set_route("corr")
-    print(json.dumps(ab(args.pairs)))
+    print(json.dumps(ab(args.pairs, args.against)))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,193 @@
+r"""
+:mod:`stream._steps` -- the host chain's steps without the copies they drop
+==========================================================================
+
+The carried steps of ``stream/trace.py`` copy before they compute and
+allocate the result anew: ``detrend`` casts a float64 window to float64
+(a copy) and then allocates ``x - x.mean()``; ``filter`` and ``decimate``
+cast before ``sosfilt``, which copies its input again; ``decimate``'s
+``[::factor]`` keeps the filtered parent alive behind a strided view; the
+chain's ``merge`` copies a window that the fetch has already merged;
+``remove_sensitivity`` allocates its quotient. At 250 Hz every such copy
+is 190 MB, and under the campaign's 8 fetch threads a new array costs
+more than its copy: its pages come fresh from the kernel. The forms here
+give the same bits (IEEE elementwise operations round alike in place or
+not; ``sosfilt`` runs its own loop over the chain's array instead of
+over the copy it would make) without those copies.
+
+A step works in place only on an array that the chain itself allocated:
+the window merge's output (:func:`._window.merge_window`) or an earlier
+step's, while :func:`chain` is open, that is inside
+``Client.get_processed_waveforms`` (the fetch and its chain, in one
+thread). :func:`own` records such an array and :func:`owns` asks for it.
+A caller's array, a read-only view of the day-file cache, or any array
+outside a chain is never written: called on their own, the steps return
+new arrays, as the carried steps do.
+
+Each form has its plain version, ``_<name>_plain``, the carried
+expression; :data:`FORMS` names the forms, so that a caller can put the
+plain versions in their place (``chip_smoke.plain_host_path``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import threading
+import weakref
+
+import numpy as np
+import scipy.signal as sp_signal
+
+try:  # the loop ``sosfilt`` runs over the copy it makes of its input
+    from scipy.signal._sosfilt import _sosfilt as _sosfilt_loop
+except ImportError:
+    _sosfilt_loop = None
+
+__all__ = ["chain", "chained", "own", "owns", "FORMS"]
+
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def chain():
+    """The scope of one fetch and its chain in this thread: the arrays
+    :func:`own` records in it are the chain's own."""
+    outer = getattr(_local, "owned", None)
+    _local.owned = weakref.WeakValueDictionary()
+    try:
+        yield
+    finally:
+        _local.owned = outer
+
+
+def chained(method):
+    """``method`` run inside :func:`chain`."""
+    @functools.wraps(method)
+    def run(*args, **kwargs):
+        with chain():
+            return method(*args, **kwargs)
+    return run
+
+
+def own(x):
+    """Record ``x``, just allocated by the chain, as the chain's own;
+    returns ``x``. Outside a chain it records nothing."""
+    owned = getattr(_local, "owned", None)
+    if owned is not None:
+        owned[id(x)] = x
+    return x
+
+
+def owns(x):
+    """Whether the open chain allocated ``x`` (this very array, not a view
+    of it) and may write it."""
+    owned = getattr(_local, "owned", None)
+    return (owned is not None and owned.get(id(x)) is x
+            and x.flags.writeable)
+
+
+def _in_place(x):
+    """Whether a float64 step may write its result over ``x``."""
+    return x.dtype == np.float64 and owns(x)
+
+
+def as_float64(x):
+    """``x.astype(np.float64)`` without the copy of a float64 ``x``: ``x``
+    itself, which the callers only read or write where :func:`owns`
+    allows."""
+    return x if x.dtype == np.float64 else own(x.astype(np.float64))
+
+
+def demean(x):
+    """``x - x.mean()`` of a float64 ``x``, over ``x`` where it is the
+    chain's own."""
+    if _in_place(x):
+        return np.subtract(x, x.mean(), out=x)
+    return own(x - x.mean())
+
+
+def divide(x, s):
+    """``x / s``, over ``x`` where it is the chain's own float64."""
+    if _in_place(x):
+        return np.divide(x, s, out=x)
+    return own(x / s)
+
+
+def sosfilt(sos, x):
+    """``sp_signal.sosfilt(sos, x.astype(np.float64))``: ``sosfilt``
+    copies its input itself, so a float64 ``x`` goes in as it is; where
+    the chain owns ``x``, its loop runs over ``x`` instead of a copy."""
+    sos = np.asarray(sos)
+    if (_sosfilt_loop is not None and _in_place(x) and x.ndim == 1
+            and x.flags.c_contiguous and sos.dtype == np.float64
+            and sos.ndim == 2 and sos.shape[1] == 6
+            and bool(np.all(sos[:, 3] == 1))):
+        _sosfilt_loop(np.ascontiguousarray(sos), x.reshape(1, -1),
+                      np.zeros((1, sos.shape[0], 2)))
+        return x
+    return own(sp_signal.sosfilt(sos, as_float64(x)))
+
+
+def sosfiltfilt(sos, x):
+    """``sp_signal.sosfiltfilt(sos, x.astype(np.float64))``, without the
+    cast of a float64 ``x`` (the filter only reads it)."""
+    return own(sp_signal.sosfiltfilt(sos, as_float64(x)))
+
+
+def every(x, factor):
+    """``x[::factor]``; a contiguous copy where ``x`` is the chain's own,
+    so that ``x`` is freed instead of kept alive behind a strided view."""
+    if owns(x):
+        return own(x[::factor].copy())
+    return x[::factor]
+
+
+def merged(traces, spans, npts, dtype):
+    """``Stream.merge``'s buffer of one id: ``traces`` written at ``spans``
+    into ``np.zeros(npts, dtype)``, later traces over earlier ones. A
+    group of one trace that fills the buffer exactly, in ``dtype``, is
+    that trace's array where the chain owns it (the window merge's
+    output): the copy would be the same bits."""
+    if len(traces) == 1 and spans[0] == 0:
+        x = traces[0].data
+        if x.size == npts and x.dtype == dtype and owns(x):
+            return x
+    return own(_merged_plain(traces, spans, npts, dtype))
+
+
+def _as_float64_plain(x):
+    return x.astype(np.float64)
+
+
+def _demean_plain(x):
+    return x - x.mean()
+
+
+def _divide_plain(x, s):
+    return x / s
+
+
+def _sosfilt_plain(sos, x):
+    return sp_signal.sosfilt(sos, x.astype(np.float64))
+
+
+def _sosfiltfilt_plain(sos, x):
+    return sp_signal.sosfiltfilt(sos, x.astype(np.float64))
+
+
+def _every_plain(x, factor):
+    return x[::factor]
+
+
+def _merged_plain(traces, spans, npts, dtype):
+    data = np.zeros(npts, dtype=dtype)
+    for i0, t in zip(spans, traces):
+        data[i0:i0 + t.stats.npts] = t.data
+    return data
+
+
+#: the forms that ``stream/trace.py`` calls, each with its plain version
+#: ``_<name>_plain``
+FORMS = ("as_float64", "demean", "divide", "sosfilt", "sosfiltfilt",
+         "every", "merged")

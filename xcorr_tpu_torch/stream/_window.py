@@ -11,7 +11,9 @@ fill_value="interpolate")``, float64 for integer samples) and only then
 trims to the window. :func:`read_window` gives the same Traces, bit for
 bit: it takes the cache's read-only arrays without a copy
 (:meth:`._daycache.DayCache.views`) and :func:`merge_window` allocates and
-fills only the window's span of each id.
+fills only the window's span of each id, each sample written once (no
+zeroing pass first). The window's arrays are the fetch's own
+(:func:`._steps.own`): the chain's first steps may work in them.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from glob import glob
 import numpy as np
 
 from ..util.time import get_dates
-from . import _daycache, sds
+from . import _daycache, _steps, sds
 from .trace import Stream, Trace, UTCDateTime
 
 __all__ = ["read_window", "merge_window", "day_views"]
@@ -115,11 +117,20 @@ def merge_window(traces, start, end):
         # the union's slice [k0:k1], a negative k1 counting from its end
         w0, w1, _ = slice(k0, min(int(round((end - t0) * fs)) + 1,
                                   npts)).indices(npts)
-        data = np.zeros(max(w1 - w0, 0), dtype=dtype)
+        # every sample is written below, by a trace, a gap or the zeros
+        # of what neither covers: no zeroing pass before the fill
+        data = _steps.own(np.empty(max(w1 - w0, 0), dtype=dtype))
         for i0, t in zip(spans, group):
             a, b = max(i0, w0), min(i0 + t.stats.npts, w1)
             if a < b:
                 data[a - w0:b - w0] = t.data[a - i0:b - i0]
+        covered = sorted([(i0, i0 + t.stats.npts)
+                          for i0, t in zip(spans, group)] + gaps)
+        k = w0
+        for a, b in covered + [(w1, w1)]:
+            if k < min(a, w1):
+                data[k - w0:min(a, w1) - w0] = 0
+            k = max(k, b)
 
         def sample(i):
             """Sample ``i`` of the carried merge's union, last writer

@@ -26,7 +26,9 @@ import pandas as pd
 from ..ndlabel import DataArray
 from ..util.receiver import check_receiver, split_pair
 from ..util.time import get_dates, to_datetime
+from . import _steps
 from . import process as stream_process
+from ._live import drop_unread
 from ._window import read_window
 from .sds import SDSArchive
 from .trace import Stream, Stats, Trace, UTCDateTime
@@ -296,6 +298,7 @@ class Client:
 
     # -- processed waveforms ---------------------------------------------------
 
+    @_steps.chained
     def get_processed_waveforms(self, receiver: str, time, operations: dict,
                                 duration: float = 86400.0,
                                 inventory=None, sampling_rate: float = None,
@@ -327,6 +330,7 @@ class Client:
                                      buffer=buffer, verb=verb, **kwargs)
         if not len(st):
             return Stream()
+        st = drop_unread(st, ops_list, cha, inventory)
 
         time = to_datetime(time)
         if centered:

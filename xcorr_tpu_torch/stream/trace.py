@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import pandas as pd
 import scipy.signal as sp_signal
+from . import _steps
 from ._fftlen import next_fast_len
 from ._lanczos import lanczos_interp
 
@@ -168,9 +169,9 @@ class Trace:
     # -- operations (obspy.Trace method subset used by the ops DSL) --------
 
     def detrend(self, type="simple", **kw):
-        x = self.data.astype(np.float64)
+        x = _steps.as_float64(self.data)
         if type in ("demean", "constant"):
-            self.data = x - x.mean()
+            self.data = _steps.demean(x)
         elif type == "linear":
             self.data = sp_signal.detrend(x, type="linear")
         elif type == "simple":
@@ -232,10 +233,9 @@ class Trace:
         else:
             raise ValueError(f"unknown filter type {type!r}")
         if zerophase:
-            self.data = sp_signal.sosfiltfilt(sos, self.data.astype(
-                np.float64))
+            self.data = _steps.sosfiltfilt(sos, self.data)
         else:
-            self.data = sp_signal.sosfilt(sos, self.data.astype(np.float64))
+            self.data = _steps.sosfilt(sos, self.data)
         return self
 
     def decimate(self, factor, no_filter=False, **kw):
@@ -246,8 +246,8 @@ class Trace:
             freq = fs * 0.5 / float(factor)
             sos = sp_signal.cheby2(10, 96, 0.98 * freq, btype="lowpass",
                                    fs=fs, output="sos")
-            self.data = sp_signal.sosfilt(sos, self.data.astype(np.float64))
-        self.data = self.data[::factor]
+            self.data = _steps.sosfilt(sos, self.data)
+        self.data = _steps.every(self.data, factor)
         self.stats.sampling_rate = self.stats.sampling_rate / float(factor)
         self.stats.npts = self.data.size
         return self
@@ -336,7 +336,7 @@ class Trace:
 
     def remove_sensitivity(self, inventory=None, **kw):
         sens = inventory.get_sensitivity(self.id, self.stats.starttime)
-        self.data = self.data / float(sens)
+        self.data = _steps.divide(self.data, float(sens))
         return self
 
     def remove_response(self, inventory=None, output="VEL",
@@ -561,9 +561,7 @@ class Stream:
             if gaps and fill_value is None and method == 0:
                 raise ValueError("gaps present and no fill_value given")
             # calloc: gap regions are already the default 0.0 fill
-            data = np.zeros(npts, dtype=out_dtype)
-            for i0, t in zip(spans, traces):
-                data[i0:i0 + t.stats.npts] = t.data
+            data = _steps.merged(traces, spans, npts, out_dtype)
             for g0, g1 in gaps:
                 if interpolate:
                     # same formula as np.interp over the gap indices
