@@ -245,6 +245,7 @@ nothing of JAX.
 
 import contextlib
 import hashlib
+import itertools
 import json
 import math
 import os
@@ -1223,6 +1224,58 @@ def check_unread_z(stages, label):
 
 
 @contextlib.contextmanager
+def window_arrays():
+    """Where each window merge inside a chain took its array while it
+    runs (``stream/_steps.py`` ``window_array``): the thread's own buffer
+    (``"thread"``) or a fresh array (``"fresh"``). Yields the list of
+    (thread, bytes, how) it fills, a thread being a number of its own
+    (an ended thread's ident may go to a new thread, which has no buffer
+    yet); the wrapper keeps no reference to the arrays once it
+    returns."""
+    from xcorr_tpu_torch.stream import _steps
+    real, seen, lock = _steps.window_array, [], threading.Lock()
+    local, numbers = threading.local(), itertools.count()
+
+    def window_array(npts, dtype):
+        mine = getattr(_steps._local, "buf", None)
+        out = real(npts, dtype)
+        how = "thread" if out is mine else "fresh"
+        with lock:
+            if not hasattr(local, "number"):
+                local.number = next(numbers)
+            seen.append((local.number, out.nbytes, how))
+        return out
+
+    _steps.window_array = window_array
+    try:
+        yield seen
+    finally:
+        _steps.window_array = real
+
+
+def window_array_report(seen):
+    """``window_arrays``' record as text, per window size, and the most
+    fresh arrays one thread took for the largest windows."""
+    parts, most = [], 0
+    for nbytes in sorted({b for _, b, _ in seen}, reverse=True):
+        rows = [(t, how) for t, b, how in seen if b == nbytes]
+        fresh = {}
+        for t, how in rows:
+            fresh[t] = fresh.get(t, 0) + (how == "fresh")
+        if not parts:
+            most = max(fresh.values())
+        parts.append(
+            f"{len(rows)} windows of {nbytes / 1e6:.1f} MB in "
+            f"{len(fresh)} threads: "
+            + ", ".join(f"{sum(h == how for _, h in rows)} {label}"
+                        for how, label in (
+                            ("thread", "from the thread's own buffer"),
+                            ("fresh", "fresh")))
+            + f" (at most {max(fresh.values())} fresh per thread)")
+    return "; ".join(parts) or "no window merged in a chain", most
+
+
+@contextlib.contextmanager
 def plain_host_path(lanczos=True):
     """The host fetch's carried forms while it runs, its plain path: the
     copying read of an archive's window (``stream/_window.py``
@@ -1231,9 +1284,11 @@ def plain_host_path(lanczos=True):
     for every window and component (``stream/_response.py``
     ``_inverse_response_plain``), the chain over every fetched component
     (``stream/_live.py`` ``_drop_unread_plain``), the steps' carried
-    expressions (``stream/_steps.py``: each form's ``_<name>_plain``)
-    and, with ``lanczos``, the carried numpy Lanczos loop
-    (``stream/trace.py`` ``_lanczos_interp``)."""
+    expressions (``stream/_steps.py``: each form's ``_<name>_plain``,
+    among them scipy's ``sosfilt`` loop for the native one and a fresh
+    array for each window's merge in place of the thread's buffer) and,
+    with ``lanczos``, the carried numpy Lanczos loop (``stream/trace.py``
+    ``_lanczos_interp``)."""
     from xcorr_tpu_torch.stream import _live, _response, _steps, _window
     from xcorr_tpu_torch.stream import client as client_mod
     from xcorr_tpu_torch.stream import trace as trace_mod
@@ -3171,12 +3226,15 @@ def merge_hypotheses(traces, start, end, threads=8, reps=5):
     the fill), with their slowest allocation call and the minor page
     faults the thread and the process counted; fills into buffers the
     threads touched before (no allocation, no first touch: the memory's
-    bandwidth alone); and the EDH chain's bandpass (``sosfilt``) over a
-    2 MB slice, which stays in the caches (the cores alone). Returns the
-    text."""
+    bandwidth alone); merges inside a chain, each into the buffer its
+    thread keeps (``_steps.window_array``), the first round into new
+    arrays (from the heap the merges above freed) and the second into
+    the same buffers again; and the EDH
+    chain's bandpass (``sosfilt``) over a 2 MB slice, which stays in the
+    caches (the cores alone). Returns the text."""
     import resource
     from concurrent.futures import ThreadPoolExecutor
-    from xcorr_tpu_torch.stream import _window
+    from xcorr_tpu_torch.stream import _steps, _window
     n = _window.merge_window(traces, start, end)[0].stats.npts
     src = np.ones(n)
 
@@ -3209,10 +3267,16 @@ def merge_hypotheses(traces, start, end, threads=8, reps=5):
         fill(buf)
         return time.perf_counter() - t0, t1 - t0, thread_faults() - f0
 
-    def timed_call(fn, arg):
-        t0 = time.perf_counter()
-        fn(arg)
-        return time.perf_counter() - t0
+    together = threading.Barrier(threads)
+
+    def buffered(_):
+        """One merge inside a chain, every thread at once (the barrier
+        gives each of ``threads`` calls a thread of its own)."""
+        together.wait(60)
+        with _steps.chain():
+            t0 = time.perf_counter()
+            _window.merge_window(traces, start, end)
+            return time.perf_counter() - t0
 
     import scipy.signal as sp_signal
     sos = sp_signal.butter(4, [3.0 / 125.0, 20.0 / 125.0], btype="bandpass",
@@ -3241,6 +3305,11 @@ def merge_hypotheses(traces, start, end, threads=8, reps=5):
         calls = list(ex.map(lambda x: timed_call(bandpass, x),
                             [small.copy() for _ in range(threads)]))
         calls_wall = time.perf_counter() - t0
+        rounds = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            each = list(ex.map(buffered, range(threads)))
+            rounds.append((time.perf_counter() - t0, each))
     moved = threads * n * (8 + traces[0].data.dtype.itemsize)
     return (f"{n} samples, {traces[0].data.dtype} views -> float64; one "
             f"thread: np.zeros {zeros:.4f} s, np.empty {empty:.6f} s; the "
@@ -3257,9 +3326,111 @@ def merge_hypotheses(traces, start, end, threads=8, reps=5):
             f"{refill_wall:.4f} s wall, each "
             f"{float(np.median(refills)):.4f} s median (alone: "
             f"{cast:.4f}), {moved / refill_wall / 1e9:.2f} GB/s summed; "
+            f"{threads} merges in a chain at once, each into its "
+            f"thread's buffer: a new array {rounds[0][0]:.4f} s wall, each "
+            f"{float(np.median(rounds[0][1])):.4f} s median; the kept "
+            f"buffer again {rounds[1][0]:.4f} s wall, each "
+            f"{float(np.median(rounds[1][1])):.4f} s median; "
             f"the bandpass of a 2 MB slice alone {alone:.4f} s, "
             f"{threads} at once {calls_wall:.4f} s wall, each "
             f"{float(np.median(calls)):.4f} s median")
+
+
+def window_sosfilt(traces, start, end, inv, threads=8, reps=3):
+    """The EDH chain's two ``sosfilt`` calls on one production window of
+    this machine's host: the window (``traces`` the day files' views,
+    ``[start, end]``) merged, demeaned and divided by its sensitivity, as
+    the chain's steps before its bandpass leave it; then the bandpass
+    (``butter(4)``, 4 sections) and ``decimate``'s anti-alias low-pass
+    (``cheby2(10, 96)``, 5 sections) on the bandpass's output, each by
+    the native loop (``_sosfilt.sosfilt_inplace``: four sections to a
+    register where the CPU has AVX2) and by scipy's loop in place
+    (``_steps._sosfilt_inplace_plain``), medians of ``reps`` alone and
+    ``threads`` at once, each output the bytes of this machine's
+    ``scipy.signal.sosfilt``. Also inputs whose zeros and NaNs of either
+    sign meet in a section: whether this scipy gives the bytes the
+    native loop does (reported, not held). Returns the text."""
+    import scipy
+    import scipy.signal as sp_signal
+    from concurrent.futures import ThreadPoolExecutor
+    from xcorr_tpu_torch.stream import _sosfilt, _steps, _window
+    t0 = time.perf_counter()
+    _sosfilt._load()
+    load_s = time.perf_counter() - t0
+    tr = _window.merge_window(traces, start, end)[0]
+    tr.detrend("demean")
+    tr.remove_sensitivity(inventory=inv)
+    x = tr.data
+    fs = tr.stats.sampling_rate
+    steps = (("bandpass", sp_signal.butter(4, [3.0 / (fs / 2),
+                                               20.0 / (fs / 2)],
+                                           btype="bandpass", output="sos")),
+             ("low-pass", sp_signal.cheby2(10, 96, 0.98 * fs / 10.0,
+                                           btype="lowpass", fs=fs,
+                                           output="sos")))
+    forms = (("native", _sosfilt.sosfilt_inplace),
+             ("scipy's loop", _steps._sosfilt_inplace_plain))
+    parts = []
+    for name, sos in steps:
+        want = sp_signal.sosfilt(sos, x)
+        times = {}
+        for label, fn in forms:
+            alone = []
+            for _ in range(reps):
+                y = x.copy()
+                t0 = time.perf_counter()
+                fn(sos, y)
+                alone.append(time.perf_counter() - t0)
+                check(y.tobytes() == want.tobytes(),
+                      f"{name} by {label} differs from scipy "
+                      f"{scipy.__version__}'s sosfilt on the window")
+            ys = [x.copy() for _ in range(threads)]
+            with ThreadPoolExecutor(threads) as ex:
+                t0 = time.perf_counter()
+                each = list(ex.map(lambda y: timed_call(fn, sos, y), ys))
+                wall = time.perf_counter() - t0
+            check(all(y.tobytes() == want.tobytes() for y in ys),
+                  f"{name} by {label} in {threads} threads differs")
+            times[label] = (float(np.median(alone)), wall,
+                            float(np.median(each)))
+        parts.append(f"{name} ({sos.shape[0]} sections): " + ", ".join(
+            f"{label} {a:.4f} s alone, {threads} at once {w:.4f} s wall "
+            f"({e:.4f} each)" for label, (a, w, e) in times.items()))
+        x = want
+    odd = np.zeros(64)
+    odd[1::4] = -0.0
+    odd[[5, 9, 13, 20, 30, 31]] = [np.nan, -np.nan, np.inf, -np.inf,
+                                   5e-324, -5e-324]
+    same = all(form(sos, v.copy()).tobytes()
+               == sp_signal.sosfilt(sos, v).tobytes()
+               for _, sos in steps for v in (odd, -odd)
+               for _, form in forms[:1])
+    return (f"{x.size} samples at {fs:g} Hz on {host_cpu()} (the native "
+            f"loop on "
+            f"{'AVX2 lanes' if _sosfilt.lanes() else 'scipy schedule'}), "
+            f"scipy {scipy.__version__}: "
+            + "; ".join(parts) + f"; every output the bytes of scipy's "
+            f"sosfilt; zeros and NaNs of either sign "
+            f"{'the same bytes' if same else 'NOT the same bytes'}; the "
+            f"library loaded (built if new) in {load_s:.2f} s")
+
+
+def host_cpu():
+    """The host CPU's model name and count, as Linux reports them."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            names = [ln.split(":", 1)[1].strip() for ln in f
+                     if ln.startswith("model name")]
+    except OSError:
+        names = []
+    return f"{names[0] if names else 'an unnamed CPU'} x {os.cpu_count()}"
+
+
+def timed_call(fn, *args):
+    """Seconds of ``fn(*args)``."""
+    t0 = time.perf_counter()
+    fn(*args)
+    return time.perf_counter() - t0
 
 
 def phase11_window_steps(sds, inv):
@@ -3268,7 +3439,9 @@ def phase11_window_steps(sds, inv):
     production EDH chain alone, in one thread, by step: on the carried
     forms (``plain_host_path(lanczos=False)``) and the port's, in turns
     (carried, port, port, carried), every output the same bits; then the
-    window merge's parts (``merge_hypotheses``). Returns the text."""
+    window merge's parts (``merge_hypotheses``) and the chain's two
+    ``sosfilt`` calls, native and scipy's (``window_sosfilt``). Returns
+    the text."""
     from xcorr_tpu_torch.scripts.cc import default_config
     from xcorr_tpu_torch.stream import Client, _window
     from xcorr_tpu_torch.util.time import get_dates
@@ -3296,7 +3469,8 @@ def phase11_window_steps(sds, inv):
     archive = client.archives[0]
     traces = [tr for d in get_dates(start, end)
               for tr in _window.day_views(archive, receiver, d)]
-    return lines, merge_hypotheses(traces, start, end)
+    return lines, merge_hypotheses(traces, start, end), \
+        window_sosfilt(traces, start, end, inv)
 
 
 def phase11_cli(xt, ff):
@@ -3345,8 +3519,10 @@ def phase11_cli(xt, ff):
         hits), decodes and window merges timed where the campaign makes
         them: wall, K1's and the other launches, write seconds, decodes
         as (seconds, path), reads as (seconds, day), merges as (seconds,
-        bytes the merge allocated, bytes the carried merge allocates for
-        the same traces: a copy of each and the union)."""
+        bytes the merge filled, bytes the carried merge allocates for the
+        same traces: a copy of each and the union), and where each merge
+        took its array (``window_arrays``: no thread takes a fresh one
+        for a second 250 Hz window)."""
         writes, decodes, reads, merges = [], [], [], []
         real = (lazy.write, sds_mod._decode_dayfile, _window.day_views,
                 _window.merge_window)
@@ -3376,7 +3552,7 @@ def phase11_cli(xt, ff):
         ff.reset_launches()
         t0 = time.perf_counter()
         try:
-            with chain_stages() as stages:
+            with chain_stages() as stages, window_arrays() as arrays:
                 rc = cc_cli.main(["--root", root, "--sds-root", sds,
                                   "--pair", pair, "--start",
                                   f"{days[0]:%F}", "--end", f"{days[-1]:%F}",
@@ -3399,11 +3575,14 @@ def phase11_cli(xt, ff):
         check(not others, f"xcorr-torch-cc also launched {others}")
         check(len(writes) == len(days), f"{len(writes)} shard writes for "
                                         f"{len(days)} pair-days")
+        report, most = window_array_report(arrays)
+        check(most <= 1, f"{pair}: a fetch thread took {most} fresh arrays "
+                         f"for its {RAW_FS:g} Hz windows: {report}")
         return wall, counts["fused_corr"], [w for w, _ in writes], \
-            decodes, reads, merges, stages
+            decodes, reads, merges, stages, report
 
     def cli_line(pair, days, run, shards, shard_reads):
-        wall, k1, writes, decodes, reads, merges, _ = run
+        wall, k1, writes, decodes, reads, merges, _, arrays = run
         mb = [b / 1e6 for _, b, _ in merges]
         carried = [c / 1e6 for _, _, c in merges]
         return (f"xcorr-torch-cc {pair}: {len(days)} pair-days in "
@@ -3422,10 +3601,10 @@ def phase11_cli(xt, ff):
                 f"window merges {len(merges)}: "
                 f"{sum(m for m, _, _ in merges):.2f} s summed "
                 f"({np.median([m for m, _, _ in merges]):.3f} s median), "
-                f"{min(mb):.1f}-{max(mb):.1f} MB allocated per window "
+                f"{min(mb):.1f}-{max(mb):.1f} MB filled per window "
                 f"(the carried merge {min(carried):.1f}-"
                 f"{max(carried):.1f} MB: a copy of each day file and the "
-                f"union)")
+                f"union); window arrays: {arrays}")
 
     def held(pair, days, want_lag):
         """Every shard of ``pair``: read, validate, status, peaks at
@@ -3506,10 +3685,11 @@ def phase11_cli(xt, ff):
     phase(11, f"xcorr-torch-cc {P11_PAIR} by chain stage, s summed over "
               f"its fetch threads: {stage_report(edh[6])}")
     t0 = time.perf_counter()
-    lines, parts = phase11_window_steps(sds, inv)
+    lines, parts, filters = phase11_window_steps(sds, inv)
     for line in lines:
         phase(11, f"one 250 Hz window of {P11_WINDOW[0]} alone, one thread, "
                   f"by step, {line}")
+    phase(11, f"its sosfilt calls, native and scipy's: {filters}")
     phase(11, f"its window merge by part: {parts}; the window's outputs "
               f"bit-identical on both forms ({time.perf_counter() - t0:.1f}"
               f" s for this part)")

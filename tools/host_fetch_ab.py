@@ -1,6 +1,7 @@
 """The host fetch's two forms in turns, on the card's machine.
 
     python3 tools/host_fetch_ab.py [--pairs 10] [--against TREE]
+                                   [--plain-forms NAME,...]
 
 Writes ``chip_smoke.py``'s phase 11 miniSEED archive (2 EDH stations at
 250 Hz, ``IU.RAR.10.BH1/BH2/BHZ`` at 40 Hz, 5 days), then, ``--pairs``
@@ -13,8 +14,13 @@ without their dropped copies) and once on their carried forms
 response evaluated for every window and component, every fetched
 component through the chain, the steps' carried expressions), from
 empty day-file and response caches, alternating which form runs first.
-With ``--against TREE`` (another checkout of the repository, say the
-parent commit unpacked by ``git archive``), each run is instead a new
+With ``--plain-forms``, the plain form swaps only the named step forms of
+``stream/_steps.py`` (``FORMS``) for their plain versions and keeps the
+rest of the port's fetch: ``sosfilt_inplace,window_array`` runs scipy's
+loop and a fresh array per window merge against the native loop and the
+thread's buffer. With ``--against TREE`` (another checkout of the
+repository, say the parent commit unpacked by ``git archive``), each run
+is instead a new
 process, in this checkout or in ``TREE``, each building its kernels in
 its own ``build/`` first. Both forms' shards must be the same bits.
 Prints the card's name and power limit, each wall per pair-day, and per
@@ -45,16 +51,35 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 
 
-def run_cli(pair, days, root, sds, inv_path, plain):
+@contextlib.contextmanager
+def plain_forms(names):
+    """The step forms ``names`` of ``stream/_steps.py`` swapped for their
+    plain versions while it runs."""
+    from xcorr_tpu_torch.stream import _steps
+    real = {name: getattr(_steps, name) for name in names}
+    for name in names:
+        setattr(_steps, name, getattr(_steps, f"_{name}_plain"))
+    try:
+        yield
+    finally:
+        for name, form in real.items():
+            setattr(_steps, name, form)
+
+
+def run_cli(pair, days, root, sds, inv_path, plain, names=None):
     """Seconds per pair-day of ``xcorr-torch-cc`` over ``pair``'s
     ``days`` into ``root``, from empty caches, on the carried forms if
-    ``plain``."""
+    ``plain`` (only the step forms ``names`` where given)."""
     from xcorr_tpu_torch.scripts import cc as cc_cli
     from xcorr_tpu_torch.stream import _daycache, _response
     _daycache.DAYS.clear()
     _response.RESPONSES.clear()
-    form = cs.plain_host_path(lanczos=False) if plain \
-        else contextlib.nullcontext()
+    if not plain:
+        form = contextlib.nullcontext()
+    elif names:
+        form = plain_forms(names)
+    else:
+        form = cs.plain_host_path(lanczos=False)
     t0 = time.perf_counter()
     with form:
         rc = cc_cli.main(["--root", root, "--sds-root", sds, "--pair", pair,
@@ -102,7 +127,7 @@ def run_tree(tree, pair, days, root, sds, inv_path):
     return out["wall"] / len(days)
 
 
-def ab(pairs, against=None):
+def ab(pairs, against=None, names=None):
     """The turns; returns the walls by pair kind and form."""
     import xcorr_tpu_torch as xt
     tmp = tempfile.TemporaryDirectory()
@@ -118,7 +143,8 @@ def ab(pairs, against=None):
         forms = ("port", "plain")
 
         def run(form, pair, kdays, root):
-            return run_cli(pair, kdays, root, sds, inv_path, form == "plain")
+            return run_cli(pair, kdays, root, sds, inv_path,
+                           form == "plain", names)
     else:
         trees = {"this": cs.REPO, "against": os.path.abspath(against)}
         forms = tuple(trees)
@@ -161,7 +187,14 @@ def main():
     parser.add_argument("--pairs", type=int, default=10)
     parser.add_argument("--against", default=None,
                         help="another checkout to run in turns with this")
+    parser.add_argument("--plain-forms", default=None,
+                        help="comma-separated names of stream/_steps.py "
+                             "FORMS that the plain form swaps, alone")
     args = parser.parse_args()
+    from xcorr_tpu_torch.stream import _steps
+    names = args.plain_forms.split(",") if args.plain_forms else None
+    cs.check(names is None or set(names) <= set(_steps.FORMS),
+             f"--plain-forms: not in {_steps.FORMS}: {names}")
     cs.check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -169,7 +202,7 @@ def main():
     from xcorr_tpu_torch.ops import _build
     _build.load()
     cs.set_route("corr")
-    print(json.dumps(ab(args.pairs, args.against)))
+    print(json.dumps(ab(args.pairs, args.against, names)))
 
 
 if __name__ == "__main__":

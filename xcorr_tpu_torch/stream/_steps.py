@@ -12,8 +12,8 @@ chain's ``merge`` copies a window that the fetch has already merged;
 is 190 MB, and under the campaign's 8 fetch threads a new array costs
 more than its copy: its pages come fresh from the kernel. The forms here
 give the same bits (IEEE elementwise operations round alike in place or
-not; ``sosfilt`` runs its own loop over the chain's array instead of
-over the copy it would make) without those copies.
+not; ``sosfilt``'s loop runs over the chain's array instead of over the
+copy it would make) without those copies.
 
 A step works in place only on an array that the chain itself allocated:
 the window merge's output (:func:`._window.merge_window`) or an earlier
@@ -24,41 +24,107 @@ A caller's array, a read-only view of the day-file cache, or any array
 outside a chain is never written: called on their own, the steps return
 new arrays, as the carried steps do.
 
-Each form has its plain version, ``_<name>_plain``, the carried
-expression; :data:`FORMS` names the forms, so that a caller can put the
-plain versions in their place (``chip_smoke.plain_host_path``).
+Two forms go further than the carried expressions. :func:`sosfilt` on
+the chain's own float64 window runs the native library's loop over it
+(:func:`._sosfilt.sosfilt_inplace`), scipy's loop as a wavefront over
+the sections, bit for bit. :func:`window_array`, the window merge's
+output, is inside a chain the buffer that the calling thread keeps for
+its windows where that fits the window exactly: a window's array is dead
+once ``decimate`` has copied out every fifth sample, and a fresh 190 MB
+array costs the first touch of its pages under the fetch threads. The
+buffer goes back to the thread when the chain's scope closes only if
+nothing else holds it (:func:`chain`), so no output, no view of the
+day-file cache and no caller's array ever shares memory with a buffer
+that is handed out again.
+
+Each form has its plain version, ``_<name>_plain``: the carried
+expression, or for :func:`sosfilt_inplace` and :func:`window_array` the
+form before them (scipy's loop over the window, a fresh array);
+:data:`FORMS` names the forms, so that a caller can put the plain
+versions in their place (``chip_smoke.plain_host_path``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import sys
 import threading
 import weakref
 
 import numpy as np
 import scipy.signal as sp_signal
 
-try:  # the loop ``sosfilt`` runs over the copy it makes of its input
-    from scipy.signal._sosfilt import _sosfilt as _sosfilt_loop
-except ImportError:
-    _sosfilt_loop = None
+from ._sosfilt import sosfilt_inplace
 
-__all__ = ["chain", "chained", "own", "owns", "FORMS"]
+try:  # the loop ``sosfilt`` runs over the copy it makes of its input
+    from scipy.signal._sosfilt import _sosfilt as _scipy_loop
+except ImportError:
+    _scipy_loop = None
+
+__all__ = ["chain", "chained", "own", "owns", "window_array", "FORMS"]
 
 _local = threading.local()
+
+
+def _refcounts(arrays):
+    """Each array of the list ``arrays``, which this empties, with its
+    reference count as this function reads it: where nothing but this
+    function's own name holds the array, the count :data:`_ALONE` is."""
+    out = []
+    while arrays:
+        a = arrays.pop()
+        out.append((a, sys.getrefcount(a)))
+    return out
+
+
+def _probe():
+    """The count :func:`_refcounts` gives an array that nothing else
+    reaches, or None where it gives an array that a view also holds no
+    more than that. The count is the interpreter's own (a version may
+    borrow a name's reference for a call), so it is measured, not
+    assumed; where it cannot tell the two apart, no buffer is reused."""
+    arrays = [np.empty(1), np.empty(1)]
+    view = arrays[0][:]
+    (_, alone), (_, viewed) = _refcounts(arrays)
+    del view
+    return alone if viewed > alone else None
+
+
+#: what :func:`_refcounts` reads for an array nothing else reaches, or
+#: None: then no buffer goes back to a thread
+_ALONE = _probe()
 
 
 @contextlib.contextmanager
 def chain():
     """The scope of one fetch and its chain in this thread: the arrays
-    :func:`own` records in it are the chain's own."""
-    outer = getattr(_local, "owned", None)
-    _local.owned = weakref.WeakValueDictionary()
+    :func:`own` records in it are the chain's own. When it closes, the
+    largest of the buffers that :func:`window_array` handed out in it and
+    that nothing else reaches any more becomes this thread's buffer, if
+    it is larger than the one the thread keeps."""
+    outer = getattr(_local, "owned", None), getattr(_local, "taken", None)
+    _local.owned, _local.taken = weakref.WeakValueDictionary(), []
     try:
         yield
     finally:
-        _local.owned = outer
+        taken = _local.taken
+        _local.owned, _local.taken = outer
+        _give_back(taken)
+
+
+def _give_back(taken):
+    """Keep as this thread's buffer the largest array of ``taken``
+    (emptied) that nothing else reaches: numpy points every view, and
+    the buffer protocol every export, at the array that owns the memory,
+    so an array referenced from nowhere but here has no view and no
+    export left."""
+    if _ALONE is None:
+        return
+    for buf, refs in _refcounts(taken):
+        keep = getattr(_local, "buf", None)
+        if refs == _ALONE and (keep is None or buf.nbytes > keep.nbytes):
+            _local.buf = buf
 
 
 def chained(method):
@@ -117,15 +183,15 @@ def divide(x, s):
 def sosfilt(sos, x):
     """``sp_signal.sosfilt(sos, x.astype(np.float64))``: ``sosfilt``
     copies its input itself, so a float64 ``x`` goes in as it is; where
-    the chain owns ``x``, its loop runs over ``x`` instead of a copy."""
+    the chain owns a non-empty ``x``, scipy's loop runs over ``x`` instead
+    of a copy, in the native library (:func:`sosfilt_inplace`). An empty
+    ``x`` takes scipy's path, which may raise on it."""
     sos = np.asarray(sos)
-    if (_sosfilt_loop is not None and _in_place(x) and x.ndim == 1
+    if (_in_place(x) and x.ndim == 1 and x.size > 0
             and x.flags.c_contiguous and sos.dtype == np.float64
-            and sos.ndim == 2 and sos.shape[1] == 6
+            and sos.ndim == 2 and sos.shape[0] > 0 and sos.shape[1] == 6
             and bool(np.all(sos[:, 3] == 1))):
-        _sosfilt_loop(np.ascontiguousarray(sos), x.reshape(1, -1),
-                      np.zeros((1, sos.shape[0], 2)))
-        return x
+        return sosfilt_inplace(sos, x)
     return own(sp_signal.sosfilt(sos, as_float64(x)))
 
 
@@ -141,6 +207,24 @@ def every(x, factor):
     if owns(x):
         return own(x[::factor].copy())
     return x[::factor]
+
+
+def window_array(npts, dtype):
+    """``np.empty(npts, dtype)`` for the window merge to fill, recorded
+    by :func:`own`. Inside a chain it is the buffer this thread keeps,
+    where that has exactly ``npts`` samples of ``dtype``; the chain hands
+    it back when it closes (:func:`chain`). The buffer lives as long as
+    its thread."""
+    taken = getattr(_local, "taken", None)
+    if taken is None:
+        return np.empty(npts, dtype=dtype)
+    buf = getattr(_local, "buf", None)
+    if buf is not None and buf.shape == (npts,) and buf.dtype == dtype:
+        _local.buf = None
+    else:
+        buf = np.empty(npts, dtype=dtype)
+    taken.append(buf)
+    return own(buf)
 
 
 def merged(traces, spans, npts, dtype):
@@ -172,6 +256,19 @@ def _sosfilt_plain(sos, x):
     return sp_signal.sosfilt(sos, x.astype(np.float64))
 
 
+def _sosfilt_inplace_plain(sos, x):
+    if _scipy_loop is None:
+        x[...] = sp_signal.sosfilt(sos, x)
+    else:
+        _scipy_loop(np.ascontiguousarray(sos), x.reshape(1, -1),
+                    np.zeros((1, sos.shape[0], 2)))
+    return x
+
+
+def _window_array_plain(npts, dtype):
+    return own(np.empty(npts, dtype=dtype))
+
+
 def _sosfiltfilt_plain(sos, x):
     return sp_signal.sosfiltfilt(sos, x.astype(np.float64))
 
@@ -187,7 +284,8 @@ def _merged_plain(traces, spans, npts, dtype):
     return data
 
 
-#: the forms that ``stream/trace.py`` calls, each with its plain version
-#: ``_<name>_plain``
-FORMS = ("as_float64", "demean", "divide", "sosfilt", "sosfiltfilt",
-         "every", "merged")
+#: the forms that the host chain calls (``stream/trace.py``,
+#: :func:`._window.merge_window` and :func:`sosfilt`), each with its plain
+#: version ``_<name>_plain``
+FORMS = ("as_float64", "demean", "divide", "sosfilt", "sosfilt_inplace",
+         "sosfiltfilt", "every", "merged", "window_array")

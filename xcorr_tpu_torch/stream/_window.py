@@ -13,7 +13,9 @@ bit: it takes the cache's read-only arrays without a copy
 (:meth:`._daycache.DayCache.views`) and :func:`merge_window` allocates and
 fills only the window's span of each id, each sample written once (no
 zeroing pass first). The window's arrays are the fetch's own
-(:func:`._steps.own`): the chain's first steps may work in them.
+(:func:`._steps.window_array`): the chain's first steps may work in
+them, and inside a chain they are the buffer that the fetch thread keeps
+for its windows where it fits.
 """
 
 from __future__ import annotations
@@ -118,8 +120,9 @@ def merge_window(traces, start, end):
         w0, w1, _ = slice(k0, min(int(round((end - t0) * fs)) + 1,
                                   npts)).indices(npts)
         # every sample is written below, by a trace, a gap or the zeros
-        # of what neither covers: no zeroing pass before the fill
-        data = _steps.own(np.empty(max(w1 - w0, 0), dtype=dtype))
+        # of what neither covers: no zeroing pass before the fill, so a
+        # buffer the chain reuses serves as well as a fresh array
+        data = _steps.window_array(max(w1 - w0, 0), dtype)
         for i0, t in zip(spans, group):
             a, b = max(i0, w0), min(i0 + t.stats.npts, w1)
             if a < b:
