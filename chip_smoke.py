@@ -89,7 +89,9 @@ line, on stderr:
    each, the fallback's by chain stage: its BHR chain fetched BHZ and
    ran no operation on it, while the plain path (every fetched
    component, the steps' carried expressions) ran them and gave the
-   same CCF bits;
+   same CCF bits. Both BH host-engine runs start on a fetch pool of
+   their own and print where each chain array came from (no thread
+   takes two fresh arrays of a key);
 7. the analysis slice on the card. (a) Full lag width: phase 6's 4
    pair-days (32 windows x 1.62 M lags, float32) through ``postprocess``
    (0-9 h lags, the scripts' 3 Hz highpass, no celerity clip) and ``snr``
@@ -210,18 +212,25 @@ line, on stderr:
     of the pair-day (bit-identity reported), every peak on the injected
     delay. ``xcorr_tpu_torch.scripts.snr.main`` over the shards: snr, s
     and n within 1e-5 (relative) of ``pair_snr`` on the in-memory
-    datasets, ``lag_s_max`` equal. Then ``xcorr-torch-cc`` over one
-    BHZ-EDH pair-day, ``IM.H03S1..EDH-IU.RAR.10.BHZ`` (the BHZ chain's
-    Lanczos step on the host), held as above, its peaks on the delay
-    plus the lag between the EDH and BHZ chains (measured on noise-free
-    arrivals). Bytes, write seconds (in the campaign) and read seconds
-    per shard, the CLI's wall per pair-day of each pair, each chain step's
-    seconds summed over the fetch threads; the BHR-EDH pair-day's chain
+    datasets, ``lag_s_max`` equal. Then ``xcorr-torch-cc`` over two
+    BHZ-EDH pair-days, ``IM.H03S1..EDH-IU.RAR.10.BHZ`` (the BHZ chain's
+    response and Lanczos steps on the host), and one BHR-EDH pair-day,
+    held as above, their peaks on the delay plus the lag between the EDH
+    and BH chains (measured on noise-free arrivals). Each CLI run starts
+    on a fetch pool of its own: where each chain array came from (kept
+    by its thread or fresh; no thread takes two fresh arrays of a key),
+    the pool's threads, the peak resident set. Bytes, write seconds (in
+    the campaign) and read seconds per shard, the CLI's wall per pair-day
+    of each pair, each chain step's seconds summed over the fetch
+    threads; the BHR-EDH pair-day's chain
     fetched BHZ and ran no operation on it. One 250 Hz window alone, in
     one thread, by step, on the carried forms and the port's in turns
     (the same bits), and its window merge by part (allocation, the cast,
     eight at once into fresh and into touched memory, a compute
-    control). h5py must not be imported.
+    control); one 40 Hz window's ``remove_response`` by part (cast,
+    ``rfft``, product, ``irfft``) on the carried expressions and the
+    port's form, alone and eight at once, the same bits. h5py must not
+    be imported.
     ``python3 chip_smoke.py --phase11`` runs phases 1, 2 (the build
     alone) and 11;
 12. files that other HDF5 writers make, read on this machine without
@@ -245,6 +254,7 @@ nothing of JAX.
 
 import contextlib
 import hashlib
+import importlib
 import itertools
 import json
 import math
@@ -1225,54 +1235,145 @@ def check_unread_z(stages, label):
 
 @contextlib.contextmanager
 def window_arrays():
-    """Where each window merge inside a chain took its array while it
-    runs (``stream/_steps.py`` ``window_array``): the thread's own buffer
-    (``"thread"``) or a fresh array (``"fresh"``). Yields the list of
-    (thread, bytes, how) it fills, a thread being a number of its own
-    (an ended thread's ident may go to a new thread, which has no buffer
-    yet); the wrapper keeps no reference to the arrays once it
-    returns."""
+    """Where each array that the host chain's forms took inside a chain
+    came from while it runs (``stream/_steps.py``: ``buffer``, which the
+    window merge's ``window_array`` and ``deconvolve``'s inverse call,
+    and ``scratch``, ``deconvolve``'s spectrum): an array the thread kept
+    (``"thread"``) or a fresh one (``"fresh"``). Yields the list of
+    (thread, key, bytes, how, pool) it fills, a thread being a number of
+    its own (an ended thread's ident may go to a new thread, which keeps
+    nothing yet), a key ``_steps``' own (shape, dtype and the array's
+    rank among the chain's of that shape and dtype, or ``"scratch"``) and
+    ``pool`` whether the thread is one of the host engine's fetch pool
+    (``core/process.py``; the CLI's preprocess check runs its chains on
+    threads of its own); the wrappers keep no reference to the arrays
+    once they return."""
     from xcorr_tpu_torch.stream import _steps
-    real, seen, lock = _steps.window_array, [], threading.Lock()
+    real, seen, lock = (_steps.buffer, _steps.scratch), [], threading.Lock()
     local, numbers = threading.local(), itertools.count()
 
-    def window_array(npts, dtype):
-        mine = getattr(_steps._local, "buf", None)
-        out = real(npts, dtype)
-        how = "thread" if out is mine else "fresh"
+    def kept_ids():
+        kept = getattr(_steps._local, "kept", None) or {}
+        return {id(a) for a in kept.values()}
+
+    def record(key, out, mine):
+        pool = threading.current_thread().name.startswith("xcorr-fetch")
         with lock:
             if not hasattr(local, "number"):
                 local.number = next(numbers)
-            seen.append((local.number, out.nbytes, how))
+            seen.append((local.number, key, out.nbytes,
+                         "thread" if id(out) in mine else "fresh", pool))
+
+    def buffer(shape, dtype):
+        mine = kept_ids()
+        out = real[0](shape, dtype)
+        keys = getattr(_steps._local, "keys", None)
+        if keys is not None:
+            record(keys[-1], out, mine)
         return out
 
-    _steps.window_array = window_array
+    @contextlib.contextmanager
+    def scratch(shape, dtype):
+        mine = kept_ids()
+        with real[1](shape, dtype) as out:
+            if getattr(_steps._local, "taken", None) is not None:
+                record((tuple(shape), np.dtype(dtype).str, "scratch"), out,
+                       mine)
+            yield out
+
+    _steps.buffer, _steps.scratch = buffer, scratch
     try:
         yield seen
     finally:
-        _steps.window_array = real
+        _steps.buffer, _steps.scratch = real
 
 
 def window_array_report(seen):
-    """``window_arrays``' record as text, per window size, and the most
-    fresh arrays one thread took for the largest windows."""
-    parts, most = [], 0
-    for nbytes in sorted({b for _, b, _ in seen}, reverse=True):
-        rows = [(t, how) for t, b, how in seen if b == nbytes]
+    """``window_arrays``' record as text, per key in falling size, and
+    the most fresh arrays one thread took of one key; the threads that
+    took arrays, and what they keep if each kept one array per key it
+    took (the bytes of each thread's keys, summed)."""
+    parts, most, held = [], 0, {}
+    keys = sorted({(b, k) for _, k, b, _, _ in seen},
+                  key=lambda bk: (-bk[0], str(bk[1])))
+    for nbytes, key in keys:
+        rows = [(t, how) for t, k, b, how, _ in seen
+                if k == key and b == nbytes]
         fresh = {}
         for t, how in rows:
             fresh[t] = fresh.get(t, 0) + (how == "fresh")
-        if not parts:
-            most = max(fresh.values())
+            held[t] = held.get(t, 0)
+        for t in fresh:
+            held[t] += nbytes
+        most = max(most, max(fresh.values()))
+        rank = "scratch" if key[2] == "scratch" else f"#{key[2]}"
         parts.append(
-            f"{len(rows)} windows of {nbytes / 1e6:.1f} MB in "
+            f"{len(rows)} of {nbytes / 1e6:.1f} MB ({key[1]} {rank}) in "
             f"{len(fresh)} threads: "
             + ", ".join(f"{sum(h == how for _, h in rows)} {label}"
                         for how, label in (
-                            ("thread", "from the thread's own buffer"),
+                            ("thread", "kept by the thread"),
                             ("fresh", "fresh")))
             + f" (at most {max(fresh.values())} fresh per thread)")
-    return "; ".join(parts) or "no window merged in a chain", most
+    if not parts:
+        return "no array taken in a chain", 0
+    per = sorted(held.values())
+    pool = len({t for t, _, _, _, p in seen if p})
+    return ("; ".join(parts) + f"; {len(held)} threads took arrays "
+            f"({pool} of the fetch pool), one per key "
+            f"{per[0] / 1e6:.1f}-{per[-1] / 1e6:.1f} MB a thread, "
+            f"{sum(per) / 1e9:.2f} GB in all"), most
+
+
+def pool_fresh(seen):
+    """The fresh arrays that the fetch pool's threads took in
+    ``window_arrays``' record, by size, and the pool threads that took
+    any."""
+    out = {}
+    for _, _, b, how, pool in seen:
+        if pool and how == "fresh":
+            out[b] = out.get(b, 0) + 1
+    return out, len({t for t, _, _, _, p in seen if p})
+
+
+def pool_threads():
+    """The threads of the host engine's fetch pool (``core/process.py``),
+    0 where there is none."""
+    from xcorr_tpu_torch.core.process import _POOL
+    return len(_POOL._threads) if _POOL is not None else 0
+
+
+@contextlib.contextmanager
+def peak_rss(every=0.02):
+    """This process's resident set while it runs: at its start and the
+    largest of samples every ``every`` s (``VmRSS`` of
+    ``/proc/self/status``, bytes). Yields the dict it fills (``start``,
+    ``peak``; None where the file is missing)."""
+    def rss():
+        try:
+            with open("/proc/self/status") as f:
+                for line in f:
+                    if line.startswith("VmRSS:"):
+                        return int(line.split()[1]) * 1024
+        except OSError:
+            return None
+
+    out = {"start": rss(), "peak": rss()}
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(every):
+            now = rss()
+            if now is not None and now > (out["peak"] or 0):
+                out["peak"] = now
+
+    watcher = threading.Thread(target=sample, daemon=True)
+    watcher.start()
+    try:
+        yield out
+    finally:
+        done.set()
+        watcher.join()
 
 
 @contextlib.contextmanager
@@ -1286,15 +1387,20 @@ def plain_host_path(lanczos=True):
     (``stream/_live.py`` ``_drop_unread_plain``), the steps' carried
     expressions (``stream/_steps.py``: each form's ``_<name>_plain``,
     among them scipy's ``sosfilt`` loop for the native one and a fresh
-    array for each window's merge in place of the thread's buffer) and,
+    array for each window's merge in place of the thread's buffer, and
+    ``remove_response``'s carried expressions), a fetch pool per
+    ``process`` call (``core/process.py`` ``_fetch_all_plain``) and,
     with ``lanczos``, the carried numpy Lanczos loop (``stream/trace.py``
     ``_lanczos_interp``)."""
     from xcorr_tpu_torch.stream import _live, _response, _steps, _window
     from xcorr_tpu_torch.stream import client as client_mod
     from xcorr_tpu_torch.stream import trace as trace_mod
+    process_mod = importlib.import_module("xcorr_tpu_torch.core.process")
     real = (client_mod.read_window, _response.inverse_response,
-            trace_mod.lanczos_interp, client_mod.drop_unread)
+            trace_mod.lanczos_interp, client_mod.drop_unread,
+            process_mod.fetch_all)
     forms = {name: getattr(_steps, name) for name in _steps.FORMS}
+    process_mod.fetch_all = process_mod._fetch_all_plain
     client_mod.read_window = _window._read_window_plain
     _response.inverse_response = _response._inverse_response_plain
     client_mod.drop_unread = _live._drop_unread_plain
@@ -1306,7 +1412,8 @@ def plain_host_path(lanczos=True):
         yield
     finally:
         (client_mod.read_window, _response.inverse_response,
-         trace_mod.lanczos_interp, client_mod.drop_unread) = real
+         trace_mod.lanczos_interp, client_mod.drop_unread,
+         process_mod.fetch_all) = real
         for name, form in forms.items():
             setattr(_steps, name, form)
 
@@ -1367,14 +1474,21 @@ def bhz_pair_day(xt, ff, edh_resp, paz):
     dev_wall = time.perf_counter() - t0
     check(not fallback, f"BHZ-EDH: device engine fell back: {fallback}")
     check(ff.launches["fused_corr"] == 1, f"BHZ-EDH: {ff.launches}")
+    from xcorr_tpu_torch.core.process import shutdown_fetch_pool
     from xcorr_tpu_torch.stream import _response
     host = dataset()
     _response.RESPONSES.clear()
-    with chain_stages() as stages:
+    shutdown_fetch_pool()
+    with chain_stages() as stages, window_arrays() as arrays:
         t0 = time.perf_counter()
         xt.process(host, client, inventory=inv, device="cuda", verb=0)
         torch.cuda.synchronize()
         host_wall = time.perf_counter() - t0
+    arrays, most = window_array_report(arrays)
+    check(most <= 1, f"BHZ-EDH: a fetch thread took {most} fresh arrays "
+                     f"of one key: {arrays}")
+    threads = pool_threads()
+    shutdown_fetch_pool()
     # the same pair-day on the plain path
     plain = dataset()
     with plain_host_path(), chain_stages() as plain_stages:
@@ -1401,6 +1515,8 @@ def bhz_pair_day(xt, ff, edh_resp, paz):
              f"{float(np.sqrt(np.mean((a - b) ** 2))):.3e}")
     phase(6, f"BHZ-EDH host engine by chain stage, s summed over its fetch "
              f"threads: {stage_report(stages)}")
+    phase(6, f"BHZ-EDH host engine's arrays (a fetch pool of {threads} "
+             f"threads): {arrays}")
     phase(6, f"BHZ-EDH host engine on the plain path by chain stage: "
              f"{stage_report(plain_stages)}")
     check(same, "BHZ-EDH: the host engine's CCFs differ from the plain "
@@ -1550,14 +1666,21 @@ def bhr_fallback(xt, ff, edh_resp, paz):
     edh_peaks = held(edh, "EDH-EDH beside BHR (device engine)", DELAY)
     check(bool((bhr["status"].values == 0).all()),
           "the device engine touched the BHR pair-day")
+    from xcorr_tpu_torch.core.process import shutdown_fetch_pool
     from xcorr_tpu_torch.stream import _response
     _response.RESPONSES.clear()
-    with chain_stages() as stages:
+    shutdown_fetch_pool()
+    with chain_stages() as stages, window_arrays() as arrays:
         t0 = time.perf_counter()
         xt.process(bhr, client=client, inventory=inv, retry_missing=True,
                    verb=0, device="cuda")
         torch.cuda.synchronize()
         host_wall = time.perf_counter() - t0
+    arrays, most = window_array_report(arrays)
+    check(most <= 1, f"BHR fallback: a fetch thread took {most} fresh "
+                     f"arrays of one key: {arrays}")
+    threads = pool_threads()
+    shutdown_fetch_pool()
     # the same pair-day on the plain path of the read and the response
     plain = dataset(BHR_PAIR)
     with plain_host_path(lanczos=False), chain_stages() as plain_stages:
@@ -1585,6 +1708,8 @@ def bhr_fallback(xt, ff, edh_resp, paz):
              f"BHR chains for noise-free arrivals)")
     phase(6, f"BHR fallback by chain stage, s summed over its fetch "
              f"threads: {stage_report(stages)}")
+    phase(6, f"BHR fallback's arrays (a fetch pool of {threads} threads): "
+             f"{arrays}")
     phase(6, f"BHR-EDH host engine on the plain path of the read and the "
              f"response (the copying read, the uncached inverse response; "
              f"the native Lanczos step) {plain_wall:.2f} s, CCFs "
@@ -3019,7 +3144,8 @@ P11_DAYS = ("2014-02-01", "2014-02-02")
 P11_ARCHIVE = pd.date_range("2014-01-31", "2014-02-04", freq="1D")
 
 
-#: phase 11's BHZ-EDH and BHR-EDH pair-days, the first day alone
+#: phase 11's BHZ-EDH pair-days (both days) and BHR-EDH pair-day (the
+#: first day alone)
 P11_BHZ_PAIR = BHZ_PAIR
 P11_BHR_PAIR = BHR_PAIR
 P11_BHZ = "IU.RAR.10.BHZ"
@@ -3473,13 +3599,120 @@ def phase11_window_steps(sds, inv):
         window_sosfilt(traces, start, end, inv)
 
 
+def window_remove_response(sds, inv, threads=8, reps=3):
+    """One 40 Hz window's ``remove_response`` division on this machine's
+    host, by part: the input, ``nfft``, inverse response and taper that
+    the production BHZ chain hands ``_steps.deconvolve`` for phase 11's
+    window of ``P11_BHZ`` (``P11_WINDOW``'s day), then the cast, ``rfft``,
+    product and ``irfft`` of the carried expressions
+    (``_deconvolve_plain``) and of the port's form (``deconvolve``: no
+    cast of a float64 window, the spectrum in the thread's scratch, the
+    products in place, the inverse into the thread's buffer), each in a
+    chain's scope. Alone, ``reps`` in turns, the first of each form apart
+    (the port's on fresh arrays, later ones on what the thread kept);
+    then ``threads`` at once, twice on the same threads (fresh, then
+    kept). Every output is the bytes of ``_deconvolve_plain``. Returns
+    the text."""
+    from concurrent.futures import ThreadPoolExecutor
+    from xcorr_tpu_torch.scripts.cc import default_config
+    from xcorr_tpu_torch.stream import Client, _steps
+    got = []
+    real = _steps.deconvolve
+
+    def spy(*args):
+        got.append((args[0].copy(), *args[1:]))
+        return real(*args)
+    _steps.deconvolve = spy
+    try:
+        Client(sds_root=sds).get_processed_waveforms(
+            P11_BHZ, pd.Timestamp(P11_WINDOW[1]),
+            {"BHZ": default_config()[0]["preprocess"]["BHZ"]},
+            duration=WINDOW, inventory=inv, sampling_rate=FS, strict=True)
+    finally:
+        _steps.deconvolve = real
+    x, n, nfft, inv_r, taper = got[0]
+    want = _steps._deconvolve_plain(x, n, nfft, inv_r, taper).tobytes()
+
+    def carried():
+        t = [time.perf_counter()]
+        c = x.astype(np.float64)
+        t.append(time.perf_counter())
+        spec = np.fft.rfft(c, nfft)
+        t.append(time.perf_counter())
+        if taper is not None:
+            spec *= taper
+        prod = spec * inv_r
+        t.append(time.perf_counter())
+        out = np.fft.irfft(prod, nfft)[:n]
+        t.append(time.perf_counter())
+        return np.diff(t), out
+
+    def port():
+        t = [time.perf_counter()]
+        c = _steps.as_float64(x)
+        t.append(time.perf_counter())
+        with _steps.scratch((nfft // 2 + 1,), np.complex128) as spec:
+            np.fft.rfft(c, nfft, out=spec)
+            t.append(time.perf_counter())
+            if taper is not None:
+                np.multiply(spec, taper, out=spec)
+            np.multiply(spec, inv_r, out=spec)
+            t.append(time.perf_counter())
+            out = np.fft.irfft(spec, nfft,
+                               out=_steps.buffer((nfft,), np.float64))
+        t.append(time.perf_counter())
+        return np.diff(t), out[:n]
+
+    forms = {"carried": carried, "port": port}
+
+    def run(form):
+        with _steps.chain():
+            parts, out = forms[form]()
+            same = out.tobytes() == want
+            del out
+        return parts, same
+
+    alone = {f: [] for f in forms}
+    for i in range(reps):
+        for f in (forms if i % 2 == 0 else list(forms)[::-1]):
+            parts, same = run(f)
+            check(same, f"remove_response's {f} form differs from "
+                        f"_deconvolve_plain")
+            alone[f].append(parts)
+    crowd = {f: [] for f in forms}
+    for f in forms:
+        with ThreadPoolExecutor(threads) as ex:
+            for _ in range(2):
+                res = list(ex.map(lambda _: run(f), range(threads)))
+                check(all(same for _, same in res),
+                      f"remove_response's {f} form in {threads} threads "
+                      f"differs")
+                crowd[f].append(np.median([p for p, _ in res], axis=0))
+
+    def text(parts):
+        return "/".join(f"{v:.4f}" for v in parts) + \
+            f" = {float(np.sum(parts)):.4f}"
+
+    return (f"{x.size} samples ({x.dtype}) at nfft = {nfft} on "
+            f"{host_cpu()}, numpy {np.__version__}; cast/rfft/product/"
+            f"irfft s, the first call alone, then the median of the "
+            f"{reps - 1} after it, then {threads} at once (medians over "
+            f"the threads) fresh and kept: " + "; ".join(
+                f"{f} {text(alone[f][0])}, "
+                f"{text(np.median(alone[f][1:], axis=0))}; {threads} at "
+                f"once {text(crowd[f][0])}, {text(crowd[f][1])}"
+                for f in forms)
+            + "; every output the bytes of the carried expressions")
+
+
 def phase11_cli(xt, ff):
     """The production entry point on the card, archive to shards to
     analysis: ``xcorr-torch-cc`` (the host engine, K1 on the ``corr``
     route) writes a shard per pair-day through the port's HDF5 codec,
-    first for two EDH-EDH pair-days, then for one BHZ-EDH and one BHR-EDH
-    pair-day (the BH chains' response and Lanczos steps on the host);
-    every shard reads back and validates with status 1, peaking at the
+    first for two EDH-EDH pair-days, then for two BHZ-EDH and one BHR-EDH
+    pair-days (the BH chains' response and Lanczos steps on the host),
+    each run on a fetch pool of its own (``run_cli``); every shard reads
+    back and validates with status 1, peaking at the
     injected delay (the BH ones plus the lag between the two chains), the
     first of each bit-identical to an in-memory ``process`` of the same
     pair-day on the plain path of the read and the response
@@ -3487,6 +3720,7 @@ def phase11_cli(xt, ff):
     and matches ``pair_snr`` (on the in-memory dataset, then on the second
     shard). Returns K1's launches in each CLI run."""
     from xcorr_tpu_torch.core import lazy
+    from xcorr_tpu_torch.core.process import shutdown_fetch_pool
     from xcorr_tpu_torch.io.netcdf import from_netcdf
     from xcorr_tpu_torch.scripts import cc as cc_cli
     from xcorr_tpu_torch.scripts import snr as snr_cli
@@ -3522,7 +3756,9 @@ def phase11_cli(xt, ff):
         bytes the merge filled, bytes the carried merge allocates for the
         same traces: a copy of each and the union), and where each merge
         took its array (``window_arrays``: no thread takes a fresh one
-        for a second 250 Hz window)."""
+        of a key twice, and only the fetch pool's threads fetch for the
+        pair-days), from a fetch pool made for the run, which it shuts
+        down at its end; the process's peak resident set meanwhile."""
         writes, decodes, reads, merges = [], [], [], []
         real = (lazy.write, sds_mod._decode_dayfile, _window.day_views,
                 _window.merge_window)
@@ -3549,10 +3785,12 @@ def phase11_cli(xt, ff):
         _window.merge_window = merge
         _daycache.DAYS.clear()
         _response.RESPONSES.clear()
+        shutdown_fetch_pool()
         ff.reset_launches()
         t0 = time.perf_counter()
         try:
-            with chain_stages() as stages, window_arrays() as arrays:
+            with chain_stages() as stages, window_arrays() as arrays, \
+                    peak_rss() as rss:
                 rc = cc_cli.main(["--root", root, "--sds-root", sds,
                                   "--pair", pair, "--start",
                                   f"{days[0]:%F}", "--end", f"{days[-1]:%F}",
@@ -3577,12 +3815,19 @@ def phase11_cli(xt, ff):
                                         f"{len(days)} pair-days")
         report, most = window_array_report(arrays)
         check(most <= 1, f"{pair}: a fetch thread took {most} fresh arrays "
-                         f"for its {RAW_FS:g} Hz windows: {report}")
+                         f"of one key: {report}")
+        threads = pool_threads()
+        fresh, took = pool_fresh(arrays)
+        check(0 < took <= threads, f"{pair}: {took} threads of a fetch pool "
+                                   f"of {threads} took arrays")
+        shutdown_fetch_pool()
         return wall, counts["fused_corr"], [w for w, _ in writes], \
-            decodes, reads, merges, stages, report
+            decodes, reads, merges, stages, report, threads, rss, fresh
 
     def cli_line(pair, days, run, shards, shard_reads):
-        wall, k1, writes, decodes, reads, merges, _, arrays = run
+        wall, k1, writes, decodes, reads, merges, _, arrays, threads, \
+            rss, fresh = run
+        top = max(fresh) if fresh else 0
         mb = [b / 1e6 for _, b, _ in merges]
         carried = [c / 1e6 for _, _, c in merges]
         return (f"xcorr-torch-cc {pair}: {len(days)} pair-days in "
@@ -3604,7 +3849,12 @@ def phase11_cli(xt, ff):
                 f"{min(mb):.1f}-{max(mb):.1f} MB filled per window "
                 f"(the carried merge {min(carried):.1f}-"
                 f"{max(carried):.1f} MB: a copy of each day file and the "
-                f"union); window arrays: {arrays}")
+                f"union); one fetch pool of {threads} threads over the "
+                f"{len(days)} pair-days, which took {fresh.get(top, 0)} "
+                f"fresh arrays of {top / 1e6:.1f} MB; the chains' arrays: "
+                f"{arrays}; peak resident set "
+                f"{(rss['peak'] or 0) / 1e9:.2f} GB (at the start "
+                f"{(rss['start'] or 0) / 1e9:.2f} GB)")
 
     def held(pair, days, want_lag):
         """Every shard of ``pair``: read, validate, status, peaks at
@@ -3697,10 +3947,14 @@ def phase11_cli(xt, ff):
               f"within {err:.3e} (relative) of pair_snr in memory, "
               f"lag_s_max equal; h5py not imported")
 
-    # one BHZ-EDH and one BHR-EDH pair-day: the BH chains' response and
+    phase(11, f"one {BH_FS:g} Hz window's remove_response by part: "
+              f"{window_remove_response(sds, inv)}")
+
+    # two BHZ-EDH and one BHR-EDH pair-days: the BH chains' response and
     # Lanczos steps on the host
-    bh_days, wall = days[:1], {}
-    for bh, pair in (("BHZ", P11_BHZ_PAIR), ("BHR", P11_BHR_PAIR)):
+    wall = {}
+    for bh, pair, bh_days in (("BHZ", P11_BHZ_PAIR, days),
+                              ("BHR", P11_BHR_PAIR, days[:1])):
         lag = phase11_chain_lag(inv, bh)
         run = run_cli(pair, bh_days)
         bh_shards, bh_reads, _ = held(pair, bh_days, DELAY + lag)
@@ -3712,7 +3966,7 @@ def phase11_cli(xt, ff):
                   f"its fetch threads: {stage_report(run[6])}")
         if bh == "BHR":
             check_unread_z(run[6], "phase 11 BHR-EDH")
-        wall[bh] = run[:2]
+        wall[bh] = (run[0] / len(bh_days), run[1])
     check("h5py" not in sys.modules, "h5py was imported")
     tmp.cleanup()
     phase(11, f"xcorr-torch-cc wall per pair-day: EDH-EDH "

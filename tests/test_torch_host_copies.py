@@ -126,6 +126,20 @@ _REMOVE_RESPONSE = [(
 """),
 ]
 
+#: ``remove_response``'s division runs in ``stream/_steps.py``'s
+#: ``deconvolve``: the spectrum and the inverse in the fetch thread's
+#: arrays, the products in place, its plain version the carried
+#: expressions (applied after ``_REMOVE_RESPONSE``)
+_DECONVOLVE = [(
+    """        spec = np.fft.rfft(self.data.astype(np.float64), nfft)
+        if taper is not None:
+            spec *= taper
+        self.data = np.fft.irfft(spec * inv_r, nfft)[:n]
+""",
+    """        self.data = _steps.deconvolve(self.data, n, nfft, inv_r, taper)
+"""),
+]
+
 #: the chain's steps without the copies they make and drop
 #: (``stream/_steps.py``: in place only on arrays the chain allocated,
 #: each form's plain version the carried expression)
@@ -233,14 +247,15 @@ CARRIED = {
     # to the carried loop, which stays as its plain version; the inverse
     # response comes from a cache by response values and grid
     # (stream/_response.py), its plain version the carried expressions;
-    # the steps' forms without their dropped copies (stream/_steps.py)
+    # the steps' forms without their dropped copies (stream/_steps.py),
+    # remove_response's division among them
     "stream/trace.py": [("from ..ops.fft import next_fast_len",
                          "from . import _steps\n"
                          "from ._fftlen import next_fast_len\n"
                          "from ._lanczos import lanczos_interp"),
                         ("self.data = _lanczos_interp(self.data.astype(",
                          "self.data = lanczos_interp(self.data.astype("),
-                        *_REMOVE_RESPONSE, *_STEPS],
+                        *_REMOVE_RESPONSE, *_DECONVOLVE, *_STEPS],
     "stream/inventory.py": [],
     "stream/process.py": [],
     "stream/client.py": _CLIENT,

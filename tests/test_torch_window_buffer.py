@@ -30,6 +30,7 @@ import pandas as pd
 import pytest
 
 import xcorr_tpu_torch as xt
+from xcorr_tpu_torch.core.process import shutdown_fetch_pool
 from xcorr_tpu_torch.native import mseed as tm
 from xcorr_tpu_torch.scripts.cc import default_config
 from xcorr_tpu_torch.stream import (_daycache, _live, _response, _steps,
@@ -87,11 +88,13 @@ def inventory():
 
 @pytest.fixture(autouse=True)
 def fresh():
-    """Empty caches, and no buffer kept by this thread."""
+    """Empty caches, no buffer kept by this thread, and no fetch pool,
+    whose threads would keep theirs from an earlier test."""
     def clear():
         _daycache.DAYS.clear()
         _response.RESPONSES.clear()
-        _steps._local.__dict__.pop("buf", None)
+        _steps._local.__dict__.pop("kept", None)
+        shutdown_fetch_pool()
     clear()
     yield
     clear()
@@ -144,14 +147,17 @@ def fetch(root, time, ops=None, **kw):
 
 
 def slot_buffer():
-    """The buffer this thread keeps, or None."""
-    return getattr(_steps._local, "buf", None)
+    """The largest buffer this thread keeps, or None."""
+    kept = getattr(_steps._local, "kept", None) or {}
+    return max(kept.values(), key=lambda a: a.nbytes, default=None)
 
 
 def lone_slot_buffer():
-    """Whether nothing but this thread's slot reaches the buffer it keeps
-    (taken out of the slot to count its references)."""
-    [(_, refs)] = _steps._refcounts([_steps._local.__dict__.pop("buf")])
+    """Whether nothing but this thread's slot reaches the largest buffer
+    it keeps (taken out of the slot to count its references)."""
+    kept = _steps._local.kept
+    key = max(kept, key=lambda k: kept[k].nbytes)
+    [(_, refs)] = _steps._refcounts([kept.pop(key)])
     return refs == _steps._ALONE
 
 

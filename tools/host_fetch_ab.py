@@ -2,11 +2,13 @@
 
     python3 tools/host_fetch_ab.py [--pairs 10] [--against TREE]
                                    [--plain-forms NAME,...]
+    python3 tools/host_fetch_ab.py --campaign 4,8 [--pairs 3]
+                                   [--forms process,per-call,per-caller]
 
 Writes ``chip_smoke.py``'s phase 11 miniSEED archive (2 EDH stations at
 250 Hz, ``IU.RAR.10.BH1/BH2/BHZ`` at 40 Hz, 5 days), then, ``--pairs``
 times, runs each of phase 11's pair kinds through ``xcorr-torch-cc``
-(EDH-EDH over 2 pair-days, BHZ-EDH and BHR-EDH over 1) once on the
+(EDH-EDH and BHZ-EDH over 2 pair-days, BHR-EDH over 1) once on the
 port's host fetch and chain (the window read, the inverse-response
 cache, the chain without the components it never reads, the steps
 without their dropped copies) and once on their carried forms
@@ -14,25 +16,41 @@ without their dropped copies) and once on their carried forms
 response evaluated for every window and component, every fetched
 component through the chain, the steps' carried expressions), from
 empty day-file and response caches, alternating which form runs first.
-With ``--plain-forms``, the plain form swaps only the named step forms of
-``stream/_steps.py`` (``FORMS``) for their plain versions and keeps the
-rest of the port's fetch: ``sosfilt_inplace,window_array`` runs scipy's
-loop and a fresh array per window merge against the native loop and the
-thread's buffer. With ``--against TREE`` (another checkout of the
-repository, say the parent commit unpacked by ``git archive``), each run
-is instead a new
-process, in this checkout or in ``TREE``, each building its kernels in
-its own ``build/`` first. Both forms' shards must be the same bits.
-Prints the card's name and power limit, each wall per pair-day, and per
-pair kind the medians, the second form's quartile spread and the rounds
-the first won; the last line is the walls as JSON. Needs one card;
-imports no JAX.
+With ``--plain-forms``, the plain form swaps only the named forms for
+their plain versions and keeps the rest of the port's fetch: those of
+``stream/_steps.py`` (``FORMS``) and of ``core/process.py`` (``FORMS``:
+``fetch_all``, the fetch pool that outlives the pair-day, whose plain
+version is a pool per ``process`` call); ``fetch_all,deconvolve`` runs a
+pool per pair-day and ``remove_response``'s carried expressions against
+the process's pool and the division in the threads' arrays. Every run
+starts on a fetch pool of its own, as a new process would. With
+``--against TREE`` (another checkout of the repository, say the parent
+commit unpacked by ``git archive``), each run is instead a new process,
+in this checkout or in ``TREE``, each building its kernels in its own
+``build/`` first, and each run's peak resident set is printed too. Both
+forms' shards must be the same bits. Prints the card's name and power
+limit, each wall per pair-day, and per pair kind the medians, the second
+form's quartile spread and the rounds the first won; the last line is
+the walls as JSON. Needs one card; imports no JAX.
+
+With ``--campaign N,...`` the tool instead writes an archive of five EDH
+stations (``CAMPAIGN_STATIONS``, phase 11's days) and, ``--pairs``
+times, runs ``xcorr-torch-cc`` over the first ``N`` of their EDH pairs
+and phase 11's two days, so ``2 N`` pair-days with as many in flight as
+the host has cores, once on each fetch form that ``--forms`` names of
+``FETCH_FORMS`` (the process's one pool, a pool per ``process`` call, a
+pool per calling thread; all by default), each run a new process, the
+order turned each round. It prints each run's seconds per pair-day and
+peak resident set, then per campaign and form the medians and quartile
+spreads, and the rounds the first form won against each other; every
+form's shards must be the same bits.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import json
 import os
 import shutil
@@ -51,29 +69,39 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 
 
+def form_modules():
+    """The modules whose ``FORMS`` the plain form may swap, by form."""
+    modules = [importlib.import_module(f"xcorr_tpu_torch.{m}")
+               for m in ("stream._steps", "core.process")]
+    return {name: m for m in modules for name in m.FORMS}
+
+
 @contextlib.contextmanager
 def plain_forms(names):
-    """The step forms ``names`` of ``stream/_steps.py`` swapped for their
-    plain versions while it runs."""
-    from xcorr_tpu_torch.stream import _steps
-    real = {name: getattr(_steps, name) for name in names}
+    """The forms ``names`` (``form_modules``) swapped for their plain
+    versions while it runs."""
+    where = form_modules()
+    real = {name: getattr(where[name], name) for name in names}
     for name in names:
-        setattr(_steps, name, getattr(_steps, f"_{name}_plain"))
+        setattr(where[name], name, getattr(where[name], f"_{name}_plain"))
     try:
         yield
     finally:
         for name, form in real.items():
-            setattr(_steps, name, form)
+            setattr(where[name], name, form)
 
 
 def run_cli(pair, days, root, sds, inv_path, plain, names=None):
     """Seconds per pair-day of ``xcorr-torch-cc`` over ``pair``'s
     ``days`` into ``root``, from empty caches, on the carried forms if
-    ``plain`` (only the step forms ``names`` where given)."""
+    ``plain`` (only the forms ``names`` where given), on a fetch pool of
+    its own."""
+    from xcorr_tpu_torch.core.process import shutdown_fetch_pool
     from xcorr_tpu_torch.scripts import cc as cc_cli
     from xcorr_tpu_torch.stream import _daycache, _response
     _daycache.DAYS.clear()
     _response.RESPONSES.clear()
+    shutdown_fetch_pool()
     if not plain:
         form = contextlib.nullcontext()
     elif names:
@@ -87,44 +115,180 @@ def run_cli(pair, days, root, sds, inv_path, plain, names=None):
                           f"{days[-1]:%F}", "--inventory", inv_path])
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    shutdown_fetch_pool()
     cs.check(rc == 0, f"xcorr-torch-cc returned {rc}")
     return wall / len(days)
 
 
 #: a run of ``xcorr-torch-cc`` in a new process, in the checkout it
-#: names: the card and the kernels made ready first, the wall per
-#: pair-day printed as JSON
+#: names: the card and the kernels made ready first, then ``setup`` (code
+#: with ``core.process`` as ``P``), the wall and the process's peak
+#: resident set (bytes) printed as JSON
 RUN = """
-import json, sys, time
+import json, resource, sys, time
 sys.path.insert(0, {tree!r})
+import importlib
 import torch
+P = importlib.import_module("xcorr_tpu_torch.core.process")
 from xcorr_tpu_torch.ops import _build
 from xcorr_tpu_torch.scripts import cc as cc_cli
 _build.load()
 torch.zeros(1, device="cuda")
 torch.cuda.synchronize()
+{setup}
 t0 = time.perf_counter()
 rc = cc_cli.main({argv!r})
 torch.cuda.synchronize()
-print(json.dumps({{"rc": rc, "wall": time.perf_counter() - t0}}))
+print(json.dumps({{"rc": rc, "wall": time.perf_counter() - t0,
+                  "rss": resource.getrusage(
+                      resource.RUSAGE_SELF).ru_maxrss * 1024}}))
 """
 
 
-def run_tree(tree, pair, days, root, sds, inv_path):
+def run_tree(tree, pair, days, root, sds, inv_path, rss=None):
     """Seconds per pair-day of ``xcorr-torch-cc`` over ``pair``'s
-    ``days`` into ``root``, in a new process of the checkout ``tree``."""
+    ``days`` into ``root``, in a new process of the checkout ``tree``;
+    its peak resident set goes to the list ``rss``."""
     argv = ["--root", root, "--sds-root", sds, "--pair", pair, "--start",
             f"{days[0]:%F}", "--end", f"{days[-1]:%F}", "--inventory",
             inv_path]
     env = {k: v for k, v in os.environ.items() if k not in cs.ROUTE_VARS}
-    proc = subprocess.run([sys.executable, "-c",
-                           RUN.format(tree=tree, argv=argv)], cwd=tree,
-                          env=env, capture_output=True, text=True,
-                          timeout=900)
+    proc = subprocess.run(
+        [sys.executable, "-c", RUN.format(tree=tree, setup="", argv=argv)],
+        cwd=tree, env=env, capture_output=True, text=True, timeout=900)
     cs.check(proc.returncode == 0, f"{tree}: {proc.stderr[-2000:]}")
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     cs.check(out["rc"] == 0, f"{tree}: xcorr-torch-cc returned {out['rc']}")
+    if rss is not None:
+        rss.append(out["rss"])
     return out["wall"] / len(days)
+
+
+#: the campaign's EDH stations: phase 11's two and three more of the same
+#: hydrophone triads, each with the shared source train
+CAMPAIGN_STATIONS = ("IM.H10N1..EDH", "IM.H03S1..EDH", "IM.H10N2..EDH",
+                     "IM.H03S2..EDH", "IM.H10N3..EDH")
+
+#: a pool per thread that calls ``process``: each pair-day in flight
+#: keeps fetch threads of its own, as a pool per call gives it, and a
+#: campaign worker's next pair-day runs on the same threads
+CALLER_POOL = """
+import threading
+from concurrent.futures import ThreadPoolExecutor, wait
+mine = threading.local()
+def fetch_all(fetch, work, nworkers):
+    pool = getattr(mine, "pool", None)
+    if pool is None:
+        pool = mine.pool = ThreadPoolExecutor(
+            max_workers=nworkers, thread_name_prefix="xcorr-fetch")
+    futures = [pool.submit(fetch, w) for w in work]
+    try:
+        return [f.result() for f in futures]
+    finally:
+        for f in futures:
+            f.cancel()
+        wait(futures)
+P.fetch_all = fetch_all
+"""
+
+#: the fetch forms of ``--campaign``, as code that a run executes with
+#: ``core.process`` as ``P`` before the CLI: the process's one pool (the
+#: port's), a pool per call, a pool per calling thread
+FETCH_FORMS = {"process": "", "per-call": "P.fetch_all = P._fetch_all_plain",
+               "per-caller": CALLER_POOL}
+
+def campaign_archive(sds, inv_path):
+    """Phase 11's archive days of ``CAMPAIGN_STATIONS`` at 250 Hz raw
+    (Steim1 day files), and their inventory."""
+    from xcorr_tpu_torch.stream import Channel, Inventory, PAZResponse
+    from xcorr_tpu_torch.stream.sds import SDSArchive
+    synth = cs.phase11_synth(delays={CAMPAIGN_STATIONS[0]: cs.DELAY})
+    archive = SDSArchive(sds, format="mseed")
+    for day in cs.P11_ARCHIVE:
+        for r in CAMPAIGN_STATIONS:
+            archive.write(synth._synthesize_day(r, day))
+    Inventory([Channel(*r.split("."), latitude=-30.0 + i,
+                       longitude=-78.8 + i,
+                       response=PAZResponse(sensitivity=1.5e9))
+               for i, r in enumerate(CAMPAIGN_STATIONS)]).to_json(inv_path)
+
+
+def campaign(sizes, rounds, forms=tuple(FETCH_FORMS)):
+    """``xcorr-torch-cc`` over the first ``n`` EDH pairs of
+    ``CAMPAIGN_STATIONS`` and phase 11's two days, for each ``n`` of
+    ``sizes``, each run a new process of this checkout on each of the
+    ``FETCH_FORMS`` named ``forms``, ``rounds`` times in turns; returns
+    the seconds per pair-day and the peak resident sets by size and
+    form."""
+    import itertools
+    import xcorr_tpu_torch as xt
+    tmp = tempfile.TemporaryDirectory()
+    sds = os.path.join(tmp.name, "sds")
+    inv_path = os.path.join(tmp.name, "inventory.json")
+    t0 = time.perf_counter()
+    campaign_archive(sds, inv_path)
+    print(f"campaign archive: {len(CAMPAIGN_STATIONS)} EDH stations x "
+          f"{len(cs.P11_ARCHIVE)} days in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    pairs = ["-".join(p) for p in itertools.combinations(
+        CAMPAIGN_STATIONS, 2)]
+    days = pd.date_range(*cs.P11_DAYS, freq="1D")
+    env = {k: v for k, v in os.environ.items() if k not in cs.ROUTE_VARS}
+    walls = {n: {f: [] for f in forms} for n in sizes}
+    rss = {n: {f: [] for f in forms} for n in sizes}
+    for i in range(rounds):
+        order = forms[::-1] if i % 2 else forms
+        for n in sizes:
+            argv = ["--sds-root", sds, "--start", f"{days[0]:%F}", "--end",
+                    f"{days[-1]:%F}", "--inventory", inv_path]
+            for p in pairs[:n]:
+                argv += ["--pair", p]
+            npd = n * len(days)
+            for f in order:
+                root = os.path.join(tmp.name, f"{n}-{f}")
+                proc = subprocess.run(
+                    [sys.executable, "-c", RUN.format(
+                        tree=cs.REPO, setup=FETCH_FORMS[f],
+                        argv=["--root", root] + argv)],
+                    cwd=cs.REPO, env=env, capture_output=True, text=True,
+                    timeout=900)
+                cs.check(proc.returncode == 0, f"{f}: {proc.stderr[-2000:]}")
+                out = json.loads(proc.stdout.strip().splitlines()[-1])
+                cs.check(out["rc"] == 0, f"{f}: xcorr-torch-cc returned "
+                                         f"{out['rc']}")
+                walls[n][f].append(out["wall"] / npd)
+                rss[n][f].append(out["rss"])
+            for p in pairs[:n]:
+                for day in days:
+                    a, *b = (xt.read(xt.ncfile(
+                        p, day, os.path.join(tmp.name, f"{n}-{f}")))
+                        for f in forms)
+                    cs.check((a["status"].values == 1).all() and all(
+                        a["cc"].values.tobytes() == o["cc"].values.tobytes()
+                        for o in b), f"{p} {day:%F}: the forms' shards "
+                                     "differ")
+            for f in forms:
+                shutil.rmtree(os.path.join(tmp.name, f"{n}-{f}"))
+            print(f"round {i + 1} {npd} pair-days, s per pair-day: "
+                  + ", ".join(f"{f} {walls[n][f][-1]:.4f} "
+                              f"(peak {rss[n][f][-1] / 1e9:.2f} GB)"
+                              for f in order), flush=True)
+    tmp.cleanup()
+    for n in sizes:
+        npd = n * len(days)
+        for f in forms:
+            w = walls[n][f]
+            q = statistics.quantiles(w, n=4) if rounds > 1 else [0, 0, 0]
+            print(f"{npd} pair-days, {f}: median {statistics.median(w):.4f} "
+                  f"s per pair-day (quartile spread {q[2] - q[0]:.4f}), "
+                  f"peak resident set median "
+                  f"{statistics.median(rss[n][f]) / 1e9:.2f} GB", flush=True)
+        for f in forms[1:]:
+            wins = sum(a < b for a, b in zip(walls[n][forms[0]],
+                                             walls[n][f]))
+            print(f"{npd} pair-days: {forms[0]} faster than {f} in {wins} "
+                  f"of {rounds} rounds; shards the same bits", flush=True)
+    return {"walls": walls, "rss": rss}
 
 
 def ab(pairs, against=None, names=None):
@@ -137,7 +301,7 @@ def ab(pairs, against=None, names=None):
     cs.phase11_archive(sds)
     days = pd.date_range(*cs.P11_DAYS, freq="1D")
     kinds = {"EDH-EDH": (cs.P11_PAIR, days),
-             "BHZ-EDH": (cs.P11_BHZ_PAIR, days[:1]),
+             "BHZ-EDH": (cs.P11_BHZ_PAIR, days),
              "BHR-EDH": (cs.P11_BHR_PAIR, days[:1])}
     if against is None:
         forms = ("port", "plain")
@@ -150,8 +314,11 @@ def ab(pairs, against=None, names=None):
         forms = tuple(trees)
 
         def run(form, pair, kdays, root):
-            return run_tree(trees[form], pair, kdays, root, sds, inv_path)
+            kind = next(k for k, (p, _) in kinds.items() if p == pair)
+            return run_tree(trees[form], pair, kdays, root, sds, inv_path,
+                            rss[kind][form])
     walls = {k: {f: [] for f in forms} for k in kinds}
+    rss = {k: {f: [] for f in forms} for k in kinds}
     for i in range(pairs):
         order = forms[::-1] if i % 2 == 0 else forms
         for kind, (pair, kdays) in kinds.items():
@@ -179,6 +346,12 @@ def ab(pairs, against=None, names=None):
               f"{statistics.median(w[second]):.3f} (quartile spread "
               f"{q[2] - q[0]:.3f}); {first} faster in {wins} of "
               f"{pairs} rounds; shards the same bits", flush=True)
+        if against is not None:
+            print(f"{kind} peak resident set per run, GB: " + ", ".join(
+                f"{f} median {statistics.median(rss[kind][f]) / 1e9:.2f} "
+                f"({min(rss[kind][f]) / 1e9:.2f}-"
+                f"{max(rss[kind][f]) / 1e9:.2f})" for f in forms),
+                flush=True)
     return walls
 
 
@@ -188,13 +361,21 @@ def main():
     parser.add_argument("--against", default=None,
                         help="another checkout to run in turns with this")
     parser.add_argument("--plain-forms", default=None,
-                        help="comma-separated names of stream/_steps.py "
-                             "FORMS that the plain form swaps, alone")
+                        help="comma-separated names of stream/_steps.py's "
+                             "and core/process.py's FORMS that the plain "
+                             "form swaps, alone")
+    parser.add_argument("--campaign", default=None,
+                        help="comma-separated numbers of EDH pairs: run "
+                             "the CLI over each as a campaign on each "
+                             "fetch form instead")
+    parser.add_argument("--forms", default=",".join(FETCH_FORMS),
+                        help="comma-separated FETCH_FORMS that --campaign "
+                             "runs, the first compared with the others")
     args = parser.parse_args()
-    from xcorr_tpu_torch.stream import _steps
     names = args.plain_forms.split(",") if args.plain_forms else None
-    cs.check(names is None or set(names) <= set(_steps.FORMS),
-             f"--plain-forms: not in {_steps.FORMS}: {names}")
+    forms = sorted(form_modules())
+    cs.check(names is None or set(names) <= set(forms),
+             f"--plain-forms: not in {forms}: {names}")
     cs.check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -202,7 +383,14 @@ def main():
     from xcorr_tpu_torch.ops import _build
     _build.load()
     cs.set_route("corr")
-    print(json.dumps(ab(args.pairs, args.against, names)))
+    if args.campaign:
+        sizes = [int(n) for n in args.campaign.split(",")]
+        forms = tuple(args.forms.split(","))
+        cs.check(len(forms) > 1 and set(forms) <= set(FETCH_FORMS),
+                 f"--forms: two or more of {sorted(FETCH_FORMS)}")
+        print(json.dumps(campaign(sizes, args.pairs, forms)))
+    else:
+        print(json.dumps(ab(args.pairs, args.against, names)))
 
 
 if __name__ == "__main__":

@@ -9,13 +9,26 @@ one dense ``(batch, npts)`` block, moved to ``device`` and correlated
 there by :func:`xcorr_tpu_torch.ops.cc.correlate`; the CCFs come back
 with ``.cpu()``.
 
+The fetch threads outlive the call: :func:`fetch_all` runs a call's
+fetches on the one pool of :data:`FETCH_THREADS` threads that the
+process keeps, made on first use, so each thread's arrays (the window
+merge's buffer and ``remove_response``'s, :mod:`..stream._steps`) serve
+every later pair-day instead of taking fresh pages for each. Pair-days
+that run at once (``lazy_process``'s workers) share its threads, each
+call with at most its own ``nworkers`` fetches at once;
+:func:`shutdown_fetch_pool` ends the threads and with them what they
+keep. The plain version of :func:`fetch_all`, ``_fetch_all_plain``, is a
+pool per call, as in the reference (:data:`FORMS`).
+
 Status/offset/hash bookkeeping, ops-hash validation and the
 ``retry_missing``/``test_run`` semantics match the reference exactly.
 """
 
 from __future__ import annotations
 
-from concurrent.futures import ThreadPoolExecutor
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor, wait
 
 import numpy as np
 import pandas as pd
@@ -24,7 +37,82 @@ import torch
 from .. import ops, stream as stream_mod, util
 from ..signal.unbias import unbias
 
-__all__ = ["process", "resolve_device"]
+__all__ = ["process", "resolve_device", "shutdown_fetch_pool"]
+
+#: the threads of the process's fetch pool; a call that asks for more
+#: fetches at once runs on a pool of its own
+FETCH_THREADS = 8
+
+#: the fetch pool and the process that made it
+_POOL, _POOL_PID = None, None
+_POOL_LOCK = threading.Lock()
+
+
+def _fetch_pool():
+    """The process's fetch pool, made on first use (anew in a forked
+    child, which has none of its parent's threads)."""
+    global _POOL, _POOL_PID
+    with _POOL_LOCK:
+        if _POOL is None or _POOL_PID != os.getpid():
+            _POOL = ThreadPoolExecutor(max_workers=FETCH_THREADS,
+                                       thread_name_prefix="xcorr-fetch")
+            _POOL_PID = os.getpid()
+        return _POOL
+
+
+def shutdown_fetch_pool():
+    """End the fetch pool's threads, waiting for their tasks: what each
+    thread keeps goes with it. The next :func:`process` makes a new
+    pool."""
+    global _POOL
+    with _POOL_LOCK:
+        pool, _POOL = _POOL, None
+    if pool is not None:
+        pool.shutdown(wait=True)
+
+
+def fetch_all(fetch, work, nworkers):
+    """``[fetch(w) for w in work]`` on the process's fetch pool, at most
+    ``nworkers`` at once, in ``work``'s order (more than
+    :data:`FETCH_THREADS`: on a pool of its own). A fetch that raises
+    raises here, and the call submits no fetch after it; before this
+    returns or raises, the fetches that had not started are cancelled
+    and those running have ended."""
+    if nworkers > FETCH_THREADS:
+        return _fetch_all_plain(fetch, work, nworkers)
+    pool, slots, failed = _fetch_pool(), threading.Semaphore(nworkers), []
+
+    def task(w):
+        try:
+            return fetch(w)
+        except BaseException:
+            failed.append(w)
+            raise
+        finally:
+            slots.release()
+
+    futures = []
+    try:
+        for w in work:
+            slots.acquire()
+            if failed:
+                break
+            futures.append(pool.submit(task, w))
+        return [f.result() for f in futures]
+    finally:
+        for f in futures:
+            f.cancel()
+        wait(futures)
+
+
+def _fetch_all_plain(fetch, work, nworkers):
+    with ThreadPoolExecutor(max_workers=nworkers) as ex:
+        return list(ex.map(fetch, work))
+
+
+#: the forms :func:`process` calls, each with its plain version
+#: ``_<name>_plain``
+FORMS = ("fetch_all",)
 
 
 def resolve_device(device) -> torch.device:
@@ -114,8 +202,7 @@ def process(dataset, client, inventory=None, retry_missing: bool = False,
 
     nworkers = prefetch_workers or min(8, max(1, len(work)))
     if nworkers > 1 and len(work) > 1:
-        with ThreadPoolExecutor(max_workers=nworkers) as ex:
-            fetched = list(ex.map(fetch, work))
+        fetched = fetch_all(fetch, work, nworkers)
     else:
         fetched = [fetch(w) for w in work]
 

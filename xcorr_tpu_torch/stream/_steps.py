@@ -24,18 +24,26 @@ A caller's array, a read-only view of the day-file cache, or any array
 outside a chain is never written: called on their own, the steps return
 new arrays, as the carried steps do.
 
-Two forms go further than the carried expressions. :func:`sosfilt` on
+Three forms go further than the carried expressions. :func:`sosfilt` on
 the chain's own float64 window runs the native library's loop over it
 (:func:`._sosfilt.sosfilt_inplace`), scipy's loop as a wavefront over
 the sections, bit for bit. :func:`window_array`, the window merge's
-output, is inside a chain the buffer that the calling thread keeps for
-its windows where that fits the window exactly: a window's array is dead
-once ``decimate`` has copied out every fifth sample, and a fresh 190 MB
-array costs the first touch of its pages under the fetch threads. The
-buffer goes back to the thread when the chain's scope closes only if
+output, and the inverse transform of :func:`deconvolve`
+(``remove_response``'s division) are inside a chain arrays that the
+calling thread keeps (:func:`buffer`): a window's array is dead once
+``decimate`` has copied out every fifth sample or ``remove_response``
+has transformed it, the division's output once ``interpolate`` has read
+it, and a fresh array of 30-190 MB costs the first touch of its pages
+under the fetch threads. A thread keeps at most one array per key, the
+key being the shape, the dtype and the array's rank among those of that
+shape and dtype that the chain holds at once (the BHR chain's BH1, BH2
+and BHZ windows are three), and at most :data:`KEEP_BYTES` in all. An
+array goes back to the thread when the chain's scope closes only if
 nothing else holds it (:func:`chain`), so no output, no view of the
-day-file cache and no caller's array ever shares memory with a buffer
-that is handed out again.
+day-file cache and no caller's array ever shares memory with an array
+that is handed out again. :func:`deconvolve`'s spectrum is a scratch
+array of the thread (:func:`scratch`), which nothing outside the form
+ever sees.
 
 Each form has its plain version, ``_<name>_plain``: the carried
 expression, or for :func:`sosfilt_inplace` and :func:`window_array` the
@@ -46,8 +54,10 @@ versions in their place (``chip_smoke.plain_host_path``).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
+import inspect
 import sys
 import threading
 import weakref
@@ -62,9 +72,23 @@ try:  # the loop ``sosfilt`` runs over the copy it makes of its input
 except ImportError:
     _scipy_loop = None
 
-__all__ = ["chain", "chained", "own", "owns", "window_array", "FORMS"]
+__all__ = ["chain", "chained", "own", "owns", "buffer", "scratch",
+           "window_array", "deconvolve", "FORMS", "KEEP_BYTES"]
 
 _local = threading.local()
+
+#: the most bytes of arrays that a thread keeps between its chains; past
+#: it the array least recently kept goes first. A production fetch thread
+#: keeps about 470 MB: a 250 Hz window of 23,760,001 float64 samples
+#: (190.1 MB) and, for the BHR chain, three 40 Hz windows of 3,801,601
+#: (30.4 MB each) and ``remove_response``'s two outputs and its spectrum
+#: at nfft = 7,864,320 (62.9 MB each)
+KEEP_BYTES = 512 << 20
+
+#: whether ``np.fft.rfft`` and ``np.fft.irfft`` take ``out=`` (numpy 2.0
+#: on); without it :func:`deconvolve` is its plain version
+_FFT_OUT = all("out" in inspect.signature(f).parameters
+               for f in (np.fft.rfft, np.fft.irfft))
 
 
 def _refcounts(arrays):
@@ -99,32 +123,53 @@ _ALONE = _probe()
 @contextlib.contextmanager
 def chain():
     """The scope of one fetch and its chain in this thread: the arrays
-    :func:`own` records in it are the chain's own. When it closes, the
-    largest of the buffers that :func:`window_array` handed out in it and
-    that nothing else reaches any more becomes this thread's buffer, if
-    it is larger than the one the thread keeps."""
-    outer = getattr(_local, "owned", None), getattr(_local, "taken", None)
-    _local.owned, _local.taken = weakref.WeakValueDictionary(), []
+    :func:`own` records in it are the chain's own. When it closes, each
+    array that :func:`buffer` handed out in it and that nothing else
+    reaches any more is kept by this thread for its key."""
+    outer = (getattr(_local, "owned", None), getattr(_local, "taken", None),
+             getattr(_local, "keys", None))
+    _local.owned, _local.taken, _local.keys = \
+        weakref.WeakValueDictionary(), [], []
     try:
         yield
     finally:
-        taken = _local.taken
-        _local.owned, _local.taken = outer
-        _give_back(taken)
+        taken, keys = _local.taken, _local.keys
+        _local.owned, _local.taken, _local.keys = outer
+        _give_back(taken, keys)
 
 
-def _give_back(taken):
-    """Keep as this thread's buffer the largest array of ``taken``
-    (emptied) that nothing else reaches: numpy points every view, and
-    the buffer protocol every export, at the array that owns the memory,
-    so an array referenced from nowhere but here has no view and no
-    export left."""
-    if _ALONE is None:
+def _kept():
+    """This thread's kept arrays by key, the least recently kept first."""
+    kept = getattr(_local, "kept", None)
+    if kept is None:
+        kept = _local.kept = collections.OrderedDict()
+    return kept
+
+
+def _keep(key, buf):
+    """Keep ``buf`` as this thread's array of ``key``, then drop the
+    arrays least recently kept while the thread keeps more than
+    :data:`KEEP_BYTES`; an array larger than that is not kept, and none
+    where :data:`_ALONE` is None."""
+    if _ALONE is None or buf.nbytes > KEEP_BYTES:
         return
-    for buf, refs in _refcounts(taken):
-        keep = getattr(_local, "buf", None)
-        if refs == _ALONE and (keep is None or buf.nbytes > keep.nbytes):
-            _local.buf = buf
+    kept = _kept()
+    kept.pop(key, None)
+    kept[key] = buf
+    total = sum(a.nbytes for a in kept.values())
+    while total > KEEP_BYTES:
+        total -= kept.popitem(last=False)[1].nbytes
+
+
+def _give_back(taken, keys):
+    """Keep each array of ``taken`` (emptied), handed out for the key of
+    the same place in ``keys``, that nothing else reaches: numpy points
+    every view, and the buffer protocol every export, at the array that
+    owns the memory, so an array referenced from nowhere but here has no
+    view and no export left."""
+    for key, (buf, refs) in zip(keys[::-1], _refcounts(taken)):
+        if refs == _ALONE:
+            _keep(key, buf)
 
 
 def chained(method):
@@ -209,22 +254,74 @@ def every(x, factor):
     return x[::factor]
 
 
-def window_array(npts, dtype):
-    """``np.empty(npts, dtype)`` for the window merge to fill, recorded
-    by :func:`own`. Inside a chain it is the buffer this thread keeps,
-    where that has exactly ``npts`` samples of ``dtype``; the chain hands
-    it back when it closes (:func:`chain`). The buffer lives as long as
-    its thread."""
+def buffer(shape, dtype):
+    """``np.empty(shape, dtype)``, recorded by :func:`own`. Inside a chain
+    it is the array this thread keeps for its key (``shape``, ``dtype``
+    and the number of arrays of that shape and dtype that the chain took
+    before it), else a fresh one; the chain keeps it when it closes if
+    nothing else reaches it then (:func:`chain`). Kept arrays live as
+    long as their thread."""
     taken = getattr(_local, "taken", None)
     if taken is None:
-        return np.empty(npts, dtype=dtype)
-    buf = getattr(_local, "buf", None)
-    if buf is not None and buf.shape == (npts,) and buf.dtype == dtype:
-        _local.buf = None
-    else:
-        buf = np.empty(npts, dtype=dtype)
+        return np.empty(shape, dtype=dtype)
+    shape, dtype = tuple(shape), np.dtype(dtype)
+    keys = _local.keys
+    key = (shape, dtype.str,
+           sum(k[:2] == (shape, dtype.str) for k in keys))
+    buf = _kept().pop(key, None)
+    if buf is None:
+        buf = np.empty(shape, dtype=dtype)
     taken.append(buf)
+    keys.append(key)
     return own(buf)
+
+
+@contextlib.contextmanager
+def scratch(shape, dtype):
+    """An array for a step's own use while the ``with`` block runs,
+    handed to nothing that outlives it: inside a chain the one this
+    thread keeps for ``shape`` and ``dtype``, kept again once the block
+    is done (not where it raises: a traceback may hold it), else a fresh
+    one."""
+    if getattr(_local, "taken", None) is None:
+        yield np.empty(shape, dtype=dtype)
+        return
+    key = (tuple(shape), np.dtype(dtype).str, "scratch")
+    buf = _kept().pop(key, None)
+    if buf is None:
+        buf = np.empty(shape, dtype=dtype)
+    yield buf
+    _keep(key, buf)
+
+
+def window_array(npts, dtype):
+    """``np.empty(npts, dtype)`` for the window merge to fill, recorded
+    by :func:`own`: inside a chain the array this thread keeps for a
+    window of ``npts`` samples of ``dtype`` (:func:`buffer`)."""
+    return buffer((npts,), dtype)
+
+
+def deconvolve(x, n, nfft, inv_r, taper):
+    """``remove_response``'s division: ``np.fft.irfft(spec * inv_r,
+    nfft)[:n]`` of ``spec = np.fft.rfft(x.astype(np.float64), nfft)``,
+    times ``taper`` first where it is not None. The cast only where ``x``
+    is not float64 (``rfft`` reads its input), the spectrum in this
+    thread's scratch (:func:`scratch`), both products in place on it, the
+    inverse into a :func:`buffer` whose first ``n`` samples come out as
+    the chain's own, so the steps after it may write them in place; the
+    buffer goes back only once nothing reaches them. Without ``out=`` in
+    ``np.fft`` (numpy before 2.0), and for an empty ``x``, which ``rfft``
+    refuses, the carried expressions."""
+    if not _FFT_OUT or x.ndim != 1 or x.size == 0:
+        return _deconvolve_plain(x, n, nfft, inv_r, taper)
+    x = as_float64(x)
+    with scratch((nfft // 2 + 1,), np.complex128) as spec:
+        np.fft.rfft(x, nfft, out=spec)
+        if taper is not None:
+            np.multiply(spec, taper, out=spec)
+        np.multiply(spec, inv_r, out=spec)
+        out = np.fft.irfft(spec, nfft, out=buffer((nfft,), np.float64))
+    return own(out[:n])
 
 
 def merged(traces, spans, npts, dtype):
@@ -269,6 +366,13 @@ def _window_array_plain(npts, dtype):
     return own(np.empty(npts, dtype=dtype))
 
 
+def _deconvolve_plain(x, n, nfft, inv_r, taper):
+    spec = np.fft.rfft(x.astype(np.float64), nfft)
+    if taper is not None:
+        spec *= taper
+    return np.fft.irfft(spec * inv_r, nfft)[:n]
+
+
 def _sosfiltfilt_plain(sos, x):
     return sp_signal.sosfiltfilt(sos, x.astype(np.float64))
 
@@ -288,4 +392,4 @@ def _merged_plain(traces, spans, npts, dtype):
 #: :func:`._window.merge_window` and :func:`sosfilt`), each with its plain
 #: version ``_<name>_plain``
 FORMS = ("as_float64", "demean", "divide", "sosfilt", "sosfilt_inplace",
-         "sosfiltfilt", "every", "merged", "window_array")
+         "sosfiltfilt", "every", "merged", "window_array", "deconvolve")

@@ -351,10 +351,7 @@ class Trace:
         nfft = next_fast_len(2 * n)
         inv_r, taper = inverse_response(resp, nfft, self.stats.delta,
                                         output, water_level, pre_filt)
-        spec = np.fft.rfft(self.data.astype(np.float64), nfft)
-        if taper is not None:
-            spec *= taper
-        self.data = np.fft.irfft(spec * inv_r, nfft)[:n]
+        self.data = _steps.deconvolve(self.data, n, nfft, inv_r, taper)
         return self
 
     def attach_response(self, inventory=None, **kw):
