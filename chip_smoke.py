@@ -165,7 +165,9 @@ line, on stderr:
     precision knob at day scale. (a) K2 against its plain version at
     the branch's shapes, (16, 2, 576, 16384) and (16, 2, 288, 16384)
     with T's rows 288-575, within 1e-5 relative, bit-identical reruns,
-    times, bounds and cuFFT's time on the same planes. (b) On phase 4's
+    times, bounds and cuFFT's time on the same planes; then at the
+    pair-day's (8, 2, 265, 16384) with the n1 = 528 plan's constants,
+    cuFFT's time beside it too. (b) On phase 4's
     16 windows, ``plan_correlate4(stageb='fft')``, ``'matmul'`` and
     ``'fft'`` with ``packed=True``: within 1e-6 of phase 4's float64
     oracle (packed 1e-5), the peak on the injected delay, K2's launches
@@ -235,15 +237,21 @@ line, on stderr:
     alone) and 11;
 12. files that other HDF5 writers make, read on this machine without
     h5py: every fixture of ``tests/fixtures_torch/hdf5`` (netCDF-C's
-    layout, each version-4 chunk index, fletcher32, lzf, and an xcorr
+    layout, each version-4 chunk index, fletcher32, lzf, szip,
+    scaleoffset, nbit, a skipped optional filter, 4-byte offsets,
+    virtual datasets, an external link, external storage, region
+    references, bitfield and opaque data, null dataspaces, and an xcorr
     shard the JAX package wrote under netCDF-C's file settings, all made
     by ``tools/make_hdf5_fixtures.py``) read by ``io.netcdf.from_netcdf``
-    to the sha256 of the view the JAX package reads (``expected.json``),
-    with and without ``header_only``, with the read time per file; the
-    shard read and validated with its hashes; ``xcorr-torch-snr`` over it
-    on the card within 1e-5 (relative) of the port's ``pair_snr`` on the
-    CPU, recorded in ``expected.json``; h5py must not be imported. No
-    kernel runs. ``python3 chip_smoke.py --phase12`` runs phases 1 and 12.
+    with the fixture directory as the working directory, to the sha256
+    of the view the JAX package reads (``expected.json``; the exception
+    type where its read raised), with and without ``header_only``, with
+    the read time per file; the native filter decoders built from this
+    checkout's ``native/h5filters.cpp``; the shard read and validated
+    with its hashes; ``xcorr-torch-snr`` over it on the card within 1e-5
+    (relative) of the port's ``pair_snr`` on the CPU, recorded in
+    ``expected.json``; h5py must not be imported. No kernel runs.
+    ``python3 chip_smoke.py --phase12`` runs phases 1 and 12.
 
 The line before the last is the kernels' JSON record (K1's launches from
 phase 6, K2's from phase 10b's ``'fft'`` call, K3's and K4's from their
@@ -2761,12 +2769,14 @@ def ccf_err(out, oracle):
     return max(float(np.abs(oh[i] - oracle[i]).max()) for i in range(2))
 
 
-def phase10a_k2(ff, plan):
+def phase10a_k2(ff, plan, pair_plan):
     """K2 against its plain version at the 'fft' branch's day-scale
     shapes: (16, 2, 576, 16384) with all of T, and (16, 2, 288, 16384)
     with T's rows 288-575 (a 2-way seq split's second entry), within
     K_RTOL, bit-identical reruns, times, bounds and cuFFT's time on the
-    same planes. Returns the full shape's record."""
+    same planes; then at the pair-day's (8, 2, 265, 16384) with
+    ``pair_plan``'s constants (n1 = 528), cuFFT's time beside it too.
+    Returns the full shape's record."""
     rec = None
     dev = torch.device("cuda", 0)
     for lo in (0, plan.N1 // 2):
@@ -2778,6 +2788,13 @@ def phase10a_k2(ff, plan):
                       library=True, tag=10)
         rec = rec or r
         del d, T
+    # and at phase 3's pair-day shape (H = 265), with cuFFT beside it
+    p = pair_plan
+    d = kernel_inputs(8, p.half, p.N2, p.rows_in, p.rows_out, SEED,
+                      p.device_consts("cuda"))
+    phase3_k2(ff, f"(8, 2, {p.half}, {p.N2}) pair-day", d["ax"], d["ay"],
+              d["T"], library=True, tag=10)
+    del d
     torch.cuda.empty_cache()
     return rec
 
@@ -3124,7 +3141,8 @@ def phase10(xt, ff, fft4, imin, imax, oracle, ref, ref_wall):
     plan = fft4.plan_correlate4(N, imin, imax, stageb="fft")
     check((plan.N1, plan.N2) == (576, 16384),
           f"'fft' geometry {(plan.N1, plan.N2)}")
-    rec = phase10a_k2(ff, plan)
+    rec = phase10a_k2(ff, plan, fft4.plan_correlate4(
+        N, imin, imax, normalize=True, route="corr"))
     x, y = day_windows()
     k2 = phase10b_branches(ff, fft4, x, y, imin, imax, oracle)
     phase10c_precision(fft4, x, y, imin, imax, oracle)
@@ -3983,29 +4001,47 @@ P12_BUDGET_S = 30.0
 
 
 def phase12_foreign_files(xt):
-    """The port's HDF5 reader on files in the newer format, where no
-    h5py is: each fixture to its recorded digest, the shard validated,
+    """The port's HDF5 reader on files other writers make, where no h5py
+    is: each fixture, read with the fixture directory as the working
+    directory (its external names resolve there), to its recorded digest
+    (or the exception the JAX package's read raised), the native filter
+    decoders built from this checkout's source, the shard validated,
     ``xcorr-torch-snr`` over it against the CPU's ``pair_snr``."""
+    from xcorr_tpu_torch.io import hdf5_filters
     from xcorr_tpu_torch.io.netcdf import from_netcdf
+    from xcorr_tpu_torch.native import _cxx
     from xcorr_tpu_torch.scripts import snr as snr_cli
-    from tools.hdf5_view import digest
+    from tools.hdf5_view import digest_or_raise
     t_start = time.perf_counter()
     with open(os.path.join(P12_FIXTURES, "expected.json")) as fh:
         exp = json.load(fh)
+    t0 = time.perf_counter()
+    lib = hdf5_filters._load()
+    built_s = time.perf_counter() - t0
+    want_lib = _cxx.build("libxch5filters", hdf5_filters._SOURCES)
+    check(lib._name == want_lib and os.path.exists(want_lib),
+          f"the filter decoders {lib._name} are not {want_lib}")
     reads = {}
-    for name, want in exp["files"].items():
-        path = os.path.join(P12_FIXTURES, name)
-        t0 = time.perf_counter()
-        ds = from_netcdf(path)
-        reads[name] = (time.perf_counter() - t0) * 1e3
-        check(digest(ds) == want["digest"],
-              f"{name}: the view differs from the JAX package's")
-        check(digest(from_netcdf(path, header_only=True))
-              == want["digest_header_only"],
-              f"{name}: the header-only view differs from the JAX "
-              "package's")
+    with contextlib.chdir(P12_FIXTURES):
+        for name, want in exp["files"].items():
+            t0 = time.perf_counter()
+            got = digest_or_raise(from_netcdf, name)
+            reads[name] = (time.perf_counter() - t0) * 1e3
+            check(got == want["digest"],
+                  f"{name}: the view differs from the JAX package's "
+                  f"({got})")
+            got = digest_or_raise(from_netcdf, name, header_only=True)
+            check(got == want["digest_header_only"],
+                  f"{name}: the header-only view differs from the JAX "
+                  f"package's ({got})")
+    phase(12, f"native filter decoders (szip, scaleoffset, lzf) "
+              f"{os.path.relpath(want_lib, REPO)}, built from "
+              f"xcorr_tpu_torch/native/{hdf5_filters._SOURCES[0]} of this "
+              f"checkout in {built_s:.2f} s (the name hashes the source "
+              "and the flags)")
     phase(12, f"{len(reads)} fixtures read to the JAX package's views "
-              "(with and without header_only); read ms per file: "
+              "(with and without header_only; the header-only read of "
+              "null.h5 raises TypeError in both); read ms per file: "
               + json.dumps({k: round(v, 3) for k, v in reads.items()}))
     shard = exp["shard"]
     tmp = tempfile.TemporaryDirectory()

@@ -32,7 +32,7 @@ import xcorr_tpu_torch
 from tools import make_hdf5_fixtures as mf
 from tools.hdf5_view import digest, view
 from xcorr_tpu.io import netcdf as jnc
-from xcorr_tpu_torch.io import hdf5, hdf5_v2
+from xcorr_tpu_torch.io import hdf5, hdf5_filters, hdf5_v2
 from xcorr_tpu_torch.io import netcdf as tnc
 
 
@@ -334,85 +334,21 @@ def _shared(path):
     open(path, "wb").write(bytes(buf))
 
 
-def _external(path):
-    with h5py.File(path, "w") as f:
-        f.create_dataset("x", shape=(10,), dtype="f4",
-                         external=[(path + ".raw", 0, 40)])
-
-
-def _virtual(path):
-    src = path + ".src.h5"
-    _one(src, {}, {}, np.arange(4.0))
-    layout = h5py.VirtualLayout(shape=(4,), dtype="f8")
-    layout[:] = h5py.VirtualSource(src, "x", shape=(4,))
-    with h5py.File(path, "w") as f:
-        f.create_virtual_dataset("v", layout)
-
-
-def _filter(path, fid):
-    with h5py.File(path, "w") as f:
-        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
-        dcpl.set_chunk((16,))
-        if fid == 4:
-            dcpl.set_szip(h5py.h5z.SZIP_NN_OPTION_MASK, 8)
-        elif fid == 6:
-            dcpl.set_scaleoffset(h5py.h5z.SO_FLOAT_DSCALE, 2)
-        else:   # nbit, or not available: optional, the chunks unfiltered
-            dcpl.set_filter(fid, h5py.h5z.FLAG_OPTIONAL, ())
-        h5py.h5d.create(f.id, b"x", h5py.h5t.IEEE_F32LE,
-                        h5py.h5s.create_simple((40,)), dcpl=dcpl)
-        f["x"][...] = np.arange(40.0)
-
-
-def _small_offsets(path, libver):
-    fcpl = h5py.h5p.create(h5py.h5p.FILE_CREATE)
-    fcpl.set_sizes(4, 4)
-    fapl = h5py.h5p.create(h5py.h5p.FILE_ACCESS)
-    fapl.set_libver_bounds(*libver)
-    fid = h5py.h5f.create(path.encode(), h5py.h5f.ACC_TRUNC, fcpl=fcpl,
-                          fapl=fapl)
-    with h5py.File(fid) as f:
-        f.create_dataset("x", data=np.arange(3.0))
-
-
 def _low_type(path, tid):
     with h5py.File(path, "w") as f:
         h5py.h5d.create(f.id, b"x", tid, h5py.h5s.create_simple((3,)))
 
 
+#: what the codec still refuses, as both packages do (their both-fail
+#: tests are in ``test_torch_hdf5_foreign.py``, with the cases that moved
+#: there once the codec read them)
 REFUSED = {
     "shared_messages": (_shared, "shared object header messages"),
-    "external_storage": (_external, "external data storage"),
-    "virtual_dataset": (_virtual, "virtual datasets"),
-    **{f"filter_{name}": ((lambda p, i=fid: _filter(p, i)), f"filter {name}")
-       for name, fid in [("szip", 4), ("nbit", 5), ("scaleoffset", 6),
-                         ("blosc", 32001), ("zstd", 32015),
-                         ("40000", 40000)]},
-    "offsets_4_bytes": ((lambda p: _small_offsets(
-        p, (h5py.h5f.LIBVER_EARLIEST, h5py.h5f.LIBVER_LATEST))),
-        "4-byte offsets"),
-    "offsets_4_bytes_v3": ((lambda p: _small_offsets(
-        p, (h5py.h5f.LIBVER_LATEST, h5py.h5f.LIBVER_LATEST))),
-        "4-byte offsets"),
-    "region_reference": ((lambda p: _low_type(
-        p, h5py.h5t.STD_REF_DSETREG)), "dataset region references"),
     "time_datatype": ((lambda p: _low_type(p, h5py.h5t.UNIX_D32LE)),
                       "time datatypes"),
-    "bitfield_datatype": ((lambda p: _low_type(p, h5py.h5t.STD_B8LE)),
-                          "bitfield datatypes"),
-    "opaque_datatype": ((lambda p: _one(p, {}, {}, np.zeros(3, "V4"))),
-                        "opaque datatypes"),
     "array_datatype": ((lambda p: _low_type(p, h5py.h5t.array_create(
         h5py.h5t.IEEE_F32LE, (3,)))), "array datatypes"),
-    "external_link": ((lambda p: _one(p, {"libver": "latest"}, {}) or
-                       _add(p, "e", h5py.ExternalLink("other.h5", "/x"))),
-                      "external links"),
 }
-
-
-def _add(path, name, obj):
-    with h5py.File(path, "a") as f:
-        f[name] = obj
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
@@ -472,7 +408,7 @@ def test_lookup3_and_fletcher32():
     for n in (0, 1, 2, 719, 720, 721, 5001):
         for data in (rng.integers(0, 256, n, dtype=np.uint8).tobytes(),
                      b"\xff" * n):
-            assert hdf5_v2.fletcher32(data) == plain(data), n
+            assert hdf5_filters.fletcher32(data) == plain(data), n
 
 
 def test_lzf_round_trip_through_h5py(tmp_path):
@@ -488,7 +424,7 @@ def test_lzf_round_trip_through_h5py(tmp_path):
         np.testing.assert_array_equal(f["x"][...], data)
     assert 0 in masks and 1 in masks
     with pytest.raises(OSError, match="lzf"):
-        hdf5_v2.unlzf(b"\xe0\x00\x00", 100)
+        hdf5_filters.unlzf(b"\xe0\x00\x00", 100)
 
 
 FIXTURES = mf.OUT
@@ -496,23 +432,27 @@ FIXTURES = mf.OUT
 
 def test_committed_fixtures_hold_to_expected_and_a_fresh_run(tmp_path):
     """``expected.json`` holds each committed file's view as the JAX
-    package reads it; the port reads every file to it; a fresh run of
-    the generator gives the same views (the shard's write-time stamps
-    aside) and the same SNR."""
+    package reads it (``"raises <type>"`` where that read raises); the
+    port reads every file to it, each read from the fixture directory
+    (relative external names resolve there); a fresh run of the
+    generator gives the same views (the shard's write-time stamps aside)
+    and the same SNR."""
     exp = json.loads((FIXTURES / "expected.json").read_text())
     assert sorted(exp["files"]) == sorted(mf.FIXTURES)
-    size = sum((FIXTURES / n).stat().st_size for n in mf.FIXTURES)
+    size = sum((FIXTURES / n).stat().st_size
+               for n in (*mf.FIXTURES, *mf.COMPANIONS))
     assert size <= mf.MAX_BYTES
     for name, d in exp["files"].items():
-        path = str(FIXTURES / name)
         for h, key in ((False, "digest"), (True, "digest_header_only")):
-            assert digest(jnc.from_netcdf(path, header_only=h)) == d[key]
-            assert digest(tnc.from_netcdf(path, header_only=h)) == d[key]
+            for pkg in (jnc, tnc):
+                assert mf.read_beside(pkg.from_netcdf, FIXTURES, name,
+                                      header_only=h) == d[key], (name, h)
     fresh = tmp_path / "fresh"
     got, _ = mf.make(fresh)
     for name in mf.FIXTURES:
-        assert digest(tnc.from_netcdf(str(fresh / name)), True) == \
-            digest(tnc.from_netcdf(str(FIXTURES / name)), True), name
+        assert mf.read_beside(tnc.from_netcdf, fresh, name, stable=True) \
+            == mf.read_beside(tnc.from_netcdf, FIXTURES, name,
+                              stable=True), name
     assert xcorr_tpu_torch.read(str(FIXTURES / mf.SHARD)) is not None
     np.testing.assert_allclose(
         np.array([got["shard"]["snr"][k] for k in ("snr", "s", "n")]),

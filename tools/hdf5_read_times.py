@@ -13,10 +13,10 @@ Each file is read ``--reps`` times by ``xcorr_tpu_torch.io.netcdf.
 from_netcdf`` (the codec) and ``xcorr_tpu.io.netcdf.from_netcdf`` (h5py);
 the median seconds are printed beside the file's superblock version, its
 ``cc`` chunk index (and the codec's walk of it, in ms) and whether the
-codec decompressed in threads. Then
-an lzf-filtered copy of ``cc`` (h5py's lzf, the codec's decoder in
-Python) is read both ways. Needs h5py and the JAX package; about 1 GB
-of memory and a minute.
+codec decompressed in threads. Then a copy of ``cc`` through h5py's lzf
+filter (with shuffle) is read by the codec (its native decoder, then
+its plain Python one) and by h5py. Needs h5py and the JAX package;
+about 1 GB of memory and a minute.
 """
 
 from __future__ import annotations
@@ -119,11 +119,11 @@ def main(argv=None):
               f"{threaded}), {os.path.getsize(path)} bytes; read s: codec "
               f"{port:.4f}, h5py {ref:.4f}")
     # lzf: the same cc through h5py's lzf filter
+    from xcorr_tpu_torch.io import hdf5, hdf5_filters
     path = os.path.join(tmp.name, "lzf.h5")
     with h5py.File(path, "w", libver="latest") as f:
         f.create_dataset("cc", data=cc, chunks=(1, 1, cc.shape[-1]),
                          compression="lzf", shuffle=True)
-    from xcorr_tpu_torch.io import hdf5
 
     def codec():
         with hdf5.File(path) as f:
@@ -134,9 +134,17 @@ def main(argv=None):
             return f["cc"][...]
 
     np.testing.assert_array_equal(codec(), cc)
+    native_s = median_s(codec, args.reps)
+    # the Python decoder, the native one's plain form
+    native = hdf5_filters.unlzf
+    hdf5_filters.unlzf = hdf5_filters.unlzf_plain
+    try:
+        plain_s = median_s(codec, args.reps)
+    finally:
+        hdf5_filters.unlzf = native
     print(f"lzf + shuffle cc, {os.path.getsize(path)} bytes: read s: "
-          f"codec {median_s(codec, args.reps):.4f}, h5py "
-          f"{median_s(ref, args.reps):.4f}")
+          f"codec {native_s:.4f}, codec with the plain decoder "
+          f"{plain_s:.4f}, h5py {median_s(ref, args.reps):.4f}")
     tmp.cleanup()
 
 

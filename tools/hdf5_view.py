@@ -54,3 +54,14 @@ def view(ds, stable=False):
 def digest(ds, stable=False):
     """sha256 of :func:`view`."""
     return hashlib.sha256(repr(view(ds, stable)).encode()).hexdigest()
+
+
+def digest_or_raise(read, path, stable=False, **kw):
+    """:func:`digest` of ``read(path, **kw)``, or ``"raises <type>"``
+    where the read raises (a structure the reader refuses, such as a
+    null dataset's size in a header-only read)."""
+    try:
+        ds = read(path, **kw)
+    except Exception as e:      # noqa: BLE001 -- recorded by type
+        return f"raises {type(e).__name__}"
+    return digest(ds, stable)

@@ -1,23 +1,35 @@
-"""HDF5 files in the newer file format, and what the JAX package reads
+"""HDF5 files that other writers make, and what the JAX package reads
 from them: the fixtures of the port's HDF5 codec.
 
     python3 tools/make_hdf5_fixtures.py [--out tests/fixtures_torch/hdf5]
 
-Writes, with h5py, one small file per structure that
-``xcorr_tpu_torch/io/hdf5_v2.py`` reads (netCDF-C's layout, each
-version-4 chunk index, fletcher32, lzf) and a small xcorr shard that the
-JAX package's ``to_netcdf`` wrote under netCDF-C's file settings; then
-``expected.json``: the sha256 of each file's view as
+Writes, with h5py, one small file per structure that the port's reader
+takes from other writers: the newer file format
+(``xcorr_tpu_torch/io/hdf5_v2.py``: netCDF-C's layout, each version-4
+chunk index, fletcher32, lzf), and the structures of
+``io/hdf5_filters.py`` and ``io/hdf5_extern.py`` (szip, scaleoffset,
+nbit, a skipped optional filter, 4-byte offsets in superblocks 0 and 3,
+virtual datasets, an external link, external storage, region
+references, bitfield and opaque data, null dataspaces), with the files
+they name (:data:`COMPANIONS`) beside them; and a small xcorr shard that
+the JAX package's ``to_netcdf`` wrote under netCDF-C's file settings.
+Then ``expected.json``: the sha256 of each file's view as
 ``xcorr_tpu.io.netcdf.from_netcdf`` reads it (with and without
-``header_only``), and the port's ``pair_snr`` of the shard on the CPU.
-Needs h5py and the JAX package, which the writers import in their
-bodies; ``tests/test_torch_hdf5_v2.py`` imports the writers from here.
-The views and their digests are in ``tools/hdf5_view.py``.
+``header_only``; ``"raises <type>"`` where that read raises), and the
+port's ``pair_snr`` of the shard on the CPU. Every fixture is read with
+the fixture directory as the working directory (:func:`read_beside`),
+here, in the tests and in ``chip_smoke.py`` phase 12: the library
+resolves a relative external storage name from there. Needs h5py with
+szip encoding and the JAX package, which the writers import in their
+bodies; ``tests/test_torch_hdf5_v2.py`` and
+``tests/test_torch_hdf5_foreign.py`` import the writers from here. The
+views and their digests are in ``tools/hdf5_view.py``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -28,7 +40,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from tools.hdf5_view import digest  # noqa: E402
+from tools.hdf5_view import digest_or_raise  # noqa: E402
 
 OUT = ROOT / "tests" / "fixtures_torch" / "hdf5"
 MAX_BYTES = 1 << 20
@@ -168,6 +180,275 @@ def write_filter(path, name, settings=None):
     return path
 
 
+def _dcpl(chunk, **kw):
+    import h5py
+    dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+    dcpl.set_chunk(chunk)
+    if "fill" in kw:
+        dcpl.set_fill_value(np.asarray(kw["fill"]))
+    return dcpl
+
+
+def _low(f, name, dt, shape, dcpl, data, tid=None):
+    """A dataset through h5py's low-level API (``dcpl``'s filters), then
+    written whole through the high-level one."""
+    import h5py
+    tid = h5py.h5t.py_create(np.dtype(dt)) if tid is None else tid
+    h5py.h5d.create(f.id, name.encode(), tid, h5py.h5s.create_simple(shape),
+                    dcpl=dcpl)
+    f[name][...] = data
+
+
+#: szip cases: (dtype, options, pixels per block, shape, chunk, data kind);
+#: chunks whose last dimension is no multiple of the block (a short last
+#: scanline), both predictors, both byte orders, 8 to 64 bits
+SZIP_CASES = {
+    "u1_nn": ("u1", "nn", 8, (40, 29), (17, 29), "smooth"),
+    "i2_ec": ("<i2", "ec", 16, (300,), (128,), "random"),
+    "i2_be_nn": (">i2", "nn", 32, (5, 70), (5, 70), "runs"),
+    "f4_nn": ("<f4", "nn", 8, (37, 50), (8, 16), "smooth"),
+    "f4_be_ec": (">f4", "ec", 16, (64,), (64,), "random"),
+    "f8_nn": ("<f8", "nn", 32, (600,), (250,), "smooth"),
+    "u8_ec": ("<u8", "ec", 8, (33,), (33,), "zeros"),
+}
+
+
+def szip_data(dt, shape, kind, rng):
+    """Data that takes each of the coder's options: noise (no
+    compression, splits), a random walk (splits, the second extension),
+    runs and zeros (zero blocks)."""
+    n = int(np.prod(shape))
+    dt = np.dtype(dt)
+    if kind == "random":
+        x = rng.integers(0, 256, n * dt.itemsize, dtype=np.uint8).view(dt)
+        if dt.kind == "f":
+            x = rng.normal(size=n).astype(dt)
+    elif kind == "smooth":
+        x = np.cumsum(rng.normal(size=n) * 2.0)
+        x = (x - x.min()).astype(dt)
+    elif kind == "runs":
+        x = np.zeros(n, dt)
+        x[n // 3:n // 3 + 9] = 3
+        x[-2:] = 1
+    else:
+        x = np.zeros(n, dt)
+    return x.reshape(shape)
+
+
+def write_szip(path):
+    """One dataset per :data:`SZIP_CASES` entry, through h5py's szip
+    encoder (libaec); needs an HDF5 built with szip encoding."""
+    import h5py
+    rng = np.random.default_rng(41)
+    opts = {"nn": h5py.h5z.SZIP_NN_OPTION_MASK,
+            "ec": h5py.h5z.SZIP_EC_OPTION_MASK}
+    with h5py.File(path, "w") as f:
+        for name, (dt, opt, ppb, shape, chunk, kind) in SZIP_CASES.items():
+            dcpl = _dcpl(chunk)
+            dcpl.set_szip(opts[opt], ppb)
+            _low(f, name, dt, shape, dcpl, szip_data(dt, shape, kind, rng))
+    return path
+
+
+def write_scaleoffset(path):
+    """scaleoffset: integers with the minimum bits found by the library
+    and with a fill value, floats by D-scaling (0, 2 and 5 decimals) with
+    and without a fill value, big-endian among them."""
+    import h5py
+    rng = np.random.default_rng(42)
+    with h5py.File(path, "w") as f:
+        for name, dt, fill in [("i4", "<i4", None), ("u2_fill", "<u2", 7),
+                               ("i8_be_fill", ">i8", -3)]:
+            x = rng.integers(-900 if dt != "<u2" else 0, 900, (50, 9)
+                             ).astype(dt)
+            x[:2] = 7 if fill is None else fill
+            kw = {} if fill is None else {"fill": np.array(fill, dt)}
+            dcpl = _dcpl((16, 9), **kw)
+            dcpl.set_scaleoffset(h5py.h5z.SO_INT, 0)
+            _low(f, name, dt, x.shape, dcpl, x)
+        for name, dt, d, fill in [("f4_d0", "<f4", 0, None),
+                                  ("f4_d2_fill", "<f4", 2, -1.5),
+                                  ("f8_d5", "<f8", 5, 0.0),
+                                  ("f4_be_d2", ">f4", 2, None)]:
+            x = (rng.normal(size=(40, 30)) * 10.0 ** (3 - d)).astype(dt)
+            x[:3] = -1.5
+            kw = {} if fill is None else {"fill": np.array(fill, dt)}
+            dcpl = _dcpl((16, 30), **kw)
+            dcpl.set_scaleoffset(h5py.h5z.SO_FLOAT_DSCALE, d)
+            _low(f, name, dt, x.shape, dcpl, x)
+    return path
+
+
+def write_optional(path, fid=5):
+    """A filter set optional through ``set_filter``: nbit (id 5) stores
+    full-precision chunks as they are; filters this HDF5 lacks (blosc
+    32001, zstd 32015, an unknown 40000) are skipped, each chunk's mask
+    saying so."""
+    import h5py
+    with h5py.File(path, "w") as f:
+        for name, dt in (("f4", "<f4"), ("i2", ">i2")):
+            dcpl = _dcpl((16,))
+            dcpl.set_filter(fid, h5py.h5z.FLAG_OPTIONAL, ())
+            _low(f, name, dt, (40,), dcpl, np.arange(40).astype(dt))
+    return path
+
+
+def write_small_offsets(path, latest=False):
+    """4-byte offsets and lengths (``set_sizes(4, 4)``), in superblock 0
+    or 3: chunked deflate and shuffle, strings, attributes, dimension
+    scales; in superblock 3 also dense links and attributes and the
+    chunk indexes."""
+    import h5py
+    fcpl = h5py.h5p.create(h5py.h5p.FILE_CREATE)
+    fcpl.set_sizes(4, 4)
+    fapl = h5py.h5p.create(h5py.h5p.FILE_ACCESS)
+    low = h5py.h5f.LIBVER_LATEST if latest else h5py.h5f.LIBVER_EARLIEST
+    fapl.set_libver_bounds(low, h5py.h5f.LIBVER_LATEST)
+    rng = np.random.default_rng(43)
+    fid = h5py.h5f.create(path.encode(), h5py.h5f.ACC_TRUNC, fcpl=fcpl,
+                          fapl=fapl)
+    with h5py.File(fid) as f:
+        t = f.create_dataset("time", data=np.arange(12.0))
+        t.make_scale("time")
+        cc = f.create_dataset("cc", data=rng.normal(size=(12, 40)).astype(
+            "f4"), chunks=(3, 16), compression="gzip", shuffle=True)
+        cc.dims[0].attach_scale(t)
+        f.create_dataset("names", data=np.array(["a", "ü", ""], object),
+                         dtype=h5py.string_dtype())
+        f.attrs["title"] = "four-byte offsets"
+        f.attrs["list"] = ["x", "yz"]
+        cc.attrs["scale"] = np.float32(0.5)
+        if latest:
+            for i in range(10):
+                cc.attrs[f"a{i}"] = i * 1.5
+                f.create_dataset(f"v{i}", data=np.arange(i + 2, dtype="i2"))
+            f.create_dataset("fixed", data=rng.normal(size=(30, 4)),
+                             chunks=(4, 4), compression="gzip")
+            f.create_dataset("single", data=rng.normal(size=(9, 7)),
+                             chunks=(9, 7), compression="gzip")
+    return path
+
+
+def write_region_references(path):
+    """Dataset region references (old style, h5py's ``regionref``): a
+    dataset of them (a hyperslab, all, a strided hyperslab, points, a
+    null one) and one in an attribute."""
+    import h5py
+    with h5py.File(path, "w") as f:
+        x = f.create_dataset("x", data=np.arange(20.0).reshape(4, 5))
+        r = f.create_dataset("r", (5,), dtype=h5py.regionref_dtype)
+        r[0] = x.regionref[1:3, 2:4]
+        r[1] = x.regionref[...]
+        r[2] = x.regionref[0:4:2, 1]
+        space = x.id.get_space()
+        space.select_elements(np.array([[3, 4], [0, 1], [2, 2]]))
+        r[3] = h5py.h5r.create(x.id, b".", h5py.h5r.DATASET_REGION, space)
+        f.attrs["region"] = x.regionref[0:1, ::2]
+        x.attrs["region"] = x.regionref[[0, 2], :]
+    return path
+
+
+def write_bitfield_opaque(path):
+    """Bitfields of 1, 2 (big-endian) and 4 bytes, which h5py reads as
+    unsigned integers; opaque data untagged (``V4``) and tagged by h5py's
+    ``opaque_dtype`` (datetime64), in datasets and an attribute."""
+    import h5py
+    rng = np.random.default_rng(44)
+    with h5py.File(path, "w") as f:
+        for name, tid, dt in (("b8", h5py.h5t.STD_B8LE, "u1"),
+                              ("b16be", h5py.h5t.STD_B16BE, ">u2"),
+                              ("b32", h5py.h5t.STD_B32LE, "<u4")):
+            h5py.h5d.create(f.id, name.encode(), tid,
+                            h5py.h5s.create_simple((6,)))
+            f[name][...] = rng.integers(0, 200, 6).astype(dt)
+        f.create_dataset("v4", data=np.frombuffer(
+            rng.integers(0, 256, 24, dtype=np.uint8).tobytes(), "V4"))
+        t = np.array(["2014-02-01T00:00", "2014-02-01T03:00"], "M8[ns]")
+        f.create_dataset("when", data=t.astype(
+            h5py.opaque_dtype(t.dtype)))
+        f.attrs["blob"] = np.frombuffer(b"abcdef", "V2")
+    return path
+
+
+def write_null(path):
+    """Null dataspaces (h5py's ``Empty``): datasets of a float and an
+    integer type, and attributes on the file and on a dataset."""
+    import h5py
+    with h5py.File(path, "w") as f:
+        f.create_dataset("nothing", data=h5py.Empty("<f4"))
+        f.create_dataset("none_i8", data=h5py.Empty("<i8"))
+        x = f.create_dataset("x", data=np.arange(3.0))
+        x.attrs["empty"] = h5py.Empty(">f8")
+        f.attrs["empty"] = h5py.Empty("i4")
+    return path
+
+
+#: files that the fixtures of other files name, written beside them
+COMPANIONS = ("vds_source.h5", "link_target.h5", "external.raw")
+
+
+def write_virtual(path):
+    """Virtual datasets: rows of ``vds_source.h5`` (named by a relative
+    path, so it resolves beside the file), a strided source selection,
+    an integer source in a float dataset, a source in the file itself
+    (``"."``), a source file that is missing, and the fill value where
+    nothing maps."""
+    import h5py
+    src = os.path.join(os.path.dirname(os.path.abspath(path)),
+                       "vds_source.h5")
+    with h5py.File(src, "w") as f:
+        f.create_dataset("x", data=np.arange(12.0).reshape(3, 4))
+        f.create_dataset("i", data=np.arange(10, dtype="i4"))
+    name = "vds_source.h5"
+    layout = h5py.VirtualLayout(shape=(2, 6), dtype="f8")
+    layout[0, :4] = h5py.VirtualSource(name, "x", shape=(3, 4))[1]
+    layout[1, 1:3] = h5py.VirtualSource(name, "x", shape=(3, 4))[2, ::2]
+    layout[1, 4:6] = h5py.VirtualSource("missing.h5", "x", shape=(3, 4))[
+        0, :2]
+    ints = h5py.VirtualLayout(shape=(5,), dtype="f8")
+    ints[:] = h5py.VirtualSource(name, "i", shape=(10,))[::2]
+    with h5py.File(path, "w") as f:
+        f.create_dataset("y", data=np.arange(5.0))
+        f.create_virtual_dataset("v", layout, fillvalue=-1.0)
+        f.create_virtual_dataset("ints", ints, fillvalue=0.5)
+        same = h5py.VirtualLayout(shape=(3,), dtype="f8")
+        same[:] = h5py.VirtualSource(f["y"])[1:4]
+        f.create_virtual_dataset("w", same)
+    return path
+
+
+def write_external_link(path):
+    """An external link to a dataset in the root group of
+    ``link_target.h5`` (a relative name: it resolves beside the file),
+    beside a dataset of the file itself."""
+    import h5py
+    target = os.path.join(os.path.dirname(os.path.abspath(path)),
+                          "link_target.h5")
+    with h5py.File(target, "w") as f:
+        d = f.create_dataset("x", data=np.arange(12.0).reshape(3, 4))
+        d.attrs["units"] = "m"
+    with h5py.File(path, "w", libver="latest") as f:
+        f.create_dataset("a", data=np.arange(3))
+        f["e"] = h5py.ExternalLink("link_target.h5", "/x")
+    return path
+
+
+def write_external_storage(path):
+    """External raw data storage: two slots of ``external.raw`` (a name
+    the library resolves from the working directory, so the file is read
+    from its own directory), the second running past the file's end."""
+    import h5py
+    path = os.path.abspath(path)
+    with contextlib.chdir(os.path.dirname(path)):
+        with h5py.File(path, "w") as f:
+            f.create_dataset("x", shape=(10,), dtype="<f4",
+                             external=[("external.raw", 0, 16),
+                                       ("external.raw", 24, 24)])
+        with open("external.raw", "wb") as fh:
+            fh.write(np.arange(10, dtype="<f4").tobytes())
+    return path
+
+
 def shard_settings(settings):
     """A stand-in for the ``h5py`` module that opens files for writing
     with ``FILE_SETTINGS[settings]`` (h5py's defaults for ``None``)."""
@@ -244,6 +525,18 @@ FIXTURES = {
     "btree2_gzip.h5": lambda p: write_index(p, "btree2", True),
     "fletcher32.h5": lambda p: write_filter(p, "fletcher32"),
     "lzf.h5": lambda p: write_filter(p, "lzf", "latest"),
+    "szip.h5": write_szip,
+    "scaleoffset.h5": write_scaleoffset,
+    "nbit.h5": write_optional,
+    "skipped_filter.h5": lambda p: write_optional(p, 32001),
+    "offsets_4_bytes.h5": write_small_offsets,
+    "offsets_4_bytes_v3.h5": lambda p: write_small_offsets(p, True),
+    "virtual.h5": write_virtual,
+    "external_link.h5": write_external_link,
+    "external_storage.h5": write_external_storage,
+    "region_references.h5": write_region_references,
+    "bitfield_opaque.h5": write_bitfield_opaque,
+    "null.h5": write_null,
     "shard_netcdf_c.nc": write_shard,
 }
 SHARD = "shard_netcdf_c.nc"
@@ -261,15 +554,22 @@ def shard_snr(path):
             for k in ("snr", "s", "n")}
 
 
+def read_beside(read, out_dir, name, **kw):
+    """:func:`tools.hdf5_view.digest_or_raise` of ``read`` on fixture
+    ``name``, with ``out_dir`` as the working directory."""
+    with contextlib.chdir(out_dir):
+        return digest_or_raise(read, name, **kw)
+
+
 def expected(out_dir):
     """``expected.json``'s content for the files in ``out_dir``."""
     from xcorr_tpu.io import netcdf as jnc
     files = {}
     for name in FIXTURES:
-        path = str(Path(out_dir) / name)
-        files[name] = {"digest": digest(jnc.from_netcdf(path)),
-                       "digest_header_only": digest(
-                           jnc.from_netcdf(path, header_only=True))}
+        files[name] = {
+            "digest": read_beside(jnc.from_netcdf, out_dir, name),
+            "digest_header_only": read_beside(jnc.from_netcdf, out_dir,
+                                              name, header_only=True)}
     return {"files": files, "shard": {
         "file": SHARD, "pair": SHARD_PAIR, "day": SHARD_DAY,
         "celerity": SNR_CELERITY, "filter": SNR_FILTER,
@@ -282,7 +582,8 @@ def make(out_dir):
     out_dir.mkdir(parents=True, exist_ok=True)
     for name, fn in FIXTURES.items():
         fn(str(out_dir / name))
-    size = sum((out_dir / n).stat().st_size for n in FIXTURES)
+    size = sum((out_dir / n).stat().st_size for n in
+               (*FIXTURES, *COMPANIONS))
     if size > MAX_BYTES:
         raise SystemExit(f"fixtures hold {size} bytes, over {MAX_BYTES}")
     exp = expected(out_dir)

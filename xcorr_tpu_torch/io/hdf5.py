@@ -26,9 +26,18 @@ The reader also reads what HDF5 1.8 and later write (h5py's newer
 library), through :mod:`io.hdf5_v2`: superblocks 2 and 3, version-2
 object headers, new-style groups (compact and dense links), dense
 attributes, the newer message versions (attribute 2-3, datatype 3-4,
-fill value 3, filter pipeline 2, data layout 4 with every chunk index),
-and the fletcher32 and lzf filters. Groups and attributes list in h5py's
-order: creation order where the object tracks it, by name otherwise.
+fill value 3, filter pipeline 2, data layout 4 with every chunk index).
+Groups and attributes list in h5py's order: creation order where the
+object tracks it, by name otherwise. Offsets and lengths of 2, 4 or 8
+bytes are read wherever they are stored. Chunks are undone by
+:mod:`io.hdf5_filters` (deflate, shuffle, fletcher32; szip, scaleoffset
+and lzf in the native library; nbit at full precision), each filter
+only where the chunk's mask says it was applied, so optional filters a
+writer skipped (blosc, zstd, any id) read too. Bitfields read as
+unsigned integers, opaque data as ``V<n>`` (h5py's tagged datetimes as
+theirs), null dataspaces as :class:`Empty`; region references, external
+storage, external links and virtual datasets through
+:mod:`io.hdf5_extern`.
 
 The API is the part of h5py's that :mod:`io.netcdf` uses, and values map
 to and from numpy as h5py maps them (a ``str`` attribute is a UTF-8
@@ -40,12 +49,15 @@ any byte is written. A file is never edited in place; the writer writes
 only the structures of the list above, as h5py does by default.
 
 A structure outside what is read raises :class:`NotImplementedError`
-naming it: shared object header messages, groups below the root group,
-external storage and external links, virtual datasets, the szip, nbit,
-scaleoffset, blosc, zstd and unknown filters, offsets or lengths other
-than 8 bytes, region references, and the time, bitfield, opaque and
-array datatypes. A file that is not HDF5, is cut short, or fails a
-checksum raises :class:`OSError`.
+naming it: shared object header messages (h5py writes no
+shared-message table; a message flagged shared without one fails in
+h5py too), groups below the root group and the time and array
+datatypes (the JAX package fails on each as well), filtered fractal
+heaps (no tool here writes one), a chunk that a filter outside the list
+above filtered, packed nbit chunks (HDF5 1.14.6 writes none without a
+file-integrity setting h5py does not expose), and offsets or lengths of
+16 bytes. A file that is not HDF5, is cut short, or fails a checksum
+raises :class:`OSError`.
 """
 
 from __future__ import annotations
@@ -59,9 +71,10 @@ from itertools import product
 
 import numpy as np
 
-from . import hdf5_v2
+from . import hdf5_extern, hdf5_v2
+from . import hdf5_filters as hf
 
-__all__ = ["File", "string_dtype"]
+__all__ = ["Empty", "File", "string_dtype"]
 
 _SIGNATURE = b"\x89HDF\r\n\x1a\n"
 _UNDEF = 0xFFFFFFFFFFFFFFFF
@@ -80,16 +93,8 @@ _DATASPACE, _LINK_INFO, _DATATYPE, _FILL_OLD, _FILL = 0x1, 0x2, 0x3, 0x4, 0x5
 _LINK, _EXTERNAL, _LAYOUT = 0x6, 0x7, 0x8
 _PIPELINE, _ATTRIBUTE, _CONTINUATION = 0xB, 0xC, 0x10
 _SYMBOL_TABLE, _ATTR_INFO = 0x11, 0x15
-_FILTER_DEFLATE, _FILTER_SHUFFLE, _FILTER_FLETCHER32 = 1, 2, 3
-_FILTER_LZF = 32000
-_FILTERS_READ = (_FILTER_DEFLATE, _FILTER_SHUFFLE, _FILTER_FLETCHER32,
-                 _FILTER_LZF)
-_FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip",
-                 5: "nbit", 6: "scaleoffset", 32000: "lzf",
-                 32001: "blosc", 32015: "zstd"}
 
-#: a variable-length element on disk: length, global heap collection
-#: address, object index
+#: a variable-length element as the writer stores it (8-byte addresses)
 _VLEN = np.dtype([("n", "<u4"), ("addr", "<u8"), ("idx", "<u4")])
 
 # h5py's chunk guess (``h5py._hl.filters.guess_chunk``)
@@ -102,11 +107,39 @@ def string_dtype():
     return np.dtype("O", metadata={"vlen": str})
 
 
+class Empty:
+    """A dataset or attribute with a null dataspace: a dtype and no
+    shape or data (h5py's ``Empty``, its ``repr`` included, so a view of
+    the file reads the same through either reader)."""
+
+    shape = None
+    size = None
+
+    def __init__(self, dtype):
+        dtype = np.dtype(dtype)
+        if dtype.kind == "f" and dtype.metadata is None:
+            # h5py's float dtypes name their byte order in their repr
+            dtype = dtype.newbyteorder(
+                dtype.byteorder if dtype.byteorder in "<>" else "<")
+        self.dtype = dtype
+
+    def __eq__(self, other):
+        return (type(other).__name__ == "Empty"
+                and getattr(other, "dtype", None) == self.dtype)
+
+    __hash__ = None
+
+    def __repr__(self):
+        return f"Empty(dtype={self.dtype!r})"
+
+
 def File(path, mode="r"):
     """Open ``path`` for reading (``"r"``), create it (``"w"``: the file
     is written when the returned object closes) or add to it (``"a"``:
     its datasets and attributes are taken over, and the whole file is
-    written anew beside it and moved into its place on close)."""
+    written anew beside it and moved into its place on close; a file
+    with a member that would not be written as it was, such as a soft
+    or external link, is refused and left as it is)."""
     if mode == "r":
         return _ReadFile(path)
     if mode in ("w", "a"):
@@ -158,36 +191,44 @@ def _shuffle(buf, size):
     return np.ascontiguousarray(a.T).tobytes() + bytes(buf[n * size:])
 
 
-def _unshuffle(buf, size):
-    if size <= 1 or len(buf) < size:
-        return bytes(buf)
-    n = len(buf) // size
-    a = np.frombuffer(buf, np.uint8, n * size).reshape(size, n)
-    return np.ascontiguousarray(a.T).tobytes() + bytes(buf[n * size:])
-
-
 # ---------------------------------------------------------------------------
 # datatypes
 
 
 class _Type:
     """A decoded datatype. ``dtype`` is the element as stored (the
-    16-byte descriptor for variable-length types); ``vlen`` is ``None``,
-    ``"str"`` or ``"seq"`` (then ``base`` is the element type)."""
+    descriptor for variable-length types and region references);
+    ``vlen`` is ``None``, ``"str"`` or ``"seq"`` (then ``base`` is the
+    element type); ``ref`` is ``"object"`` for object references (read
+    as addresses) and ``"region"`` for dataset region references;
+    ``unreadable`` says why h5py converts no element of the type (an
+    opaque type of a foreign tag), where it cannot."""
 
-    __slots__ = ("dtype", "vlen", "base")
+    __slots__ = ("dtype", "vlen", "base", "ref", "unreadable")
 
-    def __init__(self, dtype, vlen=None, base=None):
+    def __init__(self, dtype, vlen=None, base=None, ref=None,
+                 unreadable=None):
         self.dtype, self.vlen, self.base = dtype, vlen, base
+        self.ref, self.unreadable = ref, unreadable
 
     @property
     def out(self):
         """The numpy dtype a reader gets."""
-        return np.dtype("O") if self.vlen else self.dtype
+        return np.dtype("O") if self.vlen or self.ref == "region" \
+            else self.dtype
 
 
-def _parse_type(b, p):
-    """The datatype message at ``b[p:]``: ``(_Type, bytes used)``."""
+def _vlen_dtype(so):
+    """A variable-length element on disk: length, global heap collection
+    address (``so`` bytes), object index."""
+    return np.dtype([("n", "<u4"), ("addr", f"<u{so}"), ("idx", "<u4")])
+
+
+def _parse_type(f, p):
+    """The datatype message at ``f._b[p:]``: ``(_Type, bytes used)``;
+    references and variable-length descriptors hold addresses of the
+    file's width."""
+    b = f._b
     cls, ver = b[p] & 0x0F, b[p] >> 4
     if ver not in (1, 2, 3, 4):
         raise NotImplementedError(f"datatype message version {ver}")
@@ -195,20 +236,32 @@ def _parse_type(b, p):
     size = struct.unpack_from("<I", b, p + 4)[0]
     q = p + 8
     order = ">" if bits & 1 else "<"
-    if cls == 0:    # fixed point
-        kind = "i" if bits & 0x08 else "u"
+    if cls in (0, 4):    # fixed point; bitfield, which h5py reads as uint
+        kind = "i" if cls == 0 and bits & 0x08 else "u"
         return _Type(np.dtype(f"{order}{kind}{size}")), 12
     if cls == 1:    # floating point
         return _Type(np.dtype(f"{order}f{size}")), 20
     if cls == 3:    # fixed-length string
         return _Type(np.dtype(f"S{size}")), 8
+    if cls == 5:    # opaque: an ASCII tag, null-padded to 8 bytes
+        n = bits & 0xFF
+        tag = bytes(b[q:q + n]).rstrip(b"\0")
+        if tag.startswith(b"NUMPY:"):   # h5py's opaque_dtype
+            dt = np.dtype(tag[6:].decode("ascii"),
+                          metadata={"h5py_opaque": True})
+            return _Type(dt), 8 + n
+        return _Type(np.dtype(f"V{size}"), unreadable=None if not tag else
+                     f"no conversion path for the opaque tag {tag!r}"), 8 + n
     if cls == 7:    # reference
         if bits & 0x0F == 1:
-            raise NotImplementedError("dataset region references")
+            return _Type(np.dtype(f"V{size}"), ref="region"), 8
         if bits & 0x0F != 0:
             raise NotImplementedError(
-                f"reference type {bits & 0x0F} (only object references)")
-        return _Type(np.dtype("<u8")), 8
+                f"reference type {bits & 0x0F} (object and dataset region "
+                "references only)")
+        # an address of the file's width in the first bytes of the
+        # element (the library leaves the rest of a wider one undefined)
+        return _Type(np.dtype(f"<u{size}"), ref="object"), 8
     if cls == 6:    # compound
         nmemb = bits & 0xFFFF
         names, formats, offsets = [], [], []
@@ -225,10 +278,11 @@ def _parse_type(b, p):
                     raise NotImplementedError(
                         "array members of compound datatypes")
                 q += 28
-            t, used = _parse_type(b, q)
-            if t.vlen:
+            t, used = _parse_type(f, q)
+            if t.vlen or t.ref == "region":
                 raise NotImplementedError(
-                    "variable-length members of compound datatypes")
+                    "variable-length and region reference members of "
+                    "compound datatypes")
             q += used
             formats.append(t.dtype)
             offsets.append(off)
@@ -243,7 +297,7 @@ def _parse_type(b, p):
                                "itemsize": size})), q - p
     if cls == 8:    # enumeration
         nmemb = bits & 0xFFFF
-        base, used = _parse_type(b, q)
+        base, used = _parse_type(f, q)
         q += used
         names = []
         for _ in range(nmemb):
@@ -258,10 +312,10 @@ def _parse_type(b, p):
             return _Type(np.dtype(bool)), q - p
         return _Type(base.dtype), q - p
     if cls == 9:    # variable length
-        base, used = _parse_type(b, q)
+        base, used = _parse_type(f, q)
         kind = "str" if bits & 0x0F == 1 else "seq"
-        return _Type(_VLEN, vlen=kind, base=base), 8 + used
-    names = {2: "time", 4: "bitfield", 5: "opaque", 10: "array"}
+        return _Type(_vlen_dtype(f._so), vlen=kind, base=base), 8 + used
+    names = {2: "time", 10: "array"}
     raise NotImplementedError(f"{names.get(cls, cls)} datatypes")
 
 
@@ -357,10 +411,12 @@ def _space(shape):
             + b"".join(struct.pack("<Q", int(d)) for d in shape))
 
 
-def _parse_space(b, p, maxshape=False):
-    """``shape`` of the dataspace message at ``p``; ``None`` for a null
-    dataspace. With ``maxshape``, ``(shape, maximum shape)``: the shape
-    where none is stored, ``_UNDEF`` for an unlimited dimension."""
+def _parse_space(f, p, maxshape=False):
+    """``shape`` of the dataspace message at ``p`` (sizes of the file's
+    "size of lengths"); ``None`` for a null dataspace. With
+    ``maxshape``, ``(shape, maximum shape)``: the shape where none is
+    stored, ``_UNDEF`` for an unlimited dimension."""
+    b = f._b
     ver, nd = b[p], b[p + 1]
     if ver == 1:
         q = p + 8
@@ -370,11 +426,12 @@ def _parse_space(b, p, maxshape=False):
         q = p + 4
     else:
         raise NotImplementedError(f"dataspace message version {ver}")
-    shape = tuple(struct.unpack_from(f"<{nd}Q", b, q)) if nd else ()
+    sl = f._sl
+    shape = tuple(f._l(q + i * sl) for i in range(nd))
     if not maxshape:
         return shape
     if b[p + 2] & 0x01 and nd:
-        return shape, tuple(struct.unpack_from(f"<{nd}Q", b, q + 8 * nd))
+        return shape, tuple(f._l(q + (nd + i) * sl) for i in range(nd))
     return shape, shape
 
 
@@ -402,7 +459,7 @@ class _Attrs:
     def __getitem__(self, k):
         t, shape, data, _ = self._raw[k]
         if shape is None:
-            return None
+            return Empty(t.out)
         arr = self._f._values(t, data, shape)
         if t.vlen == "str":
             arr = np.array([v.decode("utf-8", "surrogateescape")
@@ -445,15 +502,15 @@ class _ReadDataset:
     def __init__(self, f, addr, name):
         self._f, self.name = f, name
         self.shape, self._type, self._layout = None, None, None
-        self._filters, self._fill = [], None
+        self._filters, self._fill, self._efl = [], None, None
         group = False
         msgs = f._messages(addr)
         for mtype, p, size in msgs:
             b = f._b
             if mtype == _DATASPACE:
-                self.shape, self._maxshape = _parse_space(b, p, True)
+                self.shape, self._maxshape = _parse_space(f, p, True)
             elif mtype == _DATATYPE:
-                self._type, used = _parse_type(b, p)
+                self._type, used = _parse_type(f, p)
                 self._tbytes = bytes(b[p:p + used])
             elif mtype == _LAYOUT:
                 self._layout = f._parse_layout(p)
@@ -464,7 +521,7 @@ class _ReadDataset:
                 if mtype == _FILL or self._fill is None:
                     self._fill = fill
             elif mtype == _EXTERNAL:
-                raise NotImplementedError("external data storage")
+                self._efl = hdf5_extern.parse_external(f, p)
             elif mtype in (_SYMBOL_TABLE, _LINK, _LINK_INFO):
                 group = True
         if group:
@@ -475,8 +532,9 @@ class _ReadDataset:
             raise NotImplementedError(
                 f"{name!r} is a named object: only datasets in the root "
                 "group")
-        if self.shape is None:
-            raise NotImplementedError(f"{name!r} has a null dataspace")
+        if self._layout[0] == "virtual":    # its extent may follow sources
+            self._plan = hdf5_extern.virtual_plan(self)
+            self.shape = self._plan[0]
 
     @property
     def dtype(self):
@@ -484,11 +542,12 @@ class _ReadDataset:
 
     @property
     def ndim(self):
-        return len(self.shape)
+        return 0 if self.shape is None else len(self.shape)
 
     @property
     def size(self):
-        return _nelem(self.shape)
+        """The element count; ``None`` for a null dataspace, as h5py."""
+        return None if self.shape is None else _nelem(self.shape)
 
     @property
     def chunks(self):
@@ -497,19 +556,19 @@ class _ReadDataset:
 
     @property
     def compression(self):
-        return "gzip" if any(i == _FILTER_DEFLATE
-                             for i, _ in self._filters) else None
+        return "gzip" if any(flt.id == hf.DEFLATE
+                             for flt in self._filters) else None
 
     @property
     def compression_opts(self):
-        for i, cd in self._filters:
-            if i == _FILTER_DEFLATE:
-                return cd[0] if cd else 0
+        for flt in self._filters:
+            if flt.id == hf.DEFLATE:
+                return flt.cd[0] if flt.cd else 0
         return None
 
     @property
     def shuffle(self):
-        return any(i == _FILTER_SHUFFLE for i, _ in self._filters)
+        return any(flt.id == hf.SHUFFLE for flt in self._filters)
 
     @property
     def dims(self):
@@ -519,6 +578,8 @@ class _ReadDataset:
         if key is not Ellipsis and key != ():
             raise NotImplementedError("the codec reads whole datasets")
         t, shape = self._type, self.shape
+        if shape is None:
+            return Empty(t.out)
         n = _nelem(shape)
         if n == 0:
             return np.zeros(shape, dtype=t.out)
@@ -526,6 +587,10 @@ class _ReadDataset:
         esize = t.dtype.itemsize
         if lay[0] == "compact":
             raw = lay[1]
+        elif lay[0] == "virtual":
+            raw = hdf5_extern.read_virtual(self)
+        elif self._efl is not None:
+            raw = hdf5_extern.read_external(self._f, self._efl, n * esize)
         elif lay[0] == "contiguous":
             addr = lay[1]
             raw = self._fill_bytes(n) if addr == _UNDEF else \
@@ -563,23 +628,15 @@ class _ReadDataset:
         want = _nelem(chunk) * esize
 
         def load(item):
+            # the filters in reverse, each only where the chunk's mask
+            # says it was applied
             nbytes, mask, offs, addr = item
             buf = f._read(addr, nbytes)
             for j in range(len(filters) - 1, -1, -1):
-                fid, cd = filters[j]
-                if mask & (1 << j):
-                    continue
-                if fid == _FILTER_DEFLATE:
-                    try:
-                        buf = zlib.decompress(buf)
-                    except zlib.error as e:
-                        raise OSError(f"corrupt deflate chunk: {e}")
-                elif fid == _FILTER_FLETCHER32:
-                    buf = hdf5_v2.unfletcher32(buf)
-                elif fid == _FILTER_LZF:
-                    buf = hdf5_v2.unlzf(buf, cd[2] if len(cd) > 2 else want)
-                else:
-                    buf = _unshuffle(buf, cd[0] if cd else esize)
+                if not mask & (1 << j):
+                    exact = all(mask & (1 << i) or filters[i].id
+                                in hf.SAME_SIZE for i in range(j))
+                    buf = hf.unfilter(filters[j], buf, want, esize, exact)
             return offs, buf
 
         items = found
@@ -612,6 +669,7 @@ class _ReadFile:
             self._fh.close()
             raise OSError(f"{path}: not an HDF5 file ({e})") from None
         self._heaps, self._objects, self._names = {}, {}, {}
+        self._others = {}   # files that external links and sources name
         try:
             self._open()
         except NotImplementedError:
@@ -641,17 +699,41 @@ class _ReadFile:
             self._root, ext = hdf5_v2.superblock(self, base)
             hdf5_v2.check_extension(self, ext)
         elif ver in (0, 1):
-            so, sl = b[base + 13], b[base + 14]
-            if (so, sl) != (8, 8):
-                raise NotImplementedError(
-                    f"{so}-byte offsets and {sl}-byte lengths")
-            root = base + 24 + (4 if ver == 1 else 0) + 32
-            self._root = struct.unpack_from("<Q", b, root + 8)[0]
+            so = b[base + 13]
+            self._sizes(so, b[base + 14])
+            # base, free space, end of file and driver info addresses,
+            # then the root group's symbol table entry (name offset first)
+            root = base + 24 + (4 if ver == 1 else 0) + 4 * so
+            self._root = self._o(root + so)
         else:
             raise NotImplementedError(f"superblock version {ver}")
         self._group(self._root)
 
     # -- low level --------------------------------------------------------
+
+    #: the superblock's "size of offsets" and "size of lengths", and the
+    #: largest value of each (the undefined address, an unlimited size)
+    _so = _sl = 8
+    _omax = _lmax = _UNDEF
+
+    def _sizes(self, so, sl):
+        if so not in (2, 4, 8) or sl not in (2, 4, 8):
+            raise NotImplementedError(
+                f"{so}-byte offsets and {sl}-byte lengths")
+        self._so, self._sl = so, sl
+        self._omax, self._lmax = (1 << 8 * so) - 1, (1 << 8 * sl) - 1
+
+    def _o(self, p):
+        """The address stored at offset ``p`` of the mapping, in the
+        file's width: ``_UNDEF`` for the undefined address (all ones)."""
+        v = int.from_bytes(self._b[p:p + self._so], "little")
+        return _UNDEF if v == self._omax else v
+
+    def _l(self, p):
+        """The length stored at ``p``: ``_UNDEF`` for all ones (an
+        unlimited dimension)."""
+        v = int.from_bytes(self._b[p:p + self._sl], "little")
+        return _UNDEF if v == self._lmax else v
 
     def _addr(self, a):
         return a + self._base
@@ -686,8 +768,8 @@ class _ReadFile:
                 if q + msize > end:
                     raise OSError("object header message overruns its block")
                 if mtype == _CONTINUATION:
-                    c_addr, c_len = struct.unpack_from("<QQ", b, q)
-                    blocks.append((self._addr(c_addr), c_len))
+                    blocks.append((self._addr(self._o(q)),
+                                   self._l(q + self._so)))
                 elif mtype:
                     if flags & 0x02:
                         raise NotImplementedError(
@@ -712,8 +794,8 @@ class _ReadFile:
         tq = q + pad(nlen)
         sq = tq + pad(tlen)
         q = sq + pad(slen)
-        t, used = _parse_type(b, tq)
-        shape = _parse_space(b, sq)
+        t, used = _parse_type(self, tq)
+        shape = _parse_space(self, sq)
         n = 0 if shape is None else _nelem(shape)
         data = bytes(b[q:q + n * t.dtype.itemsize])
         return name.decode("utf-8"), t, shape, data, bytes(b[tq:tq + used])
@@ -727,7 +809,7 @@ class _ReadFile:
                 out.append((*self._parse_attribute(q), msgs.order.get(q, 0)))
             elif mtype == _ATTR_INFO:
                 for p, order in hdf5_v2.dense_attrs(
-                        self, *hdf5_v2.attr_info(self._b, q)):
+                        self, *hdf5_v2.attr_info(self, q)):
                     out.append((*self._parse_attribute(p), order))
         return _Attrs(self, out, msgs.attrs_by_creation)
 
@@ -741,25 +823,30 @@ class _ReadFile:
         table, info, links = None, None, []
         for mtype, q, _ in msgs:
             if mtype == _SYMBOL_TABLE:
-                table = struct.unpack_from("<QQ", b, q)
+                table = (self._o(q), self._o(q + self._so))
             elif mtype == _LINK_INFO:
-                info = hdf5_v2.link_info(b, q)
+                info = hdf5_v2.link_info(self, q)
             elif mtype == _LINK:
                 links.append(q)
         self.attrs = self._attrs(msgs)
+        self._links = set()     # members that are soft or external links
         if table is not None:
             self._entries = dict(sorted(self._group_entries(*table).items(),
                                         key=lambda kv: kv[0].encode("utf-8")))
         elif info is not None:
             tracked, heap, names = info
-            found = [hdf5_v2.parse_link(b, q) for q in
+            found = [hdf5_v2.parse_link(self, q) for q in
                      links + hdf5_v2.dense_links(self, heap, names)]
             found.sort(key=(lambda x: x[1]) if tracked else
                        (lambda x: x[0].encode("utf-8")))
             hard = {n: t for n, _, kind, t in found if kind == "hard"}
             self._entries = {}
             for name, _, kind, target in found:
-                if kind == "soft":
+                if kind != "hard":
+                    self._links.add(name)
+                if kind == "external":
+                    target = ("external", *target)
+                elif kind == "soft":
                     target = hard.get(target[1:] if target.startswith("/")
                                       else target)
                     if target is None:
@@ -770,30 +857,33 @@ class _ReadFile:
         else:
             raise OSError("the root group has no symbol table or links")
         for name, a in self._entries.items():
-            self._names.setdefault(a, name)
+            if not isinstance(a, tuple):
+                self._names.setdefault(a, name)
 
     def _parse_layout(self, p):
         b = self._b
         ver, cls = b[p], b[p + 1]
         if ver == 4:
-            return hdf5_v2.parse_layout4(b, p)
+            return hdf5_v2.parse_layout4(self, p)
         if ver != 3:
             raise NotImplementedError(f"data layout message version {ver}")
         if cls == 0:
             n = struct.unpack_from("<H", b, p + 2)[0]
             return ("compact", bytes(b[p + 4:p + 4 + n]))
         if cls == 1:
-            return ("contiguous", struct.unpack_from("<Q", b, p + 2)[0])
+            return ("contiguous", self._o(p + 2))
         if cls == 2:
             nd = b[p + 2]
-            addr = struct.unpack_from("<Q", b, p + 3)[0]
-            dims = struct.unpack_from(f"<{nd}I", b, p + 11)
+            addr = self._o(p + 3)
+            dims = struct.unpack_from(f"<{nd}I", b, p + 3 + self._so)
             return ("chunked", tuple(dims), (0, addr, (), 0))
         raise NotImplementedError(f"data layout class {cls}")
 
     def _parse_pipeline(self, p):
         """The filter pipeline message, versions 1 and 2 (version 2: no
-        name below id 256, no padding)."""
+        name below id 256, no padding), as :class:`hdf5_filters.Filter`
+        entries. No filter is refused here: a chunk is, where one it
+        must undo is not read (``hdf5_filters.unfilter``)."""
         b = self._b
         ver, nf = b[p], b[p + 1]
         if ver not in (1, 2):
@@ -803,20 +893,17 @@ class _ReadFile:
         for _ in range(nf):
             fid = struct.unpack_from("<H", b, q)[0]
             if ver == 1 or fid >= 256:
-                nlen, _, ncd = struct.unpack_from("<HHH", b, q + 2)
+                nlen, flags, ncd = struct.unpack_from("<HHH", b, q + 2)
                 q += 8
             else:
-                nlen, (_, ncd) = 0, struct.unpack_from("<HH", b, q + 2)
+                nlen, (flags, ncd) = 0, struct.unpack_from("<HH", b, q + 2)
                 q += 6
-            name = bytes(b[q:q + nlen]).split(b"\0")[0].decode()
+            name = bytes(b[q:q + nlen]).split(b"\0")[0].decode(
+                "ascii", "replace")
             q += _align8(nlen) if ver == 1 else nlen
             cd = struct.unpack_from(f"<{ncd}I", b, q)
             q += 4 * ncd + (4 * (ncd % 2) if ver == 1 else 0)
-            if fid not in _FILTERS_READ:
-                raise NotImplementedError(
-                    f"filter {_FILTER_NAMES.get(fid, name or fid)} (id "
-                    f"{fid}; only shuffle, deflate, fletcher32 and lzf)")
-            out.append((fid, cd))
+            out.append(hf.Filter(fid, cd, flags, name))
         return out
 
     def _parse_fill(self, mtype, p):
@@ -837,34 +924,44 @@ class _ReadFile:
             return bytes(b[p + 8:p + 8 + n]) or None
         return None
 
-    def _group_entries(self, btree, heap):
+    def _heap_names(self, heap):
+        """The names in the local heap at ``heap``: a function of a name's
+        offset in the heap's data segment."""
         b = self._b
         h = self._addr(heap)
         if b[h:h + 4] != b"HEAP":
             raise OSError("bad local heap signature")
-        data = self._addr(struct.unpack_from("<Q", b, h + 24)[0])
+        data = self._addr(self._o(h + 8 + 2 * self._sl))
 
         def name_at(off):
             end = b.find(b"\0", data + off)
             return bytes(b[data + off:end]).decode("utf-8")
 
+        return name_at
+
+    def _group_entries(self, btree, heap):
+        b = self._b
+        so, sl = self._so, self._sl
+        name_at = self._heap_names(heap)
         entries = {}
 
         def walk(addr):
             a = self._addr(addr)
             sig = b[a:a + 4]
             if sig == b"SNOD":
+                # entries: name offset, header address, cache type,
+                # reserved, scratch pad
                 n = struct.unpack_from("<H", b, a + 6)[0]
                 for i in range(n):
-                    e = a + 8 + 40 * i
-                    off, oh = struct.unpack_from("<QQ", b, e)
-                    entries[name_at(off)] = oh
+                    e = a + 8 + (2 * so + 24) * i
+                    entries[name_at(self._o(e))] = self._o(e + so)
                 return
             if sig != b"TREE" or b[a + 4] != 0:
                 raise OSError("bad group B-tree node")
+            # after the siblings, key 0 (a heap offset) then child, key
             n = struct.unpack_from("<H", b, a + 6)[0]
             for i in range(n):
-                walk(struct.unpack_from("<Q", b, a + 24 + 8 + 16 * i)[0])
+                walk(self._o(a + 8 + 2 * so + sl + (sl + so) * i))
 
         walk(btree)
         return entries
@@ -872,6 +969,7 @@ class _ReadFile:
     def _chunk_btree(self, addr, ndim):
         """``(nbytes, filter mask, offsets, address)`` of every chunk."""
         b = self._b
+        so = self._so
         ksize = 8 + 8 * (ndim + 1)
         out = []
 
@@ -881,16 +979,16 @@ class _ReadFile:
                 raise OSError("bad chunk B-tree node")
             level = b[a + 5]
             n = struct.unpack_from("<H", b, a + 6)[0]
-            p = a + 24
+            p = a + 8 + 2 * so
             for _ in range(n):
                 nbytes, mask = struct.unpack_from("<II", b, p)
                 offs = struct.unpack_from(f"<{ndim}Q", b, p + 8)
-                child = struct.unpack_from("<Q", b, p + ksize)[0]
+                child = self._o(p + ksize)
                 if level:
                     walk(child)
                 else:
                     out.append((nbytes, mask, offs, child))
-                p += ksize + 8
+                p += ksize + so
 
         walk(addr)
         return out
@@ -899,36 +997,61 @@ class _ReadFile:
         heap = self._heaps.get(addr)
         if heap is None:
             b = self._b
+            sl = self._sl
             a = self._addr(addr)
             if b[a:a + 4] != b"GCOL":
                 raise OSError("bad global heap collection signature")
-            size = struct.unpack_from("<Q", b, a + 8)[0]
-            heap, p, end = {}, a + 16, a + size
-            while p + 16 <= end:
-                i, _, n = struct.unpack_from("<HH4xQ", b, p)
+            # the header and each object's header (index, reference
+            # count, reserved, size) padded to 8 bytes, then its data
+            hdr = _align8(8 + sl)
+            heap, p, end = {}, a + hdr, a + self._l(a + 8)
+            while p + hdr <= end:
+                i = struct.unpack_from("<H", b, p)[0]
                 if i == 0:
                     break
-                heap[i] = (p + 16, n)
-                p += 16 + _align8(n)
+                n = self._l(p + 8)
+                heap[i] = (p + hdr, n)
+                p += hdr + _align8(n)
             self._heaps[addr] = heap
+        if idx not in heap:
+            raise OSError(f"global heap object {idx} not in the collection "
+                          f"at {addr}")
         p, n = heap[idx]
         return self._b[p:p + n]
 
     def _values(self, t, raw, shape):
         n = _nelem(shape)
+        if t.unreadable:
+            raise OSError(f"Can't read data ({t.unreadable})")
+        if t.ref == "region":
+            w = t.dtype.itemsize
+            out = np.empty(n, dtype=object)
+            for i in range(n):
+                out[i] = hdf5_extern.region(self, bytes(raw[i * w:i * w + w]))
+            return out.reshape(shape)
         if not t.vlen:
-            return np.frombuffer(raw, t.dtype, n).reshape(shape).copy()
-        desc = np.frombuffer(raw, _VLEN, n)
+            return self._addresses(t, np.frombuffer(raw, t.dtype, n)
+                                   ).reshape(shape).copy()
+        desc = np.frombuffer(raw, _vlen_dtype(self._so), n)
         out = np.empty(n, dtype=object)
         for i, (ln, addr, idx) in enumerate(desc.tolist()):
             data = self._heap_object(addr, idx) if addr and ln else b""
             if t.vlen == "str":
                 out[i] = bytes(data[:ln])
             else:
-                out[i] = np.frombuffer(data, t.base.dtype, ln).copy()
+                out[i] = self._addresses(
+                    t.base, np.frombuffer(data, t.base.dtype, ln)).copy()
         return out.reshape(shape)
 
+    def _addresses(self, t, arr):
+        """Object references as the addresses in their first bytes."""
+        if t.ref == "object" and arr.dtype.itemsize > self._so:
+            return arr & arr.dtype.type(self._omax)
+        return arr
+
     def _object(self, addr):
+        if isinstance(addr, tuple):     # an external link: file, path
+            return hdf5_extern.linked(self, *addr[1:])
         obj = self._objects.get(addr)
         if obj is None:
             name = self._names.get(addr, f"<object at {addr}>")
@@ -956,6 +1079,9 @@ class _ReadFile:
             self._b.close()
             self._b = None
             self._fh.close()
+            for g in self._others.values():
+                g.close()
+            self._others = {}
 
     def __enter__(self):
         return self
@@ -995,11 +1121,11 @@ def _taken_attrs(attrs):
     """Attributes of a file being rewritten, as stored."""
     out = {}
     for name, (t, shape, data, tbytes) in attrs._raw.items():
-        if shape is None or t.vlen == "seq" or name in (
+        if shape is None or t.vlen == "seq" or t.ref == "region" or name in (
                 "DIMENSION_LIST", "REFERENCE_LIST"):
             raise NotImplementedError(
                 f"rewriting the attribute {name!r} (null dataspaces, "
-                "variable-length sequences and object references)")
+                "variable-length sequences, object and region references)")
         if t.vlen:
             out[name] = (tbytes, shape, "vstr",
                          list(attrs._f._values(t, data, shape).reshape(-1)))
@@ -1104,17 +1230,21 @@ class _WriteDataset:
                 full = np.zeros(chunks, dtype=data.dtype)
                 full[tuple(slice(0, d) for d in block.shape)] = block
                 block = full
-            buf = _stored(block)
-            for fid, cd in self._filters:
-                if fid == _FILTER_SHUFFLE:
+            buf, mask = _stored(block), 0
+            for j, flt in enumerate(self._filters):
+                if flt.id == hf.SHUFFLE:
                     buf = _shuffle(buf, esize)
-                elif fid == _FILTER_DEFLATE:
-                    buf = zlib.compress(buf, cd[0])
+                elif flt.id == hf.DEFLATE:
+                    buf = zlib.compress(buf, flt.cd[0])
+                elif flt.flags & hf.OPTIONAL and flt.id not in hf.UNDONE:
+                    # an optional filter neither h5py nor the codec has
+                    # (blosc, zstd, an unknown id): skipped and masked,
+                    # as the library skips it
+                    mask |= 1 << j
                 else:
                     raise NotImplementedError(
-                        f"writing chunks through the "
-                        f"{_FILTER_NAMES.get(fid, fid)} filter")
-            out.append((off, buf, 0))
+                        f"writing chunks through the {flt.label} filter")
+            out.append((off, buf, mask))
         return out
 
 
@@ -1209,11 +1339,19 @@ class _WriteFile:
         with _ReadFile(self.filename) as r:
             self.attrs._items = _taken_attrs(r.attrs)
             for name in r.keys():
+                if name in r._links:
+                    raise NotImplementedError(
+                        f"rewriting {name!r} (soft and external links: "
+                        "the writer writes hard links only)")
                 src = r[name]
                 t = src._type
-                if t.vlen == "seq":
+                if (t.vlen == "seq" or t.ref == "region" or src.shape is None
+                        or src._efl is not None
+                        or src._layout[0] == "virtual"):
                     raise NotImplementedError(
-                        "rewriting variable-length sequence datasets")
+                        f"rewriting {name!r} (variable-length sequences, "
+                        "region references, null dataspaces, external "
+                        "storage and virtual datasets)")
                 dtype = string_dtype() if t.vlen else t.dtype
                 d = _WriteDataset(self, name, src.shape, dtype, None,
                                   src.chunks, list(src._filters))
@@ -1272,9 +1410,9 @@ class _WriteFile:
         esize = 16 if dtype.kind == "O" else dtype.itemsize
         filters = []
         if shuffle:
-            filters.append((_FILTER_SHUFFLE, (esize,)))
+            filters.append(hf.Filter(hf.SHUFFLE, (esize,)))
         if level is not None:
-            filters.append((_FILTER_DEFLATE, (int(level),)))
+            filters.append(hf.Filter(hf.DEFLATE, (int(level),)))
         if data is not None:
             data = _as_stored(data, dtype)
         d = self._dsets[name] = _WriteDataset(self, name, shape, dtype, data,
@@ -1506,10 +1644,11 @@ class _WriteFile:
             msgs.append(_message(_LAYOUT, lay))
             if d._filters:
                 pl = struct.pack("<BB6x", 1, len(d._filters))
-                for fid, cd in d._filters:
-                    nm = _pad8(_FILTER_NAMES[fid].encode() + b"\0")
-                    pl += struct.pack("<HHHH", fid, len(nm), 1, len(cd)) + nm
-                    pl += struct.pack(f"<{len(cd)}I", *cd)
+                for fid, cd, flags, name in d._filters:
+                    name = hf.NAMES.get(fid, name)
+                    nm = _pad8(name.encode() + b"\0") if name else b""
+                    pl += struct.pack("<HHHH", fid, len(nm), flags, len(cd))
+                    pl += nm + struct.pack(f"<{len(cd)}I", *cd)
                     pl += bytes(4 * (len(cd) % 2))
                 msgs.append(_message(_PIPELINE, pl, flags=1))
             msgs += attr_messages(d)

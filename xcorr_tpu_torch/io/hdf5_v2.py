@@ -31,7 +31,10 @@ Version 3.0*:
 - **Level 1H, fixed arrays** (``FAHD``, ``FADB`` and its pages) and
   **Level 1I, extensible arrays** (``EAHD``, ``EAIB``, ``EASB``,
   ``EADB`` and their pages) as chunk indexes;
-- the **fletcher32** (id 3) and **lzf** (id 32000, h5py's) filters.
+- data layout class 3, **virtual datasets** (their mappings are read by
+  :mod:`io.hdf5_extern`), and **external links** in link messages.
+
+The filters of a chunk are undone in :mod:`io.hdf5_filters`.
 
 Nothing here writes: :mod:`io.hdf5` writes only superblock 0, version-1
 object headers and version-1 B-trees, as h5py does by default. Every
@@ -143,14 +146,14 @@ def _enc_size(n):
 
 def superblock(f, a):
     """Versions 2 and 3 at ``a``: ``(root object header address,
-    superblock extension address)``; offsets and lengths of 8 bytes."""
+    superblock extension address)``; sets the file's sizes of offsets
+    and lengths (``f._sizes``)."""
     b = f._b
-    so, sl = b[a + 9], b[a + 10]
-    if (so, sl) != (8, 8):
-        raise NotImplementedError(f"{so}-byte offsets and {sl}-byte lengths")
-    verify(b, a, a + 44, "superblock")
-    _, ext, _, root = struct.unpack_from("<4Q", b, a + 12)
-    return root, ext
+    so = b[a + 9]
+    f._sizes(so, b[a + 10])
+    # base, extension, end of file and root object header addresses
+    verify(b, a, a + 12 + 4 * so, "superblock")
+    return f._o(a + 12 + 3 * so), f._o(a + 12 + so)
 
 
 def check_extension(f, ext):
@@ -206,8 +209,7 @@ def object_header(f, a):
             if q + msize > end:
                 raise OSError("object header message overruns its block")
             if mtype == _CONTINUATION:
-                c_addr, c_len = struct.unpack_from("<QQ", b, q)
-                c = f._addr(c_addr)
+                c, c_len = f._addr(f._o(q)), f._l(q + f._so)
                 _signature(b, c, b"OCHK", "object header continuation")
                 verify(b, c, c + c_len - 4, "object header continuation")
                 blocks.append((c + 4, c + c_len - 4))
@@ -231,14 +233,17 @@ def btree2(f, addr, types):
     the tree's order, and the record size; the tree's type must be one
     of ``types``."""
     b = f._b
+    so = f._so
     a = f._addr(addr)
     _signature(b, a, b"BTHD", "version 2 B-tree header")
     btype = b[a + 5]
     if btype not in types:
         raise OSError(f"version 2 B-tree of type {btype}, not {types}")
     node, rec, depth = struct.unpack_from("<IHH", b, a + 6)
-    root, nroot = struct.unpack_from("<QH", b, a + 16)
-    verify(b, a, a + 34, "version 2 B-tree header")
+    # split and merge percents, root node address, its records, total
+    root = f._o(a + 16)
+    nroot = struct.unpack_from("<H", b, a + 16 + so)[0]
+    verify(b, a, a + 18 + so + f._sl, "version 2 B-tree header")
     # records per node and the widths of the child pointers' counts
     # (H5B2__hdr_init)
     max_nrec = [(node - 10) // rec]
@@ -246,7 +251,7 @@ def btree2(f, addr, types):
     cum_size = [0]
     nrec_size = _enc_size(max_nrec[0])
     for d in range(1, depth + 1):
-        ptr = 8 + nrec_size + (cum_size[d - 1] if d > 1 else 0)
+        ptr = so + nrec_size + (cum_size[d - 1] if d > 1 else 0)
         max_nrec.append((node - 10) // (rec + ptr))
         cum.append((max_nrec[d] + 1) * cum[d - 1] + max_nrec[d])
         cum_size.append(_enc_size(cum[d]))
@@ -263,9 +268,8 @@ def btree2(f, addr, types):
         p = a + 6 + nrec * rec
         kids = []
         for _ in range(nrec + 1):
-            child = struct.unpack_from("<Q", b, p)[0]
-            kids.append((child, _uint(b, p + 8, nrec_size)))
-            p += 8 + nrec_size + (cum_size[d - 1] if d > 1 else 0)
+            kids.append((f._o(p), _uint(b, p + so, nrec_size)))
+            p += so + nrec_size + (cum_size[d - 1] if d > 1 else 0)
         verify(b, a, p, "version 2 B-tree internal node")
         for i, (child, n) in enumerate(kids):
             walk(child, n, d - 1)
@@ -288,17 +292,24 @@ class FractalHeap:
     def __init__(self, f, addr):
         self._f = f
         b = f._b
+        so, sl = f._so, f._sl
         a = f._addr(addr)
         _signature(b, a, b"FRHP", "fractal heap header")
         self.id_len, filt, self.flags, self.max_man = struct.unpack_from(
             "<HHBI", b, a + 5)
+        # the next huge object ID, the huge objects' B-tree, then nine
+        # lengths and the free-space manager's address (free space and
+        # object counts), then the doubling table
         p = a + 14
-        (_, self.huge_btree, _, _, _, _, _, _, _, _, _, _) = \
-            struct.unpack_from("<QQQQQQQQQQQQ", b, p)
-        p += 96
-        (self.width, self.start, self.max_direct, self.max_bits,
-         _, self.root, self.rows) = struct.unpack_from("<HQQHHQH", b, p)
-        p += 32
+        self.huge_btree = f._o(p + sl)
+        p += 10 * sl + 2 * so
+        self.width = struct.unpack_from("<H", b, p)[0]
+        self.start, self.max_direct = f._l(p + 2), f._l(p + 2 + sl)
+        p += 2 + 2 * sl
+        self.max_bits = struct.unpack_from("<H", b, p)[0]
+        self.root = f._o(p + 4)
+        self.rows = struct.unpack_from("<H", b, p + 4 + so)[0]
+        p += 6 + so
         if filt:
             raise NotImplementedError("filtered fractal heaps")
         verify(b, a, p, "fractal heap header")
@@ -331,14 +342,15 @@ class FractalHeap:
         b = self._f._b
         a = self._f._addr(addr)
         _signature(b, a, b"FHIB", "fractal heap indirect block")
-        off = _uint(b, a + 13, self.off_size)
-        p = a + 13 + self.off_size
+        so = self._f._so
+        off = _uint(b, a + 5 + so, self.off_size)
+        p = a + 5 + so + self.off_size
         children = []
         for r in range(nrows):
             size = self._row_size(r)
             for _ in range(self.width):
-                child = struct.unpack_from("<Q", b, p)[0]
-                p += 8
+                child = self._f._o(p)
+                p += so
                 if child != UNDEF:
                     children.append((r, off, size, child))
                 off += size
@@ -368,16 +380,17 @@ class FractalHeap:
             self._check_direct(o, size, at)
             return at + off - o, n
         if kind == 1:       # huge: directly addressed, or by its B-tree
-            if self.id_len - 1 >= 16:
-                addr, n = struct.unpack_from("<QQ", b, p + 1)
-                return self._f._addr(addr), n
+            f = self._f
+            if self.id_len - 1 >= f._so + f._sl:
+                return f._addr(f._o(p + 1)), f._l(p + 1 + f._so)
             key = _uint(b, p + 1, min(self.id_len - 1, 8))
             if self._huge is None:      # object ID -> (address, length)
                 recs, _ = btree2(self._f, self.huge_btree, (1,))
                 self._huge = {}
-                for r in recs:
-                    addr, n, oid = struct.unpack_from("<QQQ", b, r)
-                    self._huge[oid] = (self._f._addr(addr), n)
+                for r in recs:   # address, length, object ID
+                    n = f._l(r + f._so)
+                    self._huge[f._l(r + f._so + f._sl)] = (
+                        f._addr(f._o(r)), n)
             if key not in self._huge:
                 raise OSError(f"huge fractal heap object {key} not found")
             return self._huge[key]
@@ -392,7 +405,7 @@ class FractalHeap:
             return
         b = self._f._b
         _signature(b, at, b"FHDB", "fractal heap direct block")
-        q = at + 13 + self.off_size
+        q = at + 5 + self._f._so + self.off_size
         block = bytearray(b[at:at + size])
         stored = struct.unpack_from("<I", block, q - at)[0]
         block[q - at:q - at + 4] = b"\0\0\0\0"
@@ -406,19 +419,19 @@ class FractalHeap:
 # links and dense attributes
 
 
-def link_info(b, p):
+def link_info(f, p):
     """The link info message: ``(creation order tracked, fractal heap
     address, name index B-tree address)``."""
-    flags = b[p + 1]
+    flags = f._b[p + 1]
     q = p + 2 + (8 if flags & 0x01 else 0)
-    heap, names = struct.unpack_from("<QQ", b, q)
-    return bool(flags & 0x01), heap, names
+    return bool(flags & 0x01), f._o(q), f._o(q + f._so)
 
 
-def parse_link(b, p):
+def parse_link(f, p):
     """The link message at ``p``: ``(name, creation order, kind,
-    target)`` with kind ``"hard"`` (target an address) or ``"soft"``
-    (target a path)."""
+    target)`` with kind ``"hard"`` (target an address), ``"soft"``
+    (target a path) or ``"external"`` (target ``(file name, path)``)."""
+    b = f._b
     flags = b[p + 1]
     q = p + 2
     ltype = 0
@@ -435,12 +448,19 @@ def parse_link(b, p):
     name = bytes(b[q:q + n]).decode("utf-8")
     q += n
     if ltype == 0:
-        return name, order, "hard", struct.unpack_from("<Q", b, q)[0]
+        return name, order, "hard", f._o(q)
     if ltype == 1:
         n = struct.unpack_from("<H", b, q)[0]
         return name, order, "soft", bytes(b[q + 2:q + 2 + n]).decode("utf-8")
-    if ltype == 64:
-        raise NotImplementedError(f"external links ({name!r})")
+    if ltype == 64:     # version and flags, then two null-ended strings
+        n = struct.unpack_from("<H", b, q)[0]
+        if b[q + 2] & 0xF0 or b[q + 2] & 0x0F:
+            raise NotImplementedError(
+                f"external link {name!r} of version {b[q + 2] >> 4}, "
+                f"flags {b[q + 2] & 0x0F}")
+        file, path = bytes(b[q + 3:q + 2 + n]).split(b"\0")[:2]
+        return name, order, "external", (file.decode("utf-8"),
+                                         path.decode("utf-8"))
     raise NotImplementedError(f"link type {ltype} ({name!r})")
 
 
@@ -454,12 +474,12 @@ def dense_links(f, heap, names):
     return [h.object(r + 4)[0] for r in recs]
 
 
-def attr_info(b, p):
+def attr_info(f, p):
     """The attribute info message: ``(fractal heap address, name index
     B-tree address)``."""
-    flags = b[p + 1]
+    flags = f._b[p + 1]
     q = p + 2 + (2 if flags & 0x01 else 0)
-    return struct.unpack_from("<QQ", b, q)
+    return f._o(q), f._o(q + f._so)
 
 
 def dense_attrs(f, heap, names):
@@ -487,20 +507,23 @@ def dense_attrs(f, heap, names):
 _INDEX_PARAMS = {2: 0, 3: 1, 4: 5, 5: 6}
 
 
-def parse_layout4(b, p):
+def parse_layout4(f, p):
     """A version-4 data layout message: ``("compact", bytes)``,
-    ``("contiguous", address)`` or ``("chunked", dims, index)`` with
-    ``dims`` the chunk's dimensions and element size and ``index``
-    ``(kind, address, info, flags)``: ``info`` a filtered single chunk's
-    ``(size, filter mask)``, else ``()``."""
+    ``("contiguous", address)``, ``("virtual", global heap address,
+    object index)`` or ``("chunked", dims, index)`` with ``dims`` the
+    chunk's dimensions and element size and ``index`` ``(kind, address,
+    info, flags)``: ``info`` a filtered single chunk's ``(size, filter
+    mask)``, else ``()``."""
+    b = f._b
     cls = b[p + 1]
     if cls == 0:
         n = struct.unpack_from("<H", b, p + 2)[0]
         return ("compact", bytes(b[p + 4:p + 4 + n]))
     if cls == 1:
-        return ("contiguous", struct.unpack_from("<Q", b, p + 2)[0])
+        return ("contiguous", f._o(p + 2))
     if cls == 3:
-        raise NotImplementedError("virtual datasets")
+        return ("virtual", f._o(p + 2),
+                struct.unpack_from("<I", b, p + 2 + f._so)[0])
     if cls != 2:
         raise NotImplementedError(f"data layout class {cls}")
     flags, nd, w = b[p + 2], b[p + 3], b[p + 4]
@@ -511,15 +534,14 @@ def parse_layout4(b, p):
     q += 1
     info = ()
     if kind == 1 and flags & 0x02:      # a filtered single chunk's size, mask
-        info = struct.unpack_from("<QI", b, q)
-        q += 12
+        info = (f._l(q), struct.unpack_from("<I", b, q + f._sl)[0])
+        q += f._sl + 4
     elif kind in _INDEX_PARAMS:
         # the arrays' and the B-tree's own headers repeat their parameters
         q += _INDEX_PARAMS[kind]
     elif kind != 1:
         raise NotImplementedError(f"chunk index type {kind}")
-    addr = struct.unpack_from("<Q", b, q)[0]
-    return ("chunked", dims, (kind, addr, info, flags))
+    return ("chunked", dims, (kind, f._o(q), info, flags))
 
 
 def _grid(shape, maxshape, chunk):
@@ -529,17 +551,21 @@ def _grid(shape, maxshape, chunk):
             for s, m, c in zip(shape, maxshape, chunk)]
 
 
-def _entries(raw, n, esize, filtered):
+def _entries(raw, n, esize, filtered, so):
     """Fixed- and extensible-array chunk entries: ``(addresses, stored
-    sizes, filter masks)``, of ``n`` entries of ``esize`` bytes."""
+    sizes, filter masks)``, of ``n`` entries of ``esize`` bytes whose
+    addresses take ``so`` bytes (the undefined one :data:`UNDEF`)."""
     a = np.frombuffer(raw, np.uint8, n * esize).reshape(n, esize)
-    addr = a[:, :8].copy().view("<u8").reshape(-1)
+    wide = np.zeros((n, 8), np.uint8)
+    wide[:, :so] = a[:, :so]
+    addr = wide.view("<u8").reshape(-1)
+    addr[addr == (1 << 8 * so) - 1] = UNDEF
     if not filtered:
         return addr, None, None
-    w = esize - 12
+    w = esize - so - 4
     size = np.zeros((n, 8), np.uint8)
-    size[:, :w] = a[:, 8:8 + w]
-    mask = a[:, 8 + w:].copy().view("<u4").reshape(-1)
+    size[:, :w] = a[:, so:so + w]
+    mask = a[:, so + w:].copy().view("<u4").reshape(-1)
     return addr, size.view("<u8").reshape(-1), mask
 
 
@@ -573,15 +599,16 @@ def chunk_list(f, index, chunk, esize, shape, maxshape, filtered):
     else:
         recs, rec = btree2(f, addr, (10, 11))
         b = f._b
+        so = f._so
         for r in recs:
-            a = struct.unpack_from("<Q", b, r)[0]
-            if rec == 8 + 8 * nd:
-                size, mask, q = nbytes, 0, r + 8
+            a = f._o(r)
+            if rec == so + 8 * nd:
+                size, mask, q = nbytes, 0, r + so
             else:
-                w = rec - 8 - 4 - 8 * nd
-                size = _uint(b, r + 8, w)
-                mask = struct.unpack_from("<I", b, r + 8 + w)[0]
-                q = r + 12 + w
+                w = rec - so - 4 - 8 * nd
+                size = _uint(b, r + so, w)
+                mask = struct.unpack_from("<I", b, r + so + w)[0]
+                q = r + so + 4 + w
             scaled = struct.unpack_from(f"<{nd}Q", b, q)
             out.append((size, mask, scaled, a))
     res = []
@@ -599,14 +626,15 @@ def _fixed_array(f, addr, chunk, shape, maxshape, nbytes):
     a = f._addr(addr)
     _signature(b, a, b"FAHD", "fixed array header")
     client, esize, page_bits = b[a + 5], b[a + 6], b[a + 7]
-    n, dblk = struct.unpack_from("<QQ", b, a + 8)
-    verify(b, a, a + 24, "fixed array header")
+    so, sl = f._so, f._sl
+    n, dblk = f._l(a + 8), f._o(a + 8 + sl)
+    verify(b, a, a + 8 + sl + so, "fixed array header")
     if dblk == UNDEF:
         return []
     d = f._addr(dblk)
     _signature(b, d, b"FADB", "fixed array data block")
     page = 1 << page_bits
-    p = d + 14
+    p = d + 6 + so
     raw = []
     if n > page:
         npages = -(-n // page)
@@ -626,7 +654,7 @@ def _fixed_array(f, addr, chunk, shape, maxshape, nbytes):
     grid = _grid(shape, maxshape, chunk)
     out = []
     for first, cnt, buf in raw:
-        addrs, sizes, masks = _entries(buf, cnt, esize, client == 1)
+        addrs, sizes, masks = _entries(buf, cnt, esize, client == 1, so)
         for j in np.nonzero(addrs != UNDEF)[0]:
             scaled = np.unravel_index(first + int(j), grid)
             out.append((nbytes if sizes is None else sizes[j],
@@ -640,8 +668,10 @@ def _extensible_array(f, addr, chunk, shape, maxshape, nbytes):
     _signature(b, a, b"EAHD", "extensible array header")
     (client, esize, max_bits, iblk_n, dblk_min, sblk_min,
      page_bits) = b[a + 5:a + 12]
-    iblk = struct.unpack_from("<Q", b, a + 60)[0]
-    verify(b, a, a + 68, "extensible array header")
+    so, sl = f._so, f._sl
+    # six lengths (block counts and sizes), then the index block
+    iblk = f._o(a + 12 + 6 * sl)
+    verify(b, a, a + 12 + 6 * sl + so, "extensible array header")
     if iblk == UNDEF:
         return []
     off_size = (max_bits + 7) // 8
@@ -654,19 +684,19 @@ def _extensible_array(f, addr, chunk, shape, maxshape, nbytes):
     ndblk = 2 * (sblk_min - 1)
     i0 = f._addr(iblk)
     _signature(b, i0, b"EAIB", "extensible array index block")
-    p = i0 + 14
+    p = i0 + 6 + so
     raw = [(0, iblk_n, b[p:p + iblk_n * esize])]
     p += iblk_n * esize
-    dblks = struct.unpack_from(f"<{ndblk}Q", b, p)
-    p += 8 * ndblk
-    sblks = struct.unpack_from(f"<{nsblks - in_iblk}Q", b, p)
-    p += 8 * (nsblks - in_iblk)
+    dblks = [f._o(p + so * i) for i in range(ndblk)]
+    p += so * ndblk
+    sblks = [f._o(p + so * i) for i in range(nsblks - in_iblk)]
+    p += so * (nsblks - in_iblk)
     verify(b, i0, p, "extensible array index block")
 
     def data_block(at, first, cnt, bitmap):
         d = f._addr(at)
         _signature(b, d, b"EADB", "extensible array data block")
-        q = d + 14 + off_size
+        q = d + 6 + so + off_size
         if cnt <= page:
             verify(b, d, q + cnt * esize, "extensible array data block")
             raw.append((first, cnt, b[q:q + cnt * esize]))
@@ -696,13 +726,13 @@ def _extensible_array(f, addr, chunk, shape, maxshape, nbytes):
             continue
         q = f._addr(at)
         _signature(b, q, b"EASB", "extensible array super block")
-        q += 14 + off_size
+        q += 6 + so + off_size
         npages = cnt // page if cnt > page else 0
         bm = (npages + 7) // 8
         bitmaps = [bytes(b[q + k * bm:q + (k + 1) * bm]) for k in range(nd)]
         q += nd * bm
-        addrs = struct.unpack_from(f"<{nd}Q", b, q)
-        verify(b, f._addr(at), q + 8 * nd, "extensible array super block")
+        addrs = [f._o(q + so * k) for k in range(nd)]
+        verify(b, f._addr(at), q + so * nd, "extensible array super block")
         for k, da in enumerate(addrs):
             if da != UNDEF:
                 data_block(da, first, cnt, bitmaps[k])
@@ -716,7 +746,7 @@ def _extensible_array(f, addr, chunk, shape, maxshape, nbytes):
     rest = int(np.prod(sgrid[1:], dtype=np.int64))
     out = []
     for first, cnt, buf in raw:
-        addrs, sizes, masks = _entries(buf, cnt, esize, client == 1)
+        addrs, sizes, masks = _entries(buf, cnt, esize, client == 1, so)
         for j in np.nonzero(addrs != UNDEF)[0]:
             k = first + int(j)
             sw = (k // rest,) + np.unravel_index(k % rest, sgrid[1:])
@@ -726,82 +756,3 @@ def _extensible_array(f, addr, chunk, shape, maxshape, nbytes):
             out.append((nbytes if sizes is None else sizes[j],
                         0 if masks is None else masks[j], scaled, addrs[j]))
     return out
-
-
-# ---------------------------------------------------------------------------
-# filters
-
-
-def fletcher32(buf):
-    """The library's ``H5_checksum_fletcher32`` of ``buf``: sums of
-    big-endian 16-bit words (an odd byte is the high byte of a last
-    word), each folded into 1..65535 (0 only for all zeros)."""
-    n = len(buf)
-    w = np.frombuffer(buf, ">u2", n // 2).astype(np.int64)
-    if n % 2:
-        w = np.append(w, np.int64(buf[-1]) << 8)
-    m = len(w)
-    s1 = int(w.sum())
-    s2 = int((w * (np.arange(m, 0, -1, dtype=np.int64) % 65535)).sum())
-
-    def fold(x):
-        return 0 if x == 0 else (x - 1) % 65535 + 1
-
-    return (fold(s2) << 16) | fold(s1)
-
-
-def unfletcher32(buf):
-    """The chunk without its trailing checksum, which must match (or
-    match byte-swapped, as the library accepts for old files)."""
-    if len(buf) < 4:
-        raise OSError("fletcher32 chunk shorter than its checksum")
-    data = buf[:-4]
-    stored = struct.unpack("<I", bytes(buf[-4:]))[0]
-    want = fletcher32(data)
-    swapped = ((want & 0x00FF00FF) << 8) | ((want >> 8) & 0x00FF00FF)
-    if stored not in (want, swapped):
-        raise OSError("data error detected by fletcher32 checksum")
-    return data
-
-
-def unlzf(src, want):
-    """liblzf's ``lzf_decompress`` of ``src`` into ``want`` bytes (the
-    stream h5py's lzf filter stores, without a header)."""
-    src = bytes(src)
-    out = bytearray(want)
-    ip = op = 0
-    n = len(src)
-    while ip < n:
-        ctrl = src[ip]
-        ip += 1
-        if ctrl < 32:                       # a literal run
-            ln = ctrl + 1
-            if op + ln > want or ip + ln > n:
-                raise OSError("corrupt lzf chunk")
-            out[op:op + ln] = src[ip:ip + ln]
-            ip += ln
-            op += ln
-            continue
-        ln = ctrl >> 5                      # a back reference
-        ref = op - ((ctrl & 0x1F) << 8) - 1
-        if ln == 7:
-            if ip >= n:
-                raise OSError("corrupt lzf chunk")
-            ln += src[ip]
-            ip += 1
-        if ip >= n:
-            raise OSError("corrupt lzf chunk")
-        ref -= src[ip]
-        ip += 1
-        ln += 2
-        if ref < 0 or op + ln > want:
-            raise OSError("corrupt lzf chunk")
-        dist = op - ref
-        if dist >= ln:
-            out[op:op + ln] = out[ref:ref + ln]
-        else:                               # overlapping: a repeated run
-            out[op:op + ln] = (out[ref:op] * (ln // dist + 1))[:ln]
-        op += ln
-    if op != want:
-        raise OSError(f"lzf chunk decompressed to {op} bytes, not {want}")
-    return bytes(out)
