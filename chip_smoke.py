@@ -98,7 +98,12 @@ line, on stderr:
    (envelope; signal window at the injected delay, noise at 6-9 h), held
    to the same calls on the CPU (``cc`` within 1e-5 of its peak; ``snr``,
    ``s``, ``n`` within 1e-5 relative; ``lag_s_max`` equal), with card ms
-   per pair-day for each stage of the chain. (b) The campaign at the
+   per pair-day for each stage of the chain, and ``postprocess`` alone on
+   its port forms (``core/postprocess.py`` ``select``,
+   ``signal/_unbias.py`` ``span_weights``) and on their plain forms
+   (``_select_plain``, ``_span_weights_plain``: the carried selection of
+   ``cc`` whole and the weights of the whole lag range), timed and held
+   bit-identical. (b) The campaign at the
    production celerity window: the 8 pairs of ``scripts/cc.py`` for 5
    days (40 pair-days) built with ``init`` at the production geometry and
    filled from a seeded generator (noise plus one arrival at
@@ -114,13 +119,24 @@ line, on stderr:
    device records than host-side launch calls) and the device
    operations per pair-day, and the
    last day's card wall taken apart: ``postprocess``, ``snr`` and each
-   stage of the chain on the clipped lag window. The Z and R pairs of one
+   stage of the chain on the clipped lag window; then that day's
+   ``pair_snr`` on the card on the port forms and on the plain forms in
+   turns (``AB_ROUNDS`` rounds, the order swapped each round), medians and
+   spreads per pair-day. In 7a, 7b and 8a-8d every ``postprocess`` call on
+   the card (``postprocess_twice``: by whatever name the scripts call it)
+   runs again on the plain forms on the same inputs, outside the timed and
+   profiled sections, and the two results are held bit-identical
+   (``dataset_differences``: variables, coordinates, dtypes, bytes, attrs
+   but ``cc``'s ``postprocess`` timestamp), the calls counted per part. The
+   Z and R pairs of one
    receiver share a distance, and so do the three array pairs, whose
    arrivals carry the delays of a plane wave (250 deg, 1480 m/s) across
    the H03S triad of ``ARRAY_STATIONS``;
 8. the rest of the analysis tier on the card, each part held to the same
    calls on the CPU, with card and CPU wall per unit, the device share
-   and the device operations per unit (torch.profiler). In 7b's day loop:
+   and the device operations per unit (torch.profiler), and each
+   part's ``postprocess`` calls on the card held bit-identical to the
+   plain forms (as in phase 7). In 7b's day loop:
    (a) ``scripts.beamform.beamform_datasets`` of the three array pairs
    per day, envelope off and on: ``s_x``, ``s_y``, ``vel``, ``err``
    within 1e-9 relative and ``doa`` within 1e-9 degrees of the CPU's,
@@ -263,6 +279,7 @@ nothing of JAX.
 import contextlib
 import hashlib
 import importlib
+import inspect
 import itertools
 import json
 import math
@@ -1828,6 +1845,186 @@ def stage_ms(cc, delay):
     return ms
 
 
+@contextlib.contextmanager
+def plain_postprocess():
+    """``postprocess``'s carried host stages while it runs, its plain
+    path: the selection over whole variables (``core/postprocess.py``
+    ``_select_plain``: ``Dataset.where`` of ``cc`` whole, then
+    ``cc.where`` of the lags) and ``unbias``'s weights over the whole lag
+    range (``signal/_unbias.py`` ``_span_weights_plain``)."""
+    from xcorr_tpu_torch.signal import _unbias
+    post = importlib.import_module("xcorr_tpu_torch.core.postprocess")
+    unbias = importlib.import_module("xcorr_tpu_torch.signal.unbias")
+    real = {name: getattr(post, name) for name in post.FORMS}
+    weights = unbias.span_weights
+    for name in post.FORMS:
+        setattr(post, name, getattr(post, f"_{name}_plain"))
+    unbias.span_weights = _unbias._span_weights_plain
+    try:
+        yield
+    finally:
+        for name, form in real.items():
+            setattr(post, name, form)
+        unbias.span_weights = weights
+
+
+def same_value(a, b):
+    """``a`` and ``b`` equal bit for bit: arrays by dtype, shape and
+    bytes (NaN by its bits), containers item by item in order."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (type(a) is type(b) and list(a) == list(b)
+                and all(same_value(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same_value(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        if not (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+                and a.dtype == b.dtype and a.shape == b.shape):
+            return False
+        if a.dtype == object:
+            return a.tolist() == b.tolist()
+        return (np.ascontiguousarray(a).tobytes()
+                == np.ascontiguousarray(b).tobytes())
+    if isinstance(a, float) and isinstance(b, float) and a != a:
+        return b != b
+    return type(a) is type(b) and a == b
+
+
+def dataset_differences(a, b):
+    """Where two postprocessed datasets differ (empty where they are
+    equal): the order of coordinates and variables, the attrs and
+    encoding, and each array's name, dims, dtype, bytes, attrs and
+    coordinates; ``cc``'s ``postprocess`` timestamp aside."""
+    out = []
+
+    def array(key, x, y, skip=()):
+        if x.name != y.name or x.dims != y.dims:
+            out.append(f"{key} name or dims")
+        if not same_value(x.data, y.data):
+            out.append(f"{key} data")
+        if not same_value({k: v for k, v in x.attrs.items() if k not in skip},
+                          {k: v for k, v in y.attrs.items() if k not in skip}):
+            out.append(f"{key} attrs")
+        if list(x._coords) != list(y._coords):
+            out.append(f"{key} coordinates")
+        for k in x._coords:
+            if k in y._coords:
+                array(f"{key}.{k}", x._coords[k], y._coords[k])
+
+    if list(a._coords) != list(b._coords) or list(a._vars) != list(b._vars):
+        return ["coordinates or variables"]
+    if not same_value(a.attrs, b.attrs) or \
+            not same_value(a.encoding, b.encoding):
+        out.append("attrs or encoding")
+    for k in a._coords:
+        array(f"coord {k}", a._coords[k], b._coords[k])
+    for k in a._vars:
+        array(f"var {k}", a._vars[k], b._vars[k],
+              ("postprocess",) if k == "cc" else ())
+    return out
+
+
+#: ``postprocess`` on the card's path, held to its plain forms: the label
+#: that calls are recorded under (None: not recorded), the calls recorded
+#: and not yet run again, and per label the calls held and their pair-days
+TWICE = {"label": None, "pending": [], "held": {}, "real": None}
+#: every module that binds ``postprocess`` for the scripts to call
+TWICE_MODULES = ("xcorr_tpu_torch", "xcorr_tpu_torch.core",
+                 "xcorr_tpu_torch.core.postprocess",
+                 "xcorr_tpu_torch.scripts.snr", "xcorr_tpu_torch.scripts.psd",
+                 "xcorr_tpu_torch.scripts.beamform",
+                 "xcorr_tpu_torch.scripts.plmax",
+                 "xcorr_tpu_torch.scripts.swresp",
+                 "xcorr_tpu_torch.scripts.timelapse")
+
+
+@contextlib.contextmanager
+def postprocess_twice():
+    """While it runs, each ``postprocess`` call on the card (``device``
+    cuda) made under a label (:func:`held_twice`), by any name the
+    scripts call it, records its arguments and a deep copy of its result
+    (or its error): :func:`flush_twice` runs it again on the plain forms,
+    outside the timed and profiled sections, and holds the two equal."""
+    mods = [importlib.import_module(m) for m in TWICE_MODULES]
+    real = importlib.import_module(
+        "xcorr_tpu_torch.core.postprocess").postprocess
+    sig = inspect.signature(real)
+
+    def spy(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs).arguments
+        if TWICE["label"] is None or \
+                not str(bound.get("device", "cuda")).startswith("cuda"):
+            return real(*args, **kwargs)
+        try:
+            out = real(*args, **kwargs)
+        except ValueError as e:
+            TWICE["pending"].append((TWICE["label"], args, kwargs, e))
+            raise
+        if out is not bound["ds"]:  # not one postprocessed before
+            TWICE["pending"].append((TWICE["label"], args, kwargs,
+                                     out.copy(deep=True)))
+        return out
+
+    TWICE["real"] = real
+    for m in mods:
+        m.postprocess = spy
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.postprocess = real
+        TWICE["pending"].clear()
+
+
+@contextlib.contextmanager
+def held_twice(label):
+    """Record the card's ``postprocess`` calls under ``label`` while it
+    runs (:func:`postprocess_twice`)."""
+    prev, TWICE["label"] = TWICE["label"], label
+    try:
+        yield
+    finally:
+        TWICE["label"] = prev
+
+
+def flush_twice():
+    """Run every recorded ``postprocess`` call again on the plain forms
+    and hold its result (or its error) to the port forms' bit for bit."""
+    pending, TWICE["pending"] = TWICE["pending"], []
+    real = TWICE["real"]
+    with plain_postprocess():
+        for label, args, kwargs, want in pending:
+            try:
+                got = real(*args, **kwargs)
+            except ValueError as e:
+                check(isinstance(want, ValueError) and str(e) == str(want),
+                      f"{label}: postprocess raised {e!r} on the plain "
+                      f"forms, {want!r} on the port forms")
+                got = None
+            else:
+                check(not isinstance(want, ValueError),
+                      f"{label}: postprocess raised {want!r} on the port "
+                      f"forms and not on the plain forms")
+                diff = dataset_differences(want, got)
+                check(not diff, f"{label}: postprocess on the port forms "
+                                f"and on the plain forms differ in {diff}")
+            held = TWICE["held"].setdefault(label, [0, 0])
+            held[0] += 1
+            held[1] += 0 if got is None else got.dims["pair"]
+
+
+def twice_text(*labels):
+    """The calls each label held to the plain forms, as printed."""
+    parts = []
+    for label in labels:
+        n, pairs = TWICE["held"].get(label, (0, 0))
+        check(n > 0, f"{label}: no postprocess call held to the plain forms")
+        parts.append(f"{label} {n} calls ({pairs} pair-days)")
+    return ("postprocess on the card, port forms (select, span_weights) "
+            "against the plain forms (_select_plain, _span_weights_plain) "
+            "on the same inputs, bit-identical: " + ", ".join(parts))
+
+
 def phase7a_full_width(xt, dss, ndays):
     """``postprocess`` and ``snr`` of phase 6's pair-days at full lag
     width on the card, against the CPU; ms per pair-day by stage."""
@@ -1857,6 +2054,14 @@ def phase7a_full_width(xt, dss, ndays):
     snr_err = hold_snr(sn, sn_c, "7a")
     lag_max = np.unique(sn["lag_s_max"].values)
     ms = stage_ms(ds["cc"], -(ds["pair_offset"] + ds["time_offset"]))
+    # postprocess alone on the port forms, then on the plain forms
+    port, t_port = timed(lambda: xt.postprocess(ds, device="cuda", **kw))
+    with plain_postprocess():
+        plain, t_plain = timed(lambda: xt.postprocess(ds, device="cuda",
+                                                      **kw))
+    diff = dataset_differences(post, plain) + dataset_differences(port, plain)
+    check(not diff, f"7a: postprocess on the port forms and on the plain "
+                    f"forms differ in {diff}")
     phase(7, f"7a full width, {ndays} pair-days, cc {shape} float32: "
              f"postprocess + snr card {card:.2f} s ({card / ndays:.3f} s "
              f"per pair-day), CPU {cpu:.2f} s ({cpu / ndays:.3f}); card vs "
@@ -1864,6 +2069,11 @@ def phase7a_full_width(xt, dss, ndays):
              f"relative, lag_s_max equal ({lag_max.tolist()} s)")
     phase(7, "7a card ms per pair-day by stage (warm): " + "; ".join(
         f"{name} {t / ndays:.1f}" for name, t in ms))
+    phase(7, f"7a postprocess alone on the card (warm), ms per pair-day: "
+             f"port forms {1e3 * t_port / ndays:.1f}, plain forms "
+             f"{1e3 * t_plain / ndays:.1f}; the first run's result and "
+             f"the port forms' rerun bit-identical to the plain forms' "
+             f"(all {ndays} pair-days)")
 
 
 #: days of the campaign: enough for both EVENTS; the script's time limit
@@ -1939,6 +2149,30 @@ def campaign_split(xt, dss, pair_snr):
     return {k: v / len(dss) for k, v in split.items()}
 
 
+#: rounds of 7b's last day on the port forms and the plain forms in turns
+AB_ROUNDS = 5
+
+
+def campaign_ab(dss, pair_snr, rounds=AB_ROUNDS):
+    """``pair_snr`` of one campaign day's pair-days on the card, on the
+    port forms and on the plain forms (:func:`plain_postprocess`) in
+    turns, the order swapped each round, unprofiled and not recorded:
+    ``{form: [ms per pair-day of each round]}``."""
+    def run():
+        for d in dss:
+            pair_snr(d, celerity=CELERITY, filter_kwargs=HIGHPASS,
+                     attrs=ANALYSIS_ATTRS, device="cuda")
+
+    ms = {"port": [], "plain": []}
+    with held_twice(None):
+        for r in range(rounds):
+            for form in ("port", "plain")[::1 if r % 2 == 0 else -1]:
+                with (plain_postprocess() if form == "plain"
+                      else contextlib.nullcontext()):
+                    ms[form].append(1e3 * timed(run)[1] / len(dss))
+    return ms
+
+
 def campaign_geometry(pairs, inv):
     """Seeded pair distances (km) and arrival offsets (s) of the campaign:
     the Z and R pairs of one receiver share a distance, and so do the
@@ -1996,7 +2230,7 @@ def phase7b_campaign(xt, p8):
     launched = lost = 0
     for iday in range(CAMPAIGN_DAYS):
         dss = campaign_day(xt, init_args, pairs, dists, offsets, iday)
-        with device_profile() as prof:
+        with held_twice("7b"), device_profile() as prof:
             card, t = timed(lambda: snr_day(dss, "cuda"))
         wall["cuda"] += t
         first = t if first is None else first
@@ -2009,13 +2243,19 @@ def phase7b_campaign(xt, p8):
         days["cuda"].append(card)
         days["cpu"].append(cpu)
         if iday == CAMPAIGN_DAYS - 1:
-            split = campaign_split(xt, dss, pair_snr)
+            with held_twice("7b split"):
+                split = campaign_split(xt, dss, pair_snr)
+            ab = campaign_ab(dss, pair_snr)
         t8 = time.perf_counter()
-        phase8a_beamform(dss, iday, p8)
+        with held_twice("8a"):
+            phase8a_beamform(dss, iday, p8)
         if iday == 0:
-            phase8b_plmax(xt, dss, p8)
-        phase8c_swresp(xt, dss, p8)
+            with held_twice("8b"):
+                phase8b_plmax(xt, dss, p8)
+        with held_twice("8c"):
+            phase8c_swresp(xt, dss, p8)
         p8["seconds"] += time.perf_counter() - t8
+        flush_twice()
         del dss
     npd = CAMPAIGN_DAYS * len(pairs)
     share = share_text(dev_ms, wall["cuda"], lost)
@@ -2039,6 +2279,17 @@ def phase7b_campaign(xt, p8):
              f"postprocess's selection and lag clip (by difference) "
              f"{split['postprocess'] - chain:.1f}; on the clipped window "
              + "; ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+
+    def spread(v):
+        return (f"median {np.median(v):.1f} (min {min(v):.1f}, max "
+                f"{max(v):.1f})")
+    phase(7, f"7b day {CAMPAIGN_DAYS} pair_snr on the card, port forms and "
+             f"plain forms in turns ({AB_ROUNDS} rounds of "
+             f"{len(pairs)} pair-days, order swapped each round), ms per "
+             f"pair-day: port {spread(ab['port'])}; plain "
+             f"{spread(ab['plain'])}; rounds port "
+             f"{[round(v, 2) for v in ab['port']]}, plain "
+             f"{[round(v, 2) for v in ab['plain']]}")
 
     periods = {}
     for device in ("cuda", "cpu"):
@@ -2065,11 +2316,13 @@ def phase7b_campaign(xt, p8):
         for ip, pair in enumerate(pairs):
             out = {}
             for device in ("cuda", "cpu"):
-                out[device], t = timed(lambda: pair_psd(
-                    dss[ip], pair, start, end, clim=CELERITY,
-                    duration=2.5, padding_factor=4, filter_kwargs=HIGHPASS,
-                    snr=periods[device][1]["snr"], fmax=20.0,
-                    device=device))
+                with held_twice("7b psd"):
+                    out[device], t = timed(lambda: pair_psd(
+                        dss[ip], pair, start, end, clim=CELERITY,
+                        duration=2.5, padding_factor=4,
+                        filter_kwargs=HIGHPASS,
+                        snr=periods[device][1]["snr"], fmax=20.0,
+                        device=device))
                 wall[device] += t
             check(out["cuda"] is not None and out["cpu"] is not None,
                   f"7b: no PSD for {pair}")
@@ -2078,6 +2331,7 @@ def phase7b_campaign(xt, p8):
                   f"7b: PSD {g.shape} vs {w.shape}")
             err = max(err, rel_err(g, w, peak=True))
             npsd, shape = npsd + 1, g.shape
+        flush_twice()
         del dss
     check(err <= P7_TOL, f"7b: PSD {err} of its max")
     spans = "; ".join(f"{r.start} - {r.end}" for r in want.itertuples())
@@ -2085,6 +2339,7 @@ def phase7b_campaign(xt, p8):
              f"identical on card and CPU; {npsd} (pair, period) "
              f"spectrograms (last {shape}): card {wall['cuda']:.2f} s, CPU "
              f"{wall['cpu']:.2f} s; card vs CPU PSD {err:.2e} of its max")
+    phase(7, "7b " + twice_text("7b", "7b split", "7b psd"))
 
 
 #: the six stations of the production array pairs
@@ -2321,6 +2576,7 @@ def phase8_report(p8):
                             f"pair-day)", r, "pair-day")
               + f"; card vs CPU psd {r['err']:.2e} of its max; "
               f"{r['peaks']} peaks, {r['ties']} differ as near-ties")
+    phase(8, "8a-8c " + twice_text("8a", "8b", "8c"))
     r = p8["sw"]["swresp"]
     phase(8, tally_line("8c swresp", r, "pair-day")
           + f"; card vs CPU on {r['held']} of {r['bins']} bins: ratio "
@@ -2382,9 +2638,10 @@ def phase8d_timelapse(xt, p8):
     shapes, ties = {}, 0
     for ip in TL_PAIRS:
         gen[0] = 0.0
-        with device_profile() as prof:
+        with held_twice("8d"), device_profile() as prof:
             (specs, freq), t = timed(lambda: pair_spectrograms(
                 days(ip, range(TL_DAYS)), times, device="cuda", **kw))
+        flush_twice()
         ms, k, c, n, miss = device_ops(prof)
         cache["card"] += t - gen[0]
         cache["dev_ms"] += ms
@@ -2463,6 +2720,7 @@ def phase8d_timelapse(xt, p8):
                          for (f0, f1), v in shapes.items())
              + f"; peak device memory {peak_gb:.2f} GB above "
                f"{base / 1e9:.2f}")
+    phase(8, "8d " + twice_text("8d"))
     phase(8, f"8d card vs CPU: spectrograms of {TL_SAMPLE_TIMES} times per "
              f"pair within {err['spec']:.2e} of their max; "
              f"{TL_SAMPLE_CELLS} cells per (pair, band): cc2 within "
@@ -4183,16 +4441,17 @@ def main(only=None):
 
     # -- 7. the analysis slice: full width, then the campaign --------------
     t7 = time.perf_counter()
-    phase7a_full_width(xt, dss, ENGINE_DAYS)
-    del dss
-    t7b = time.perf_counter()
-    p8 = new_phase8()
-    phase7b_campaign(xt, p8)
-    t8d = time.perf_counter()
+    with postprocess_twice():
+        phase7a_full_width(xt, dss, ENGINE_DAYS)
+        del dss
+        t7b = time.perf_counter()
+        p8 = new_phase8()
+        phase7b_campaign(xt, p8)
+        t8d = time.perf_counter()
 
-    # -- 8. the rest of the analysis tier: 8a-8c ran in 7b's day loop ------
-    phase8_report(p8)
-    phase8d_timelapse(xt, p8)
+        # -- 8. the rest of the analysis tier: 8a-8c ran in 7b's day loop --
+        phase8_report(p8)
+        phase8d_timelapse(xt, p8)
     t_end = time.perf_counter()
     phase(8, f"command time: phases 1-5 {t6 - t_start:.1f} s, phase 6 "
              f"{t7 - t6:.1f} s, 7a {t7b - t7:.1f} s, 7b "

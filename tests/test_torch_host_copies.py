@@ -217,6 +217,24 @@ from ._live import drop_unread
         time = to_datetime(time)"""),
 ]
 
+#: the unbias weights of the clipped lags alone (``signal/_unbias.py``),
+#: bit-equal to the carried slice of the whole range, its plain version
+_UNBIAS = [(
+    """from ..util.cc import weight
+""", ""), (
+    """from ._helpers import get_dim
+""",
+    """from ._helpers import get_dim
+from ._unbias import span_weights
+"""), (
+    """    w = weight(lag.attrs["npts"], pad=True)[
+        lag.attrs["index_min"]: lag.attrs["index_max"]]
+""",
+    """    w = span_weights(lag.attrs["npts"], lag.attrs["index_min"],
+                     lag.attrs["index_max"])
+"""),
+]
+
 _SYSMEM_SRC = (ROOT / "xcorr_tpu" / "util" / "sysmem.py").read_text()
 #: the heap settings are carried; the JAX compile cache (the module's
 #: last function, to its end) and the ``os`` import only it used are not
@@ -275,7 +293,7 @@ CARRIED = {
     "core/merge.py": [],
     "core/accessors.py": [],
     "core/plot.py": [],
-    "signal/unbias.py": [],
+    "signal/unbias.py": _UNBIAS,
     "signal/absolute.py": [],
     "signal/rms.py": [],
     "signal/taper.py": [],

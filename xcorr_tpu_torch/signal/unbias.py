@@ -18,10 +18,10 @@ import warnings
 import numpy as np
 
 from ..ndlabel import DataArray
-from ..util.cc import weight
 from ..util.history import historicize
 from ..util.time import update_lag_indices
 from ._helpers import get_dim
+from ._unbias import span_weights
 
 __all__ = ["unbias", "unbias_weights"]
 
@@ -60,8 +60,8 @@ def unbias_weights(lag, name: str = "w"):
     for attr in ("sampling_rate", "delta", "npts", "index_min", "index_max"):
         if attr not in lag.attrs:
             raise ValueError(f'Lag has no attribute "{attr}"!')
-    w = weight(lag.attrs["npts"], pad=True)[
-        lag.attrs["index_min"]: lag.attrs["index_max"]]
+    w = span_weights(lag.attrs["npts"], lag.attrs["index_min"],
+                     lag.attrs["index_max"])
     out = DataArray(w, dims=(lag.name,), name=name, attrs={
         "long_name": "Unbiased CC estimate scale factor", "units": "-"})
     out._coords = {lag.name: lag}
