@@ -1414,18 +1414,20 @@ def plain_host_path(lanczos=True):
     among them scipy's ``sosfilt`` loop for the native one and a fresh
     array for each window's merge in place of the thread's buffer, and
     ``remove_response``'s carried expressions), a fetch pool per
-    ``process`` call (``core/process.py`` ``_fetch_all_plain``) and,
-    with ``lanczos``, the carried numpy Lanczos loop (``stream/trace.py``
-    ``_lanczos_interp``)."""
+    ``process`` call and the client's pair fetch, uncached
+    (``core/process.py`` ``_fetch_all_plain``, ``_pair_windows_plain``)
+    and, with ``lanczos``, the carried numpy Lanczos loop
+    (``stream/trace.py`` ``_lanczos_interp``)."""
     from xcorr_tpu_torch.stream import _live, _response, _steps, _window
     from xcorr_tpu_torch.stream import client as client_mod
     from xcorr_tpu_torch.stream import trace as trace_mod
     process_mod = importlib.import_module("xcorr_tpu_torch.core.process")
     real = (client_mod.read_window, _response.inverse_response,
             trace_mod.lanczos_interp, client_mod.drop_unread,
-            process_mod.fetch_all)
+            process_mod.fetch_all, process_mod.pair_windows)
     forms = {name: getattr(_steps, name) for name in _steps.FORMS}
     process_mod.fetch_all = process_mod._fetch_all_plain
+    process_mod.pair_windows = process_mod._pair_windows_plain
     client_mod.read_window = _window._read_window_plain
     _response.inverse_response = _response._inverse_response_plain
     client_mod.drop_unread = _live._drop_unread_plain
@@ -1438,7 +1440,7 @@ def plain_host_path(lanczos=True):
     finally:
         (client_mod.read_window, _response.inverse_response,
          trace_mod.lanczos_interp, client_mod.drop_unread,
-         process_mod.fetch_all) = real
+         process_mod.fetch_all, process_mod.pair_windows) = real
         for name, form in forms.items():
             setattr(_steps, name, form)
 
@@ -4001,7 +4003,7 @@ def phase11_cli(xt, ff):
     from xcorr_tpu_torch.scripts import cc as cc_cli
     from xcorr_tpu_torch.scripts import snr as snr_cli
     from xcorr_tpu_torch.stream import Client
-    from xcorr_tpu_torch.stream import _daycache, _response, _window
+    from xcorr_tpu_torch.stream import _daycache, _response, _shared, _window
     from xcorr_tpu_torch.stream import sds as sds_mod
     set_route("corr")
     tmp = tempfile.TemporaryDirectory()
@@ -4022,8 +4024,9 @@ def phase11_cli(xt, ff):
               f"{fast_s:.3f} s against {plain_s:.3f} s for them all, one "
               f"thread")
 
-    def run_cli(pair, days):
-        """``xcorr-torch-cc`` over ``pair``'s pair-days from an empty
+    def run_cli(pair, days, out=root):
+        """``xcorr-torch-cc`` over ``pair``'s pair-days (a pair, or a list
+        of pairs run as one campaign) into ``out`` from an empty
         day-file cache and response cache, its shard writes, day-file
         reads (views of the cache; those that found the decode cached are
         hits), decodes and window merges timed where the campaign makes
@@ -4034,10 +4037,18 @@ def phase11_cli(xt, ff):
         took its array (``window_arrays``: no thread takes a fresh one
         of a key twice, and only the fetch pool's threads fetch for the
         pair-days), from a fetch pool made for the run, which it shuts
-        down at its end; the process's peak resident set meanwhile."""
-        writes, decodes, reads, merges = [], [], [], []
+        down at its end; the process's peak resident set meanwhile; the
+        campaign scope's counts (``stream/_shared.py``), the scope empty
+        at the end."""
+        pairs = [pair] if isinstance(pair, str) else list(pair)
+        writes, decodes, reads, merges, scopes = [], [], [], [], []
         real = (lazy.write, sds_mod._decode_dayfile, _window.day_views,
-                _window.merge_window)
+                _window.merge_window, lazy.WindowScope)
+
+        class Scope(real[4]):
+            def __init__(self, plan):
+                super().__init__(plan)
+                scopes.append(self)
 
         def timed(fn, out, arg=0):
             def call(*a, **kw):
@@ -4059,6 +4070,8 @@ def phase11_cli(xt, ff):
         sds_mod._decode_dayfile = timed(real[1], decodes)
         _window.day_views = timed(real[2], reads, 2)
         _window.merge_window = merge
+        lazy.WindowScope = Scope
+        _shared.reset_counts()
         _daycache.DAYS.clear()
         _response.RESPONSES.clear()
         shutdown_fetch_pool()
@@ -4067,14 +4080,15 @@ def phase11_cli(xt, ff):
         try:
             with chain_stages() as stages, window_arrays() as arrays, \
                     peak_rss() as rss:
-                rc = cc_cli.main(["--root", root, "--sds-root", sds,
-                                  "--pair", pair, "--start",
-                                  f"{days[0]:%F}", "--end", f"{days[-1]:%F}",
-                                  "--inventory", inv_path])
+                rc = cc_cli.main(
+                    ["--root", out, "--sds-root", sds]
+                    + [a for p in pairs for a in ("--pair", p)]
+                    + ["--start", f"{days[0]:%F}", "--end", f"{days[-1]:%F}",
+                       "--inventory", inv_path])
                 torch.cuda.synchronize()
         finally:
             (lazy.write, sds_mod._decode_dayfile, _window.day_views,
-             _window.merge_window) = real
+             _window.merge_window, lazy.WindowScope) = real
         wall = time.perf_counter() - t0
         decoded = [p for _, p in decodes]
         check(len(decoded) == len(set(decoded))
@@ -4087,8 +4101,14 @@ def phase11_cli(xt, ff):
         others = {k: v for k, v in counts.items()
                   if k != "fused_corr" and v}
         check(not others, f"xcorr-torch-cc also launched {others}")
-        check(len(writes) == len(days), f"{len(writes)} shard writes for "
-                                        f"{len(days)} pair-days")
+        npd = len(days) * len(pairs)
+        check(len(writes) == npd, f"{len(writes)} shard writes for {npd} "
+                                  f"pair-days")
+        shared = _shared.counts()
+        check(len(scopes) == 1 and scopes[0].nbytes == 0
+              and not scopes[0].planned(),
+              f"{pair}: the campaign scope is not empty at the end: "
+              f"{[(sc.nbytes, sc.planned()) for sc in scopes]}")
         report, most = window_array_report(arrays)
         check(most <= 1, f"{pair}: a fetch thread took {most} fresh arrays "
                          f"of one key: {report}")
@@ -4098,16 +4118,18 @@ def phase11_cli(xt, ff):
                                    f"of {threads} took arrays")
         shutdown_fetch_pool()
         return wall, counts["fused_corr"], [w for w, _ in writes], \
-            decodes, reads, merges, stages, report, threads, rss, fresh
+            decodes, reads, merges, stages, report, threads, rss, fresh, \
+            shared
 
     def cli_line(pair, days, run, shards, shard_reads):
         wall, k1, writes, decodes, reads, merges, _, arrays, threads, \
-            rss, fresh = run
+            rss, fresh, shared = run
+        npd = len(days) * (1 if isinstance(pair, str) else len(pair))
         top = max(fresh) if fresh else 0
         mb = [b / 1e6 for _, b, _ in merges]
         carried = [c / 1e6 for _, _, c in merges]
-        return (f"xcorr-torch-cc {pair}: {len(days)} pair-days in "
-                f"{wall:.2f} s wall, {wall / len(days):.2f} s per pair-day; "
+        return (f"xcorr-torch-cc {pair}: {npd} pair-days in "
+                f"{wall:.2f} s wall, {wall / npd:.2f} s per pair-day; "
                 f"K1 launches {k1}; bytes per shard {shards}; write s per "
                 f"shard (in the campaign) {[round(x, 4) for x in writes]}; "
                 f"read s per shard {[round(x, 4) for x in shard_reads]}; "
@@ -4126,11 +4148,17 @@ def phase11_cli(xt, ff):
                 f"(the carried merge {min(carried):.1f}-"
                 f"{max(carried):.1f} MB: a copy of each day file and the "
                 f"union); one fetch pool of {threads} threads over the "
-                f"{len(days)} pair-days, which took {fresh.get(top, 0)} "
+                f"{npd} pair-days, which took {fresh.get(top, 0)} "
                 f"fresh arrays of {top / 1e6:.1f} MB; the chains' arrays: "
                 f"{arrays}; peak resident set "
                 f"{(rss['peak'] or 0) / 1e9:.2f} GB (at the start "
-                f"{(rss['start'] or 0) / 1e9:.2f} GB)")
+                f"{(rss['start'] or 0) / 1e9:.2f} GB); the campaign scope: "
+                f"{shared['chains']} chains, {shared['hits']} hits, "
+                f"{shared['waits']} waits, {shared['bypassed']} bypassed, "
+                f"{shared['over_cap']} not kept for the cap, "
+                f"{shared['empty']} empty, peak "
+                f"{shared['peak_bytes'] / 1e6:.1f} MB held, empty at the "
+                f"end")
 
     def held(pair, days, want_lag):
         """Every shard of ``pair``: read, validate, status, peaks at
@@ -4243,14 +4271,67 @@ def phase11_cli(xt, ff):
         if bh == "BHR":
             check_unread_z(run[6], "phase 11 BHR-EDH")
         wall[bh] = (run[0] / len(bh_days), run[1])
+    trio = phase11_trio(xt, run_cli, cli_line, root, days[:1], tmp.name)
     check("h5py" not in sys.modules, "h5py was imported")
     tmp.cleanup()
     phase(11, f"xcorr-torch-cc wall per pair-day: EDH-EDH "
               f"{edh[0] / len(days):.2f} s, BHZ-EDH "
-              f"{wall['BHZ'][0]:.2f} s, BHR-EDH {wall['BHR'][0]:.2f} s")
+              f"{wall['BHZ'][0]:.2f} s, BHR-EDH {wall['BHR'][0]:.2f} s; "
+              f"the three pairs as one campaign {trio[0] / 3:.2f} s")
     return {"11 xcorr-torch-cc": {"fused_corr": edh[1]},
             "11 xcorr-torch-cc BHZ-EDH": {"fused_corr": wall["BHZ"][1]},
-            "11 xcorr-torch-cc BHR-EDH": {"fused_corr": wall["BHR"][1]}}
+            "11 xcorr-torch-cc BHR-EDH": {"fused_corr": wall["BHR"][1]},
+            "11 xcorr-torch-cc three pairs": {"fused_corr": trio[1]}}
+
+
+#: phase 11's three pairs, as one campaign over its first day
+P11_TRIO = (P11_PAIR, P11_BHZ_PAIR, P11_BHR_PAIR)
+
+#: the variables of a shard that a campaign's form must leave the same bits
+SHARD_VARS = ("cc", "status", "pair_offset", "time_offset", "hash")
+
+
+def phase11_trio(xt, run_cli, cli_line, single_root, day, tmp):
+    """``xcorr-torch-cc`` over ``P11_TRIO`` and ``day`` as one campaign:
+    six receiver-windows per window time, four distinct
+    (``IM.H03S1..EDH`` in all three pairs). The shards are the bits of
+    the single-pair runs' shards of that day in ``single_root`` (each
+    pair alone shares nothing within a window time: the uncached
+    result), with status 1; the campaign scope ran four chains and
+    served two windows per window time, K1 launched once per pair-day,
+    and the scope is empty at the end (``run_cli``). Returns the wall and
+    K1's launches."""
+    out = os.path.join(tmp, "cc-trio")
+    run = run_cli(list(P11_TRIO), day, out)
+    nwin, sizes = None, []
+    for pair in P11_TRIO:
+        path = xt.ncfile(pair, day[0], out)
+        got, want = xt.read(path), xt.read(xt.ncfile(pair, day[0],
+                                                     single_root))
+        check(bool((got["status"].values == 1).all()),
+              f"{pair} in the campaign: status {got['status'].values}")
+        for name in SHARD_VARS:
+            if name in want.variables:
+                a, b = got[name].values, want[name].values
+                check(a.dtype == b.dtype and a.tobytes() == b.tobytes(),
+                      f"{pair} {name}: the campaign's shard differs from "
+                      f"the pair alone")
+        nwin = got["status"].shape[1]
+        sizes.append(os.path.getsize(path))
+    shared = run[-1]
+    check(shared["chains"] == 4 * nwin
+          and shared["hits"] + shared["waits"] == 2 * nwin
+          and not shared["bypassed"],
+          f"three pairs x {nwin} windows: the scope ran {shared}, expected "
+          f"{4 * nwin} chains and {2 * nwin} served")
+    check(run[1] == len(P11_TRIO), f"K1 launched {run[1]} times for "
+                                   f"{len(P11_TRIO)} pair-days")
+    phase(11, cli_line(list(P11_TRIO), day, run, sizes, [])
+              + f"; the shards bit-identical to each pair alone, status 1; "
+              f"{4 * nwin} chains for {6 * nwin} receiver-windows")
+    phase(11, f"xcorr-torch-cc over the three pairs by chain stage, s "
+              f"summed over its fetch threads: {stage_report(run[6])}")
+    return run[0], run[1]
 
 
 REPO = os.path.dirname(os.path.abspath(__file__))

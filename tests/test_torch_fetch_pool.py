@@ -6,9 +6,12 @@ Two ``process(device="cpu")`` calls in a row fetch on the same pool
 threads, which take no fresh window array after their first, and give
 the CCFs of the pool-per-call plain form (``_fetch_all_plain``) bit for
 bit; a resumed pair-day with fewer pending windows runs on the same
-pool; results keep the work's order, also for sixteen callers at once
-on the one pool, none with more fetches at once than its workers; more
-workers than the pool's threads run on a pool of their own; a fetch
+pool; in a campaign's window scope (``stream/_shared.py``) the second
+pair takes the shared receiver's windows from the scope, and the CCFs
+are every form's plain version's (``FORMS``); results keep the work's
+order, also for sixteen callers at once on the one pool, none with more
+fetches at once than its workers; more workers than the pool's threads
+run on a pool of their own; a fetch
 that raises raises from ``process`` and from ``fetch_all``, which cancel
 what had not started and wait for what had; one worker fetches in the
 caller's thread; the shutdown frees what the threads kept (weak
@@ -17,6 +20,7 @@ pool. All samples come from seeded numpy generators.
 """
 import gc
 import importlib
+import inspect
 import os
 import threading
 import time
@@ -31,7 +35,7 @@ from xcorr_tpu_torch.core.process import (_fetch_all_plain, fetch_all,
                                           shutdown_fetch_pool)
 from xcorr_tpu_torch.native import mseed as tm
 from xcorr_tpu_torch.scripts.cc import default_config
-from xcorr_tpu_torch.stream import _daycache, _response, _steps
+from xcorr_tpu_torch.stream import _daycache, _response, _shared, _steps
 from xcorr_tpu_torch.stream import sds as tsds
 
 process_mod = importlib.import_module("xcorr_tpu_torch.core.process")
@@ -166,7 +170,10 @@ def test_two_calls_share_the_pool_threads(archive, pair, buffers,
     _daycache.DAYS.clear()
     _response.RESPONSES.clear()
     shutdown_fetch_pool()
-    monkeypatch.setattr(process_mod, "fetch_all", _fetch_all_plain)
+    for name in process_mod.FORMS:
+        monkeypatch.setattr(process_mod, name,
+                            getattr(process_mod, f"_{name}_plain"))
+    assert process_mod.fetch_all is _fetch_all_plain
     want = pair_days(archive, pair)
     for g, w in zip(got, want):
         assert (g["status"].values == 1).all()
@@ -376,6 +383,59 @@ def test_shutdown_frees_what_the_threads_keep(archive, monkeypatch):
     assert process_mod._POOL is None
     assert not any(t.is_alive() for t in threads)
     assert all(r() is None for r in refs)
+
+
+@pytest.mark.parametrize("name", process_mod.FORMS)
+def test_every_form_has_its_plain_version(name):
+    """Each form ``process`` calls has its plain version, with the same
+    parameters, that a caller can put in its place."""
+    form, plain = (getattr(process_mod, n) for n in (name, f"_{name}_plain"))
+    assert callable(plain) and plain is not form
+    assert inspect.signature(form).parameters.keys() == \
+        inspect.signature(plain).parameters.keys()
+
+
+def test_a_campaign_scope_on_the_pool(archive, buffers, monkeypatch):
+    """Both pairs' pair-days in one campaign scope on the pool: the
+    shared receiver's windows are served from the scope to the second
+    pair, no thread takes a second fresh array of a key, the scope ends
+    empty, and the CCFs are the bits of every form's plain version
+    (``core/process.py`` ``FORMS``: a pool per call, the client's pair
+    fetch)."""
+    seen, calls = buffers
+    inv, cl = inventory(), xt.stream.Client(sds_root=archive)
+    pairs = (EDH_PAIR, BHZ_PAIR)
+    _shared.reset_counts()
+    got = []
+    with _shared.WindowScope.of([(p, DAY) for p in pairs
+                                 for _ in SPANS]) as scope:
+        for pair in pairs:
+            for span in SPANS:
+                ds = dataset(pair, span, inv)
+                with scope.pair_day(pair, DAY):
+                    xt.process(ds, cl, inventory=inv, device="cpu", verb=0)
+                got.append(ds)
+                calls[0] += 1
+        assert scope.nbytes == 0 and scope.planned() == {}
+    served = _shared.counts()
+    assert served["hits"] + served["waits"] >= sum(
+        d["status"].shape[1] for d in got[len(SPANS):])
+    assert served["bypassed"] == 0
+    fresh = {}
+    for t, _, key, reused in seen:
+        fresh[t, key] = fresh.get((t, key), 0) + (not reused)
+    assert max(fresh.values()) == 1
+    _daycache.DAYS.clear()
+    _response.RESPONSES.clear()
+    shutdown_fetch_pool()
+    for name in process_mod.FORMS:
+        monkeypatch.setattr(process_mod, name,
+                            getattr(process_mod, f"_{name}_plain"))
+    want = pair_days(archive, EDH_PAIR) + pair_days(archive, BHZ_PAIR)
+    for g, w in zip(got, want):
+        assert (g["status"].values == 1).all()
+        assert g["status"].values.tobytes() == w["status"].values.tobytes()
+        assert g["cc"].values.tobytes() == w["cc"].values.tobytes()
 
 
 def test_another_process_makes_its_own_pool(monkeypatch):

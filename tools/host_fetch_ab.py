@@ -3,7 +3,10 @@
     python3 tools/host_fetch_ab.py [--pairs 10] [--against TREE]
                                    [--plain-forms NAME,...]
     python3 tools/host_fetch_ab.py --campaign 4,8 [--pairs 3]
-                                   [--forms process,per-call,per-caller]
+                                   [--forms process,per-call,per-caller,
+                                            uncached]
+    python3 tools/host_fetch_ab.py --trio [--pairs 3]
+                                   [--forms process,uncached]
 
 Writes ``chip_smoke.py``'s phase 11 miniSEED archive (2 EDH stations at
 250 Hz, ``IU.RAR.10.BH1/BH2/BHZ`` at 40 Hz, 5 days), then, ``--pairs``
@@ -43,7 +46,16 @@ pool per calling thread; all by default), each run a new process, the
 order turned each round. It prints each run's seconds per pair-day and
 peak resident set, then per campaign and form the medians and quartile
 spreads, and the rounds the first form won against each other; every
-form's shards must be the same bits.
+form's shards must be the same bits. The form ``uncached`` runs each
+pair's fetch through the client's pair fetch (``core/process.py``
+``_pair_windows_plain``), so each receiver's chain runs once per pair
+that reads it instead of once per window in the campaign's scope
+(``stream/_shared.py``); each run prints the scope's counts too.
+
+With ``--trio`` the campaign is instead phase 11's three pairs
+(``chip_smoke.P11_TRIO``: EDH-EDH, BHZ-EDH and BHR-EDH, ``IM.H03S1..EDH``
+in all three) over phase 11's first day, on phase 11's archive: the
+production mix of EDH and BH chains.
 """
 
 from __future__ import annotations
@@ -139,7 +151,13 @@ torch.cuda.synchronize()
 t0 = time.perf_counter()
 rc = cc_cli.main({argv!r})
 torch.cuda.synchronize()
-print(json.dumps({{"rc": rc, "wall": time.perf_counter() - t0,
+wall = time.perf_counter() - t0
+try:
+    from xcorr_tpu_torch.stream import _shared
+    scope = _shared.counts()
+except ImportError:
+    scope = None
+print(json.dumps({{"rc": rc, "wall": wall, "scope": scope,
                   "rss": resource.getrusage(
                       resource.RUSAGE_SELF).ru_maxrss * 1024}}))
 """
@@ -192,10 +210,12 @@ P.fetch_all = fetch_all
 """
 
 #: the fetch forms of ``--campaign``, as code that a run executes with
-#: ``core.process`` as ``P`` before the CLI: the process's one pool (the
-#: port's), a pool per call, a pool per calling thread
+#: ``core.process`` as ``P`` before the CLI: the process's one pool and
+#: the campaign's shared windows (the port's), a pool per call, a pool
+#: per calling thread, the client's pair fetch without shared windows
 FETCH_FORMS = {"process": "", "per-call": "P.fetch_all = P._fetch_all_plain",
-               "per-caller": CALLER_POOL}
+               "per-caller": CALLER_POOL,
+               "uncached": "P.pair_windows = P._pair_windows_plain"}
 
 def campaign_archive(sds, inv_path):
     """Phase 11's archive days of ``CAMPAIGN_STATIONS`` at 250 Hz raw
@@ -213,37 +233,48 @@ def campaign_archive(sds, inv_path):
                for i, r in enumerate(CAMPAIGN_STATIONS)]).to_json(inv_path)
 
 
-def campaign(sizes, rounds, forms=tuple(FETCH_FORMS)):
+def campaign(sizes, rounds, forms=tuple(FETCH_FORMS), trio=False):
     """``xcorr-torch-cc`` over the first ``n`` EDH pairs of
     ``CAMPAIGN_STATIONS`` and phase 11's two days, for each ``n`` of
-    ``sizes``, each run a new process of this checkout on each of the
-    ``FETCH_FORMS`` named ``forms``, ``rounds`` times in turns; returns
-    the seconds per pair-day and the peak resident sets by size and
-    form."""
+    ``sizes`` (with ``trio``, over ``chip_smoke.P11_TRIO`` and phase
+    11's first day instead), each run a new process of this checkout on
+    each of the ``FETCH_FORMS`` named ``forms``, ``rounds`` times in
+    turns; returns the seconds per pair-day, the peak resident sets and
+    the scope's counts by campaign and form."""
     import itertools
     import xcorr_tpu_torch as xt
     tmp = tempfile.TemporaryDirectory()
     sds = os.path.join(tmp.name, "sds")
     inv_path = os.path.join(tmp.name, "inventory.json")
     t0 = time.perf_counter()
-    campaign_archive(sds, inv_path)
-    print(f"campaign archive: {len(CAMPAIGN_STATIONS)} EDH stations x "
-          f"{len(cs.P11_ARCHIVE)} days in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    pairs = ["-".join(p) for p in itertools.combinations(
-        CAMPAIGN_STATIONS, 2)]
     days = pd.date_range(*cs.P11_DAYS, freq="1D")
+    if trio:
+        cs.phase11_inventory(inv_path)
+        cs.phase11_archive(sds)
+        cases = {"trio": list(cs.P11_TRIO)}
+        days = days[:1]
+        print(f"phase 11 archive in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    else:
+        campaign_archive(sds, inv_path)
+        print(f"campaign archive: {len(CAMPAIGN_STATIONS)} EDH stations x "
+              f"{len(cs.P11_ARCHIVE)} days in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        pairs = ["-".join(p) for p in itertools.combinations(
+            CAMPAIGN_STATIONS, 2)]
+        cases = {n: pairs[:n] for n in sizes}
     env = {k: v for k, v in os.environ.items() if k not in cs.ROUTE_VARS}
-    walls = {n: {f: [] for f in forms} for n in sizes}
-    rss = {n: {f: [] for f in forms} for n in sizes}
+    walls = {n: {f: [] for f in forms} for n in cases}
+    rss = {n: {f: [] for f in forms} for n in cases}
+    scope = {n: {f: [] for f in forms} for n in cases}
     for i in range(rounds):
         order = forms[::-1] if i % 2 else forms
-        for n in sizes:
+        for n, cpairs in cases.items():
             argv = ["--sds-root", sds, "--start", f"{days[0]:%F}", "--end",
                     f"{days[-1]:%F}", "--inventory", inv_path]
-            for p in pairs[:n]:
+            for p in cpairs:
                 argv += ["--pair", p]
-            npd = n * len(days)
+            npd = len(cpairs) * len(days)
             for f in order:
                 root = os.path.join(tmp.name, f"{n}-{f}")
                 proc = subprocess.run(
@@ -258,37 +289,50 @@ def campaign(sizes, rounds, forms=tuple(FETCH_FORMS)):
                                          f"{out['rc']}")
                 walls[n][f].append(out["wall"] / npd)
                 rss[n][f].append(out["rss"])
-            for p in pairs[:n]:
+                scope[n][f].append(out["scope"])
+            for p in cpairs:
                 for day in days:
                     a, *b = (xt.read(xt.ncfile(
                         p, day, os.path.join(tmp.name, f"{n}-{f}")))
                         for f in forms)
                     cs.check((a["status"].values == 1).all() and all(
-                        a["cc"].values.tobytes() == o["cc"].values.tobytes()
-                        for o in b), f"{p} {day:%F}: the forms' shards "
-                                     "differ")
+                        a[v].values.tobytes() == o[v].values.tobytes()
+                        for o in b for v in cs.SHARD_VARS
+                        if v in a.variables), f"{p} {day:%F}: the forms' "
+                                              "shards differ")
             for f in forms:
                 shutil.rmtree(os.path.join(tmp.name, f"{n}-{f}"))
             print(f"round {i + 1} {npd} pair-days, s per pair-day: "
                   + ", ".join(f"{f} {walls[n][f][-1]:.4f} "
-                              f"(peak {rss[n][f][-1] / 1e9:.2f} GB)"
+                              f"(peak {rss[n][f][-1] / 1e9:.2f} GB; scope "
+                              f"{scope_text(scope[n][f][-1])})"
                               for f in order), flush=True)
     tmp.cleanup()
-    for n in sizes:
-        npd = n * len(days)
+    for n, cpairs in cases.items():
+        npd = len(cpairs) * len(days)
         for f in forms:
             w = walls[n][f]
             q = statistics.quantiles(w, n=4) if rounds > 1 else [0, 0, 0]
-            print(f"{npd} pair-days, {f}: median {statistics.median(w):.4f} "
-                  f"s per pair-day (quartile spread {q[2] - q[0]:.4f}), "
-                  f"peak resident set median "
+            print(f"{npd} pair-days ({n}), {f}: median "
+                  f"{statistics.median(w):.4f} s per pair-day (quartile "
+                  f"spread {q[2] - q[0]:.4f}), peak resident set median "
                   f"{statistics.median(rss[n][f]) / 1e9:.2f} GB", flush=True)
         for f in forms[1:]:
             wins = sum(a < b for a, b in zip(walls[n][forms[0]],
                                              walls[n][f]))
-            print(f"{npd} pair-days: {forms[0]} faster than {f} in {wins} "
-                  f"of {rounds} rounds; shards the same bits", flush=True)
-    return {"walls": walls, "rss": rss}
+            print(f"{npd} pair-days ({n}): {forms[0]} faster than {f} in "
+                  f"{wins} of {rounds} rounds; shards the same bits",
+                  flush=True)
+    return {"walls": walls, "rss": rss, "scope": scope}
+
+
+def scope_text(counts):
+    """A run's scope counts as text."""
+    if counts is None:
+        return "none"
+    return (f"{counts['chains']} chains, {counts['hits']} hits, "
+            f"{counts['waits']} waits, peak "
+            f"{counts['peak_bytes'] / 1e9:.2f} GB")
 
 
 def ab(pairs, against=None, names=None):
@@ -368,9 +412,14 @@ def main():
                         help="comma-separated numbers of EDH pairs: run "
                              "the CLI over each as a campaign on each "
                              "fetch form instead")
+    parser.add_argument("--trio", action="store_true",
+                        help="run phase 11's three pairs over its first "
+                             "day as one campaign on each fetch form "
+                             "instead")
     parser.add_argument("--forms", default=",".join(FETCH_FORMS),
                         help="comma-separated FETCH_FORMS that --campaign "
-                             "runs, the first compared with the others")
+                             "and --trio run, the first compared with the "
+                             "others")
     args = parser.parse_args()
     names = args.plain_forms.split(",") if args.plain_forms else None
     forms = sorted(form_modules())
@@ -383,12 +432,12 @@ def main():
     from xcorr_tpu_torch.ops import _build
     _build.load()
     cs.set_route("corr")
-    if args.campaign:
-        sizes = [int(n) for n in args.campaign.split(",")]
+    if args.campaign or args.trio:
+        sizes = [int(n) for n in (args.campaign or "0").split(",")]
         forms = tuple(args.forms.split(","))
         cs.check(len(forms) > 1 and set(forms) <= set(FETCH_FORMS),
                  f"--forms: two or more of {sorted(FETCH_FORMS)}")
-        print(json.dumps(campaign(sizes, args.pairs, forms)))
+        print(json.dumps(campaign(sizes, args.pairs, forms, args.trio)))
     else:
         print(json.dumps(ab(args.pairs, args.against, names)))
 

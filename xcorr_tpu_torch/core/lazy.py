@@ -14,6 +14,12 @@ Batch production (spec: ``xcorr/core/lazy.py:26-369``; port of
   windows per launch), while a writer thread overlaps chunk N's readback
   and shard writes with chunk N+1's fetches and launches.
 
+On the host engine this process's pair-days run day by day, the pairs of
+a day in the order of ``pairs``, inside a campaign scope
+(:class:`..stream._shared.WindowScope`) that runs each receiver's chain
+once per window for the pair-days that read it; the results keep the
+gated list's order.
+
 Resume semantics are identical: a shard whose ``status`` flags are all 1
 is skipped, fetch failures are flagged -1 and retried on the next run.
 In a multi-process group (:func:`..parallel.distributed.initialize`)
@@ -25,6 +31,7 @@ ported: the JAX package's compile cache.
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 
@@ -35,6 +42,7 @@ from .. import util
 from ..io.filesystem import ncfile
 from ..io.read import read
 from ..io.write import write
+from ..stream._shared import WindowScope
 from .init import init as core_init
 from .process import process as core_process, resolve_device
 
@@ -145,18 +153,32 @@ def gated_pair_days(pairs: list, times, availability=None,
 
 
 def _make_task(pair, time, init_args, client, inventory, root,
-               verb: int = 0, **kwargs):
+               verb: int = 0, scope=None, **kwargs):
     """Zero-arg callable running one (pair, day) shard with error
-    isolation (an exception fails the task, not the campaign)."""
+    isolation (an exception fails the task, not the campaign); with a
+    :class:`..stream._shared.WindowScope`, inside its pair-day, which it
+    releases when it ends, whatever the end."""
     def task():
         try:
-            return single_threaded_process(
-                pair, time, init_args or {}, client, inventory,
-                root, verb=verb, **kwargs)
+            with (scope.pair_day(pair, time) if scope is not None
+                  else contextlib.nullcontext()):
+                return single_threaded_process(
+                    pair, time, init_args or {}, client, inventory,
+                    root, verb=verb, **kwargs)
         except Exception as error:
             warnings.warn(f"{pair} {time} failed: {error}", UserWarning)
             return False
     return task
+
+
+def day_major(pair_days, pairs):
+    """The places of ``pair_days`` in the order they run: by day, then by
+    the pair's place in ``pairs``."""
+    rank = {}
+    for i, p in enumerate(pairs):
+        rank.setdefault(p, i)
+    return sorted(range(len(pair_days)),
+                  key=lambda i: (pair_days[i][1], rank[pair_days[i][0]]))
 
 
 def lazy_processes(pairs: list, times, availability=None, preprocessing=None,
@@ -440,15 +462,24 @@ def lazy_process(pairs: list, times, init_args: dict, client_args: dict,
             pair_days, init_args or {}, client, inventory, root,
             days_per_launch, verb - 1 if verb else 0, timer, **bulk_kwargs)
     else:
-        tasks = [_make_task(pair, time, init_args, client, inventory,
-                            root, verb=verb - 1 if verb else 0, **kwargs)
-                 for pair, time in pair_days]
-        nworkers = nworkers or 4
-        if nworkers > 1:
-            with ThreadPoolExecutor(max_workers=nworkers) as ex:
-                results = list(ex.map(lambda t: t(), tasks))
-        else:
-            results = [t() for t in tasks]
+        # day by day, each receiver's processed windows shared by the
+        # pair-days of the day that read them; results in the slice's order
+        order = day_major(pair_days, pairs)
+        with WindowScope.of(pair_days) as scope:
+            tasks = [_make_task(*pair_days[i], init_args, client,
+                                inventory, root,
+                                verb=verb - 1 if verb else 0, scope=scope,
+                                **kwargs)
+                     for i in order]
+            nworkers = nworkers or 4
+            if nworkers > 1:
+                with ThreadPoolExecutor(max_workers=nworkers) as ex:
+                    done = list(ex.map(lambda t: t(), tasks))
+            else:
+                done = [t() for t in tasks]
+        results = [None] * len(pair_days)
+        for i, r in zip(order, done):
+            results[i] = r
 
     completed = sum(bool(r) for r in results)
     if verb > 0:

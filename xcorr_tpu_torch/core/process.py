@@ -20,6 +20,14 @@ call with at most its own ``nworkers`` fetches at once;
 keep. The plain version of :func:`fetch_all`, ``_fetch_all_plain``, is a
 pool per call, as in the reference (:data:`FORMS`).
 
+A pair-day that ``lazy_process`` runs on the host engine takes each
+receiver's processed window from the campaign's scope
+(:func:`..stream._shared.pair_windows`), which runs each receiver's chain
+once per window for the pair-days of this process that read it. Outside
+such a scope, and on the plain version ``_pair_windows_plain``, the pair
+fetch is the client's ``get_pair_processed_waveforms``, as in the
+reference.
+
 Status/offset/hash bookkeeping, ops-hash validation and the
 ``retry_missing``/``test_run`` semantics match the reference exactly.
 """
@@ -36,6 +44,8 @@ import torch
 
 from .. import ops, stream as stream_mod, util
 from ..signal.unbias import unbias
+from ..stream import _shared
+from ..stream._shared import pair_windows
 
 __all__ = ["process", "resolve_device", "shutdown_fetch_pool"]
 
@@ -110,9 +120,14 @@ def _fetch_all_plain(fetch, work, nworkers):
         return list(ex.map(fetch, work))
 
 
+def _pair_windows_plain(shared, client, pair, time, operations, **kwargs):
+    return client.get_pair_processed_waveforms(
+        pair=pair, time=time, operations=operations, **kwargs)
+
+
 #: the forms :func:`process` calls, each with its plain version
 #: ``_<name>_plain``
-FORMS = ("fetch_all",)
+FORMS = ("fetch_all", "pair_windows")
 
 
 def resolve_device(device) -> torch.device:
@@ -183,15 +198,18 @@ def process(dataset, client, inventory=None, retry_missing: bool = False,
         _finalize(dataset, verb)
         return dataset
 
+    shared = _shared.current()
+
     def fetch(item):
         ip, it = item
         p, t = pairs[ip], times[it]
         if verb > 0:
             print(str(p), str(t)[:19], end=": Waveforms. ")
-        st = client.get_pair_processed_waveforms(
-            pair=str(p), time=t, operations=o, duration=window_length,
-            inventory=inventory, sampling_rate=sampling_rate,
-            verb=verb - 1 if verb else 0, strict=True, **kwargs)
+        st = pair_windows(
+            shared, client, pair=str(p), time=t, operations=o,
+            duration=window_length, inventory=inventory,
+            sampling_rate=sampling_rate, verb=verb - 1 if verb else 0,
+            strict=True, **kwargs)
         if not isinstance(st, stream_mod.Stream) or len(st) != 2:
             if verb > 0:
                 print('Missing data. Set status "-1" and skip.')

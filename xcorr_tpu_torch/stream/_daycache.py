@@ -67,12 +67,16 @@ class OnceCache:
             done = self._done.get(key)
             if done is not None:
                 self._done.move_to_end(key)
-                return done[0]
-            flight = self._flights.get(key)
-            owner = flight is None
-            if owner:
-                flight = self._flights[key] = Future()
+            else:
+                flight = self._flights.get(key)
+                owner = flight is None
+                if owner:
+                    flight = self._flights[key] = Future()
+        if done is not None:
+            self._served("hit")
+            return done[0]
         if not owner:
+            self._served("wait")
             return flight.result()
         try:
             value = compute()
@@ -92,6 +96,11 @@ class OnceCache:
                 self._keep(key, value, sum(a.nbytes for a in arrays))
         flight.set_result(value)
         return value
+
+    def _served(self, how):
+        """Called by :meth:`get` where it does not compute: with ``"hit"``
+        where the value was kept, ``"wait"`` where another caller's
+        computation was under way."""
 
     def _keep(self, key, value, nbytes):
         limit = self.limit()
