@@ -247,8 +247,17 @@ line, on stderr:
     eight at once into fresh and into touched memory, a compute
     control); one 40 Hz window's ``remove_response`` by part (cast,
     ``rfft``, product, ``irfft``) on the carried expressions and the
-    port's form, alone and eight at once, the same bits. h5py must not
-    be imported.
+    port's form, alone and eight at once, the same bits. The SNR CLI
+    over the EDH-EDH shards on the codec's read forms (the chunked read
+    into one array on the read pool, ``io/hdf5_chunks.py``) and on their
+    plain versions (``io/hdf5.py`` ``_read_chunked_plain``,
+    ``_getitem_plain``) in turns, ``P11_READ_ROUNDS`` rounds: wall per
+    pair-day, the reads' seconds, bytes inflated per shard, the peak
+    resident set; every SNR file within 1e-5 of ``pair_snr`` in memory
+    and all of them the same bits; then one shard's read alone by part
+    (the chunks' bytes, inflate serial and on the read pool's threads,
+    unshuffle, the whole read on each form, the kept block as a slice
+    read). h5py must not be imported.
     ``python3 chip_smoke.py --phase11`` runs phases 1, 2 (the build
     alone) and 11;
 12. files that other HDF5 writers make, read on this machine without
@@ -266,7 +275,10 @@ line, on stderr:
     checkout's ``native/h5filters.cpp``; the shard read and validated
     with its hashes; ``xcorr-torch-snr`` over it on the card within 1e-5
     (relative) of the port's ``pair_snr`` on the CPU, recorded in
-    ``expected.json``; h5py must not be imported. No kernel runs.
+    ``expected.json``; each chunked dataset of the fixtures read by
+    seeded basic slices on the port's slice read and on the plain one (a
+    whole read, then numpy's index), the same bits or the same raise;
+    h5py must not be imported. No kernel runs.
     ``python3 chip_smoke.py --phase12`` runs phases 1 and 12.
 
 The line before the last is the kernels' JSON record (K1's launches from
@@ -4235,6 +4247,7 @@ def phase11_cli(xt, ff):
     check(all(w is not None for w in want), "pair_snr gave no SNR")
     want = xt.ndlabel.combine_by_coords(want)
     err = hold_snr(got, want, "xcorr-torch-snr vs pair_snr")
+    read_lines = phase11_shard_read(xt, root, days, tmp.name, want, got)
     phase(11, cli_line(P11_PAIR, days, edh, shards, shard_reads))
     phase(11, f"xcorr-torch-cc {P11_PAIR} by chain stage, s summed over "
               f"its fetch threads: {stage_report(edh[6])}")
@@ -4250,6 +4263,8 @@ def phase11_cli(xt, ff):
     phase(11, f"xcorr-torch-snr over the shards: {snr_wall:.2f} s, snr/s/n "
               f"within {err:.3e} (relative) of pair_snr in memory, "
               f"lag_s_max equal; h5py not imported")
+    for line in read_lines:
+        phase(11, line)
 
     phase(11, f"one {BH_FS:g} Hz window's remove_response by part: "
               f"{window_remove_response(sds, inv)}")
@@ -4282,6 +4297,237 @@ def phase11_cli(xt, ff):
             "11 xcorr-torch-cc BHZ-EDH": {"fused_corr": wall["BHZ"][1]},
             "11 xcorr-torch-cc BHR-EDH": {"fused_corr": wall["BHR"][1]},
             "11 xcorr-torch-cc three pairs": {"fused_corr": trio[1]}}
+
+
+#: rounds of phase 11's read A/B (each form once a round, the order
+#: swapped every round) and repetitions of each part of the read alone
+P11_READ_ROUNDS = 3
+P11_READ_REPS = 3
+#: attributes of an SNR file that carry the time of the run, and the
+#: hashes over them
+P11_STAMPS = ("history", "postprocess", "sha256_hash",
+              "sha256_hash_metadata")
+
+
+def same_read(a, b):
+    """Two read results equal bit for bit (``same_value``; a 0-d array
+    as its element, object arrays element by element); a raise equals a
+    raise of its type."""
+    if isinstance(a, Exception) or isinstance(b, Exception):
+        return type(a) is type(b)
+    a, b = (x[()] if isinstance(x, np.ndarray) and not x.ndim else x
+            for x in (a, b))
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, np.generic):
+        a, b = np.asarray(a), np.asarray(b)
+    if isinstance(a, np.ndarray) and a.dtype == object:
+        return a.shape == b.shape and b.dtype == object and all(
+            same_read(x, y) for x, y in zip(a.reshape(-1), b.reshape(-1)))
+    return same_value(a, b)
+
+
+def outcome(fn, *args):
+    """``fn(*args)``, or the exception it raised."""
+    try:
+        return fn(*args)
+    except Exception as e:  # noqa: BLE001 - the raise is the outcome
+        return e
+
+
+def snr_file_differences(a, b):
+    """Names of the variables and coordinates of two SNR datasets whose
+    dims, bytes or attributes (but ``P11_STAMPS``) differ, and
+    ``(attrs)`` where the datasets' attributes do."""
+    bad = [] if list(a.variables) == list(b.variables) else ["(names)"]
+    if not same_value({k: v for k, v in a.attrs.items()
+                       if k not in P11_STAMPS},
+                      {k: v for k, v in b.attrs.items()
+                       if k not in P11_STAMPS}):
+        bad.append("(attrs)")
+    for k in a.variables:
+        x, y = a.variables[k], b.variables.get(k)
+        if y is None or x.dims != y.dims or not same_value(
+                x.values, y.values) or not same_value(
+                {n: v for n, v in x.attrs.items() if n not in P11_STAMPS},
+                {n: v for n, v in y.attrs.items() if n not in P11_STAMPS}):
+            bad.append(k)
+    return bad
+
+
+@contextlib.contextmanager
+def plain_codec():
+    """The codec's read forms swapped for their plain versions while it
+    runs (``io/hdf5.py`` ``FORMS``: ``_read_chunked_plain``, the whole
+    chunked read as it was, and ``_getitem_plain``, a whole read then
+    numpy's index)."""
+    from xcorr_tpu_torch.io import hdf5
+    cls = hdf5._ReadDataset
+    names = {n: "__getitem__" if n == "getitem" else f"_{n}"
+             for n in hdf5.FORMS}
+    real = {attr: cls.__dict__[attr] for attr in names.values()}
+    for n, attr in names.items():
+        setattr(cls, attr, getattr(cls, f"_{n}_plain"))
+    try:
+        yield
+    finally:
+        for attr, form in real.items():
+            setattr(cls, attr, form)
+
+
+def phase11_shard_read(xt, root, days, tmp, want, first):
+    """``xcorr-torch-snr`` over the EDH-EDH shards under ``root`` on the
+    codec's read forms (``io/hdf5_chunks.py``: the chunked read into one
+    array on the read pool) and on their plain versions
+    (``plain_codec``), in turns over ``P11_READ_ROUNDS`` rounds: wall
+    per pair-day, the reads' seconds inside the CLI, bytes inflated and
+    written per shard (``io/hdf5_chunks.py`` counts), the peak resident
+    set; each SNR file held to ``want`` (``pair_snr`` in memory) and to
+    ``first`` (the CLI's file before) bit for bit. Then the first
+    shard's read alone by part (``shard_read_parts``). Returns the lines
+    to print."""
+    from xcorr_tpu_torch import io as xio
+    from xcorr_tpu_torch.io import hdf5_chunks
+    from xcorr_tpu_torch.io.netcdf import from_netcdf
+    from xcorr_tpu_torch.scripts import snr as snr_cli
+    forms = {"port": contextlib.nullcontext, "plain": plain_codec}
+    real, runs = xio.read, {f: [] for f in forms}
+    try:
+        for r in range(P11_READ_ROUNDS):
+            for form in (("port", "plain") if r % 2 == 0
+                         else ("plain", "port")):
+                reads = []
+
+                def read(*a, **kw):
+                    t0 = time.perf_counter()
+                    ds = real(*a, **kw)
+                    reads.append(time.perf_counter() - t0)
+                    return ds
+
+                xio.read = read
+                out = os.path.join(tmp, f"snr-{form}-{r}.nc")
+                hdf5_chunks.reset_counts()
+                t0 = time.perf_counter()
+                with forms[form](), peak_rss() as rss:
+                    rc = snr_cli.main([P11_DAYS[0], P11_DAYS[1], "--root",
+                                       root, "--pair", P11_PAIR, "--out",
+                                       out])
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                check(rc == 0, f"xcorr-torch-snr on the {form} read "
+                               f"returned {rc}")
+                got = from_netcdf(out)
+                hold_snr(got, want, f"xcorr-torch-snr on the {form} read "
+                                    f"vs pair_snr")
+                bad = snr_file_differences(got, first)
+                check(not bad, f"xcorr-torch-snr on the {form} read, round "
+                               f"{r}: {bad} differ from its first file")
+                runs[form].append((wall / len(days), reads,
+                                   hdf5_chunks.counts(), rss["peak"]))
+    finally:
+        xio.read = real
+    check(runs["port"][-1][2]["chunks"] > 0 and
+          runs["plain"][-1][2]["chunks"] == 0,
+          "the read forms did not run as named: chunks decoded "
+          f"{runs['port'][-1][2]} (port), {runs['plain'][-1][2]} (plain)")
+
+    def line(form):
+        walls = [w for w, *_ in runs[form]]
+        reads = [x for _, rs, *_ in runs[form] for x in rs]
+        c = runs[form][-1][2]
+        return (f"{form}: {np.median(walls):.4f} s per pair-day (median of "
+                f"{len(walls)}: {[round(w, 4) for w in walls]}), reads "
+                f"{np.median(reads):.4f} s median per shard "
+                f"({len(reads)} reads), {c['inflated'] / len(days) / 1e6:.2f}"
+                f" MB inflated and {c['written'] / len(days) / 1e6:.2f} MB "
+                f"written per shard by the one-array read, peak resident "
+                f"set {max(p or 0 for *_, p in runs[form]) / 1e9:.2f} GB")
+
+    faster = sum(p[0] < q[0] for p, q in zip(runs["port"], runs["plain"]))
+    lines = [f"xcorr-torch-snr over {len(days)} EDH-EDH shards, read forms "
+             f"in turns ({P11_READ_ROUNDS} rounds): {line('port')}; "
+             f"{line('plain')}; the port's faster in {faster} of "
+             f"{P11_READ_ROUNDS}; every SNR file the same bits as the "
+             f"first and within 1e-5 of pair_snr"]
+    lines.append(shard_read_parts(xt.ncfile(P11_PAIR, days[0], root)))
+    return lines
+
+
+def shard_read_parts(path):
+    """One shard's read alone, by part (medians of ``P11_READ_REPS``, s):
+    its chunks' stored bytes out of the file; inflate, serial and on the
+    read pool's threads; unshuffle into one array; the whole read on the
+    port's form (pool and serial) and the plain one; the kept block of
+    ``cc`` at the SNR CLI's celerity window as a slice read, which
+    inflates each chunk only up to the block's last byte. Checks the
+    forms' bits equal."""
+    from xcorr_tpu_torch.io import hdf5, hdf5_chunks
+    from xcorr_tpu_torch.io import hdf5_filters as hf
+    from xcorr_tpu_torch.io.read import read
+
+    def med(fn):
+        ts = []
+        for _ in range(P11_READ_REPS):
+            t0 = time.perf_counter()
+            out = fn()
+            ts.append(time.perf_counter() - t0)
+        return out, float(np.median(ts))
+
+    ds = read(path, fast=True)
+    dist = float(ds["distance"].values.max()) * 1000.0
+    lag = ds.coords["lag"].values
+    lags = np.nonzero((lag >= dist / 1500.0) & (lag <= dist / 1460.0))[0]
+    times = np.nonzero(ds["status"].values[0] == 1)[0]
+    key = (slice(0, 1), slice(int(times[0]), int(times[-1]) + 1),
+           slice(int(lags[0]), int(lags[-1]) + 1))
+    with hdf5.File(path) as f:
+        d = f["cc"]
+        store = d._chunk_store()
+        bufs, t_bytes = med(lambda: [store._fetch(a, nb)
+                                     for nb, _, _, a in store.items])
+        whole, t_pool = med(lambda: d[...])
+        real = hdf5_chunks.THREADS
+        hdf5_chunks.THREADS = 1
+        try:
+            serial, t_serial = med(lambda: d[...])
+        finally:
+            hdf5_chunks.THREADS = real
+        plain, t_plain = med(lambda: d._getitem_plain(...))
+        block, t_block = med(lambda: d[key])
+        hdf5_chunks.reset_counts()
+        d[key]
+        inflated_block = hdf5_chunks.counts()["inflated"]
+    check(same_read(whole, plain) and same_read(serial, plain),
+          f"{path}: the whole read differs between its forms")
+    check(same_read(block, plain[key]), f"{path}: the kept block differs")
+    n = int(np.prod(store.chunk))
+    want = n * store.dtype.itemsize
+    _, t_inf1 = med(lambda: [hf.inflate(b, want) for b in bufs])
+    pool = hdf5_chunks._read_pool()
+    inflated, t_infn = med(
+        lambda: list(pool.map(lambda b: hf.inflate(b, want), bufs)))
+    full = tuple(slice(0, c) for c in store.chunk)
+
+    def unshuffle():
+        out = np.empty(store.shape, store.dtype)
+        for item, buf in zip(store.items, inflated):
+            hf.unshuffle_into(buf, store.chunk, full, out[tuple(
+                slice(o, o + c) for o, c in zip(item[2], store.chunk))])
+        return out
+
+    un, t_un = med(unshuffle)
+    check(same_read(un, plain), f"{path}: the parts' unshuffle differs")
+    return (f"one shard's read by part, s (median of {P11_READ_REPS}): "
+            f"{len(bufs)} chunks' bytes out of the file "
+            f"{store.stored / 1e6:.1f} MB {t_bytes:.4f}; inflate to "
+            f"{len(bufs) * want / 1e6:.1f} MB serial {t_inf1:.4f}, on "
+            f"{hdf5_chunks.THREADS} threads {t_infn:.4f}; unshuffle into "
+            f"one array, serial {t_un:.4f}; the whole read on the port's "
+            f"form {t_pool:.4f} (serial {t_serial:.4f}), plain "
+            f"{t_plain:.4f}; the kept block {block.shape} "
+            f"({block.nbytes / 1e6:.3f} MB, {inflated_block / 1e6:.1f} MB "
+            f"inflated) as a slice read {t_block:.4f}; the forms' bits "
+            f"equal")
 
 
 #: phase 11's three pairs, as one campaign over its first day
@@ -4339,6 +4585,62 @@ P12_FIXTURES = os.path.join(REPO, "tests", "fixtures_torch", "hdf5")
 P12_BUDGET_S = 30.0
 
 
+#: seeded basic slices per chunked dataset of phase 12
+P12_KEYS = 12
+
+
+def p12_keys(shape, rng, n=P12_KEYS):
+    """``n`` basic keys on ``shape`` (ints, negative too; slices with
+    ``None``, negative and out-of-range bounds; an ``Ellipsis`` now and
+    then), and the last element."""
+    keys = [(Ellipsis, -1)] if shape else []
+    for _ in range(n):
+        key = []
+        for s in shape:
+            if rng.random() < 0.2:
+                key.append(int(rng.integers(-s, s)))
+            else:
+                key.append(slice(int(rng.integers(-s - 1, s + 1)),
+                                 [None, int(rng.integers(-s - 1, s + 1))][
+                                     int(rng.integers(0, 2))]))
+        if key and rng.random() < 0.3:
+            key[int(rng.integers(0, len(key)))] = Ellipsis
+        keys.append(tuple(key))
+    return keys
+
+
+def phase12_slices(names):
+    """Each chunked dataset of the files ``names`` (in the working
+    directory) read by ``p12_keys`` on the port's slice read and on
+    ``_getitem_plain``: the same bits or the same raise. Returns the
+    datasets and keys read."""
+    from xcorr_tpu_torch.io import hdf5
+    rng = np.random.default_rng(12)
+    nsets = nkeys = 0
+    for name in names:
+        f = outcome(hdf5.File, name)
+        if isinstance(f, Exception):
+            continue
+        with f:
+            for var in f.keys():
+                d = outcome(f.__getitem__, var)
+                if isinstance(d, Exception) or d.chunks is None \
+                        or d.shape is None:
+                    continue
+                nsets += 1
+                # the plain version's whole read, once: numpy indexes it
+                whole = outcome(d._getitem_plain, ...)
+                for key in p12_keys(d.shape, rng):
+                    got = outcome(d.__getitem__, key)
+                    want = whole if isinstance(whole, Exception) else \
+                        outcome(whole.__getitem__, key)
+                    check(same_read(got, want),
+                          f"{name}/{var}[{key!r}]: the slice read gives "
+                          f"{got!r:.80}, the plain one {want!r:.80}")
+                    nkeys += 1
+    return nsets, nkeys
+
+
 def phase12_foreign_files(xt):
     """The port's HDF5 reader on files other writers make, where no h5py
     is: each fixture, read with the fixture directory as the working
@@ -4382,6 +4684,13 @@ def phase12_foreign_files(xt):
               "(with and without header_only; the header-only read of "
               "null.h5 raises TypeError in both); read ms per file: "
               + json.dumps({k: round(v, 3) for k, v in reads.items()}))
+    t0 = time.perf_counter()
+    with contextlib.chdir(P12_FIXTURES):
+        nsets, nkeys = phase12_slices(sorted(exp["files"]))
+    phase(12, f"{nsets} chunked datasets of the fixtures read by {nkeys} "
+              f"seeded basic slices on the port's slice read and the "
+              f"plain one, the same bits or the same raise "
+              f"({time.perf_counter() - t0:.2f} s)")
     shard = exp["shard"]
     tmp = tempfile.TemporaryDirectory()
     day = pd.Timestamp(shard["day"])

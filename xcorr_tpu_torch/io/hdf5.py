@@ -39,6 +39,14 @@ theirs), null dataspaces as :class:`Empty`; region references, external
 storage, external links and virtual datasets through
 :mod:`io.hdf5_extern`.
 
+A dataset reads whole (``dset[...]``) or by h5py's basic selection
+(ints and step-1 slices); a chunked one through :mod:`io.hdf5_chunks`,
+into one array; a selection decodes only the chunks it meets, each only
+as far as it needs, and a whole read decodes every chunk whole, so it
+refuses every chunk the plain read refuses. :data:`FORMS` names the
+read's forms whose plain versions (the whole read as it was, then
+numpy's index) stay beside them.
+
 The API is the part of h5py's that :mod:`io.netcdf` uses, and values map
 to and from numpy as h5py maps them (a ``str`` attribute is a UTF-8
 variable-length string, a Python ``int`` an ``int64``, a ``bool`` h5py's
@@ -72,6 +80,7 @@ from itertools import product
 import numpy as np
 
 from . import hdf5_extern, hdf5_v2
+from . import hdf5_chunks as hc
 from . import hdf5_filters as hf
 
 __all__ = ["Empty", "File", "string_dtype"]
@@ -84,7 +93,8 @@ _UNDEF = 0xFFFFFFFFFFFFFFFF
 _LEAF_K, _GROUP_K, _CHUNK_K = 4, 16, 32
 #: smallest global heap collection (the library reads this much at once)
 _GCOL_MIN = 4096
-#: chunked reads decompress in threads from this many stored bytes
+#: the plain chunked read decompresses in threads from this many stored
+#: bytes
 _PARALLEL_READ_MIN = 4 << 20
 _READ_THREADS = 8
 
@@ -575,8 +585,39 @@ class _ReadDataset:
         return [_DimProxy(self, i) for i in range(self.ndim)]
 
     def __getitem__(self, key):
-        if key is not Ellipsis and key != ():
-            raise NotImplementedError("the codec reads whole datasets")
+        """The whole dataset (``...`` or ``()``), or h5py's basic
+        selection ``key`` (ints and step-1 slices): of a chunked dataset
+        in the file, only the chunks it meets, each decoded only as far
+        as it needs (:class:`hdf5_chunks.Chunks`); of any other layout,
+        the whole dataset sliced and copied, so that the slice, as
+        h5py's, holds no more than its own elements."""
+        if key is Ellipsis or (isinstance(key, tuple) and not key):
+            return self._read_all(self._read_chunked)
+        if self.shape is None:
+            raise ValueError(f"{self.name!r} has no elements to select "
+                             f"with {key!r}")
+        box, pick = hc.basic_box(key, self.shape)
+        if not self._in_chunks():
+            part = self._read_all(self._read_chunked)[tuple(
+                a if p == 0 else slice(a, b)
+                for (a, b), p in zip(box, pick))]
+            return part.copy() if isinstance(part, np.ndarray) else part
+        t = self._type
+        raw = self._chunk_store().read(box)
+        if not raw.size:
+            return np.zeros(raw.shape, dtype=t.out)[pick]
+        return self._f._values(t, raw, raw.shape)[pick]
+
+    def _getitem_plain(self, key):
+        """The plain version of :meth:`__getitem__`: the whole dataset,
+        read by :meth:`_read_chunked_plain` where it is chunked, then
+        numpy's index."""
+        whole = self._read_all(self._read_chunked_plain)
+        if key is Ellipsis or (isinstance(key, tuple) and not key):
+            return whole
+        return whole[key]
+
+    def _read_all(self, read_chunked):
         t, shape = self._type, self.shape
         if shape is None:
             return Empty(t.out)
@@ -596,8 +637,18 @@ class _ReadDataset:
             raw = self._fill_bytes(n) if addr == _UNDEF else \
                 self._f._read(addr, n * esize)
         else:
-            raw = self._read_chunked(lay[1], n)
+            raw = read_chunked(lay[1], n)
         return self._f._values(t, raw, shape)
+
+    def _in_chunks(self):
+        """Whether the elements are chunks of this file."""
+        return self._layout[0] == "chunked" and self._efl is None
+
+    def _chunk_store(self):
+        """The written chunks, read from the file as they are needed."""
+        return hc.Chunks(self.shape, self._type.dtype,
+                         self._layout[1][:-1], self._filters,
+                         self._fill, self._chunks(), self._f._read)
 
     def _fill_bytes(self, n):
         esize = self._type.dtype.itemsize
@@ -617,6 +668,13 @@ class _ReadDataset:
                                   bool(self._filters))
 
     def _read_chunked(self, cdims, n):
+        """The whole chunked dataset as one array of the stored dtype,
+        each chunk decoded into its place (:class:`hdf5_chunks.Chunks`)."""
+        return self._chunk_store().read()
+
+    def _read_chunked_plain(self, cdims, n):
+        """The plain version of :meth:`_read_chunked`: the stored bytes
+        of the whole dataset, filled, then each chunk copied in."""
         f, t, shape = self._f, self._type, self.shape
         chunk = tuple(cdims[:-1])
         esize = t.dtype.itemsize
@@ -656,6 +714,11 @@ class _ReadDataset:
                                    for d in dst)]
         return out.tobytes()
 
+
+
+#: the forms of :class:`_ReadDataset` a caller can swap for their plain
+#: versions (``_<name>_plain``; ``getitem`` is ``__getitem__``)
+FORMS = ("read_chunked", "getitem")
 
 class _ReadFile:
     """A file opened for reading: the root group's datasets by name."""
@@ -1020,9 +1083,16 @@ class _ReadFile:
         return self._b[p:p + n]
 
     def _values(self, t, raw, shape):
+        """The elements of ``raw`` as a reader gets them: ``raw`` the
+        stored bytes, or an array of ``t.dtype`` that the read built,
+        which is kept, not copied."""
         n = _nelem(shape)
         if t.unreadable:
             raise OSError(f"Can't read data ({t.unreadable})")
+        if isinstance(raw, np.ndarray):
+            if not (t.vlen or t.ref == "region"):
+                return self._addresses(t, raw.reshape(shape))
+            raw = raw.reshape(-1).view(np.uint8)
         if t.ref == "region":
             w = t.dtype.itemsize
             out = np.empty(n, dtype=object)

@@ -8,8 +8,11 @@ fletcher32 here in Python; szip, scaleoffset and lzf in the native
 library (``native/h5filters.cpp``, built with ``g++`` on first use by
 :mod:`..native._cxx`; a failed build raises, and nothing falls back to
 Python). The library's calls release the interpreter lock, so the
-reader's threads (``io/hdf5.py`` ``_READ_THREADS``) decode chunks in
-parallel. nbit is read where the library stored the chunk as it was
+reader's threads (the read pool of ``io/hdf5_chunks.py``, and those of
+``io/hdf5.py``'s plain chunked read) decode chunks in parallel. :func:`inflate` can stop at the bytes a read needs, and
+:func:`unshuffle_into` writes a chunk's selected elements from their
+byte planes into their place in the reader's array (``io/hdf5_chunks.py``).
+nbit is read where the library stored the chunk as it was
 (the type's full precision, which ``H5Z_set_local_nbit`` flags in its
 second parameter); a packed nbit chunk is refused.
 
@@ -34,7 +37,8 @@ from typing import NamedTuple
 import numpy as np
 
 __all__ = ["Filter", "unfilter", "unlzf", "unlzf_plain", "unszip",
-           "unscaleoffset", "NAMES", "OPTIONAL", "UNDONE"]
+           "unscaleoffset", "unshuffle_into", "inflate", "NAMES",
+           "OPTIONAL", "UNDONE"]
 
 DEFLATE, SHUFFLE, FLETCHER32, SZIP, NBIT, SCALEOFFSET = 1, 2, 3, 4, 5, 6
 LZF = 32000
@@ -179,6 +183,45 @@ def unshuffle(buf, size):
     n = len(buf) // size
     a = np.frombuffer(buf, np.uint8, n * size).reshape(size, n)
     return np.ascontiguousarray(a.T).tobytes() + bytes(buf[n * size:])
+
+
+def unshuffle_into(buf, chunk, sel, dst):
+    """The shuffle filter undone straight into ``dst``: ``buf`` holds a
+    chunk of shape ``chunk`` as the byte planes of its elements (the last
+    plane at least up to the last byte ``sel`` needs), ``sel`` is a
+    slice per axis of the chunk, and ``dst`` an array of the chunk's
+    elements of ``sel``'s shape, which receives them. Only the selected
+    columns of each plane are read; each plane is one strided copy."""
+    size = dst.dtype.itemsize
+    n = 1
+    strides = []
+    for c in reversed(chunk):
+        strides.insert(0, n)
+        n *= c
+    start = sum(s.start * st for s, st in zip(sel, strides))
+    shape = tuple(s.stop - s.start for s in sel)
+    out = dst[..., None].view(np.uint8)
+    for k in range(size):
+        out[..., k] = np.ndarray(shape, np.uint8, buf, k * n + start,
+                                 tuple(strides))
+
+
+def inflate(buf, want, need=None):
+    """Deflate undone on ``buf``, a chunk of ``want`` bytes: all of it
+    (``bufsize`` its size), or only its first ``need`` bytes. A stream
+    that does not decode, or holds fewer bytes than are needed, raises
+    :class:`OSError`; the bytes past ``need`` are not read, so damage
+    there goes unseen."""
+    try:
+        if need is None or need >= want:
+            return zlib.decompress(buf, bufsize=want)
+        out = zlib.decompressobj().decompress(buf, need)
+    except zlib.error as e:
+        raise OSError(f"corrupt deflate chunk: {e}") from None
+    if len(out) < need:
+        raise OSError(f"deflate chunk cut short: {len(out)} of the {need} "
+                      f"bytes needed")
+    return out
 
 
 def fletcher32(buf):
