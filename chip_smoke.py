@@ -150,10 +150,27 @@ line, on stderr:
    pairs H10N1-H03S1 and H10N2-H03S2 over 60 days x 4 bands (3-6, 6-9,
    9-12, 12-20 Hz; 2.5 s, padding 4): ``pair_spectrograms`` and
    ``correlate_spectrograms`` of all 14,640 cells on the card, cells/s,
-   stack shapes, peak device memory; the CPU makes 12 seeded days'
-   spectrograms per pair (within 1e-5 of their max) and 64 seeded cells
-   of them per (pair, band) (``cc2`` within 1e-5, shifts equal but for
-   near-ties, counted);
+   stack shapes, peak device memory, TL1 and TL2 once per batch (counts
+   reset just before each stack's run and read just after); the CPU makes
+   12 seeded days' spectrograms per pair (within 1e-5 of their max) and 64
+   seeded cells of them per (pair, band) (``cc2`` within 1e-5, shifts equal
+   but for near-ties, counted). Then the cells' forms in turns,
+   ``TL_AB_ROUNDS`` rounds over the 8 stacks: the form (each spectrogram's
+   spectrum once per stack, TL1, cuFFT's ``irfft2``, TL2) and
+   ``_correlate_spectrograms_plain``, cells/s on each, device ms per batch
+   and share, peak device memory; the form's peaks within 1e-6 (relative)
+   of the plain form's, shifts equal but for near-ties (float64, counted),
+   bit-identical cells counted. TL1 and TL2 alone: TL1 within 1e-6 of its
+   plain version's max (bit-identity reported), TL2 its plain version's
+   value bits and index on the batch's maps, a zero map, and a planted tie
+   and planted NaNs; median ms of 20, plain ms, bound; at the largest
+   stack's first batch of 64 cells. (e) A year-size stack, 365 spectrograms
+   made from the largest stack's 60 (the widest band of the pair with the
+   longer lag window) by a seeded multiplicative perturbation: all 66,795
+   cells once on each form, cells/s, peak device memory, TL1 and TL2 once
+   per batch, every cell held to the plain form as above; and the cell
+   bookkeeping at T = 365 (``fill_cells`` and ``_fill_cells_plain``) timed
+   on the host, the Datasets the same bytes;
 9. the multi-device layer on the one card, over a logical mesh that
    names ``cuda:0`` twice (so its times are the split's overhead, not a
    multi-card speed). (a) ``parallel.sharded_correlate`` of phase 4's 16
@@ -284,8 +301,10 @@ line, on stderr:
 The line before the last is the kernels' JSON record (K1's launches from
 phase 6, K2's from phase 10b's ``'fft'`` call, K3's and K4's from their
 route's phase-5 pair-day; K2's times, bounds and cuFFT's time from 10a
-at H = 576); the last line is ``{"ok": true, "device": {...}}``. Imports
-nothing of JAX.
+at H = 576; TL1's and TL2's launches from 8d's main-path runs, their
+times and bounds from 8d's widest batch; TL2's count is one per call,
+each call two CUDA launches: its segments, then their join); the last
+line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 import contextlib
@@ -342,7 +361,15 @@ REPLACES = {
     "fused_corr_acc": "xcorr_tpu/ops/pallas_fft.py:535",
     "fused_corr_full": "xcorr_tpu/ops/pallas_fft.py:684",
 }
+#: the timelapse's cell kernels (ops/cells.py, TL1 and TL2), which
+#: replace no pallas_call: the JAX package fuses a batch of cells in XLA
+TL_KERNELS = ("gather_product", "circular_argmax")
+REPLACES.update(dict.fromkeys(
+    TL_KERNELS, "xcorr_tpu/scripts/timelapse.py:86 (_corr_step, fused by "
+                "XLA; no pallas_call)"))
 SOURCES = {
+    "gather_product": "xcorr_tpu_torch/csrc/cells.cu",
+    "circular_argmax": "xcorr_tpu_torch/csrc/cells.cu",
     "fused_corr": "xcorr_tpu_torch/csrc/fused_corr.cu",
     "stageb_fwd": "xcorr_tpu_torch/csrc/stageb.cu",
     "stageb_inv": "xcorr_tpu_torch/csrc/stageb.cu",
@@ -2385,6 +2412,14 @@ SW_LEVEL = 1e-2
 TL_DAYS = 60
 TL_BANDS = ((3.0, 6.0), (6.0, 9.0), (9.0, 12.0), (12.0, 20.0))
 TL_SAMPLE_TIMES, TL_SAMPLE_CELLS = 12, 64
+#: 8d's A/B of the cell forms: rounds in turns, and the bar of the form's
+#: peaks against the plain form's (relative; both run on the card)
+TL_AB_ROUNDS = 3
+TL_AB_RTOL = 1e-6
+#: 8e: the year-size stack (times made from 8d's by a seeded perturbation),
+#: one in TL_YEAR_GAP of them without a spectrogram for the bookkeeping
+TL_YEAR = 365
+TL_YEAR_GAP = 50
 BF_TOL = 1e-9            # beamform card vs CPU: relative, degrees for doa
 
 
@@ -2621,6 +2656,7 @@ def phase8d_timelapse(xt, p8):
     equal shifts but for near-ties, where the float64 correlation of the
     CPU's spectrograms at the card's shift and at the CPU's differ by at
     most 2 P7_TOL; counted."""
+    from xcorr_tpu_torch.ops import cells as tl
     from xcorr_tpu_torch.scripts.timelapse import (correlate_spectrograms,
                                                    pair_spectrograms)
     times = pd.date_range(CAMPAIGN_START, periods=TL_DAYS, freq="1D")
@@ -2650,6 +2686,8 @@ def phase8d_timelapse(xt, p8):
              "lost": 0, "n": 0}
     err = {"spec": 0.0, "cc2": 0.0}
     shapes, ties = {}, 0
+    runs = []            # (label, stack, the main path's cells)
+    launched = dict.fromkeys(tl.KERNELS, 0)
     for ip in TL_PAIRS:
         gen[0] = 0.0
         with held_twice("8d"), device_profile() as prof:
@@ -2677,8 +2715,16 @@ def phase8d_timelapse(xt, p8):
             stack = np.stack([s[sel] for s in specs])
             shapes[(f0, f1)] = stack.shape
             with device_profile() as prof:
+                torch.cuda.synchronize()
+                tl.reset_launches()
                 (pk, df_, dl_), t = timed(lambda: correlate_spectrograms(
                     stack, iu, ju, device="cuda"))
+                batches = -(-iu.size // 64)
+                check(tl.launches == dict.fromkeys(tl.KERNELS, batches),
+                      f"8d: TL1 and TL2 launched {tl.launches}, not once "
+                      f"per batch ({batches})")
+                for name in tl.KERNELS:
+                    launched[name] += tl.launches[name]
             ms, k, c, n, miss = device_ops(prof)
             cells["card"] += t
             cells["dev_ms"] += ms
@@ -2690,6 +2736,8 @@ def phase8d_timelapse(xt, p8):
             p8.setdefault("tl_stack", (stack, (pk, df_, dl_),
                                        f"{p8['pairs'][ip]} {f0:g}-{f1:g} "
                                        "Hz"))
+            runs.append((f"{p8['pairs'][ip]} {f0:g}-{f1:g} Hz", stack,
+                         (pk, df_, dl_)))
             cstack = np.stack([s[sel] for s in cpu_specs])
             cpk, cdf, cdl = correlate_spectrograms(cstack, la, lb,
                                                    device="cpu")
@@ -2740,6 +2788,318 @@ def phase8d_timelapse(xt, p8):
              f"{TL_SAMPLE_CELLS} cells per (pair, band): cc2 within "
              f"{err['cc2']:.2e}, delta_freq and delta_lag equal but for "
              f"{ties} near-ties")
+    phase(8, f"8d launches on the cells' main path (the first card run of "
+             f"each stack, counts reset just before it and read just "
+             f"after): {json.dumps(launched)}")
+    t0 = time.perf_counter()
+    phase8d_ab(runs)
+    t1 = time.perf_counter()
+    # the largest stack (the widest band of the longer pair): the
+    # kernels alone, and the year-size stack made from it
+    widest = max(runs, key=lambda r: r[1].shape[1] * r[1].shape[2])
+    rec = phase8d_kernels(widest)
+    t2 = time.perf_counter()
+    year = phase8e_year(widest)
+    t3 = time.perf_counter()
+    phase8e_bookkeeping()
+    phase(8, f"8d-8e command time: A/B {t1 - t0:.1f} s, TL1/TL2 alone "
+             f"{t2 - t1:.1f} s, 8e year-size stack {t3 - t2:.1f} s, "
+             f"bookkeeping {time.perf_counter() - t3:.1f} s")
+    return rec, launched, year
+
+
+def near_ties(stack, ii, jj, got, want, bar, label):
+    """Cells whose shifts differ between two runs (``got``, ``want``:
+    ``(peak, df, dl)``): each must be a near-tie, the float64 correlations
+    of the two spectrograms at both shifts within ``bar``; counted."""
+    n_tie = 0
+    for n in np.flatnonzero((got[1] != want[1]) | (got[2] != want[2])):
+        a, b = stack[ii[n]], stack[jj[n]]
+        gap = abs(shift_value(a, b, got[1][n], got[2][n])
+                  - shift_value(a, b, want[1][n], want[2][n]))
+        check(gap <= bar, f"{label} cell ({ii[n]}, {jj[n]}): shifts "
+                          f"({got[1][n]}, {got[2][n]}) and ({want[1][n]}, "
+                          f"{want[2][n]}), {gap} apart")
+        n_tie += 1
+    return n_tie
+
+
+def tl_geometry(stack):
+    """``(nf, nl, h)`` of a stack's transforms: the form's ``rfft2``
+    lengths and its spectra's last axis."""
+    from xcorr_tpu_torch.ops.fft import next_fast_len
+    nf = next_fast_len(2 * stack.shape[1] - 1)
+    nl = next_fast_len(2 * stack.shape[2] - 1)
+    return nf, nl, nl // 2 + 1
+
+
+def phase8d_ab(runs):
+    """8d's cells on the form (each spectrogram's spectrum once per stack,
+    TL1, cuFFT's ``irfft2``, TL2) and on ``_correlate_spectrograms_plain``
+    (both spectra of every cell and the fftshift copies) over every
+    (pair, band) stack of 8d, in turns, the order swapped each round,
+    TL_AB_ROUNDS rounds, unprofiled; then one profiled run of each for
+    device ms per batch and the device share, and each form's peak
+    device memory above the stack. The form's peaks within TL_AB_RTOL
+    (relative) of the plain form's, shifts equal but for near-ties
+    (float64, ``shift_value``), counted; the form's reruns bit-identical
+    to the main path's run."""
+    from xcorr_tpu_torch.scripts import timelapse as tls
+    forms = {"form": tls.correlate_spectrograms,
+             "plain": tls._correlate_spectrograms_plain}
+    ncells = sum(st.shape[0] * (st.shape[0] + 1) // 2 for _, st, _ in runs)
+    secs = {f: [] for f in forms}
+    out = {}
+    for r in range(TL_AB_ROUNDS):
+        for f in tuple(forms)[::1 if r % 2 == 0 else -1]:
+            wall = 0.0
+            for label, st, _ in runs:
+                iu, ju = np.triu_indices(st.shape[0])
+                res, t = timed(lambda: forms[f](st, iu, ju, device="cuda"))
+                wall += t
+                if r == 0:
+                    out[(f, label)] = res
+                elif f == "form":
+                    check(all(np.array_equal(a, b) for a, b in
+                              zip(res, out[(f, label)])),
+                          f"8d A/B {label}: the form's rerun differs")
+            secs[f].append(wall)
+    err, same, n_tie = 0.0, 0, 0
+    for label, st, main in runs:
+        iu, ju = np.triu_indices(st.shape[0])
+        got, want = out[("form", label)], out[("plain", label)]
+        check(all(np.array_equal(a, b) for a, b in zip(got, main)),
+              f"8d A/B {label}: the form differs from its main-path run")
+        err = max(err, rel_err(got[0], want[0]))
+        same += int(np.sum((got[0] == want[0]) & (got[1] == want[1])
+                           & (got[2] == want[2])))
+        n_tie += near_ties(st, iu, ju, got, want, 2 * TL_AB_RTOL,
+                           f"8d A/B {label}")
+    check(err <= TL_AB_RTOL, f"8d A/B: peaks {err} from the plain form's")
+    dev, mem = {}, {}
+    for f, fn in forms.items():
+        ms, lost, batches, wall, peak = 0.0, 0, 0, 0.0, 0
+        for label, st, _ in runs:
+            iu, ju = np.triu_indices(st.shape[0])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with device_profile() as prof:
+                _, t = timed(lambda: fn(st, iu, ju, device="cuda"))
+            peak = max(peak, torch.cuda.max_memory_allocated() - base
+                       - st.nbytes)
+            m, _, _, _, miss = device_ops(prof)
+            ms += m
+            lost += miss > 0
+            wall += t
+            batches += -(-iu.size // 64)
+        dev[f] = (f"{ms / batches:.4f} ms per batch of 64 (share "
+                  f"{share_text(ms, wall, lost)})")
+        mem[f] = peak / 1e9
+    big = max(runs, key=lambda r: r[1].shape[1] * r[1].shape[2])[1]
+    nf, nl, h = tl_geometry(big)
+    spectra_gb = big.shape[0] * nf * h * 8 / 1e9
+    med = {f: float(np.median(v)) for f, v in secs.items()}
+    phase(8, f"8d A/B, {len(runs)} stacks, {ncells} cells, "
+             f"{TL_AB_ROUNDS} rounds in turns: form "
+             f"{ncells / med['form']:.0f} cells/s (rounds "
+             + ", ".join(f"{t:.3f}" for t in secs["form"])
+             + f" s), plain {ncells / med['plain']:.0f} cells/s (rounds "
+             + ", ".join(f"{t:.3f}" for t in secs["plain"])
+             + f" s), {med['plain'] / med['form']:.2f}x; device form "
+             f"{dev['form']}, plain {dev['plain']}; peak device memory "
+             f"above the stack: form {mem['form']:.3f} GB (the largest "
+             f"stack's spectra {spectra_gb:.3f} GB, {big.shape[0]} x {nf} "
+             f"x {h} complex64), plain {mem['plain']:.3f} GB")
+    phase(8, f"8d A/B: the form's peaks within {err:.3e} (relative) of "
+             f"the plain form's, bar {TL_AB_RTOL:g}; {same} of {ncells} "
+             f"cells bit-identical (peak and shifts); shifts equal but "
+             f"for {n_tie} near-ties (float64)")
+
+
+def phase8d_kernels(run):
+    """TL1 and TL2 alone against their plain versions on the first batch
+    of 64 cells of ``run``'s stack (8d's widest band): errors, bits,
+    median CUDA-event ms of 20 of each, and the card's bound (bytes: the
+    spectra the batch names read once and the products written once;
+    the maps' windows read once). TL2 must give its plain version's
+    value bits and index on the batch's maps, on an all-zero map and on
+    a map with a planted tie and a planted NaN. Returns each kernel's
+    record."""
+    from xcorr_tpu_torch.ops import cells as tl
+    from xcorr_tpu_torch.scripts import timelapse as tls
+    label, st, _ = run
+    T, F, L = st.shape
+    nf, nl, h = tl_geometry(st)
+    sp = torch.from_numpy(st).cuda()
+    S = tls._spectra(sp, 0, T, nf, nl)
+    iu, ju = np.triu_indices(T)
+    ii = torch.from_numpy(iu[:64].astype(np.int64)).cuda()
+    jj = torch.from_numpy(ju[:64].astype(np.int64)).cuda()
+    B, M = ii.numel(), nf * h
+    rec = {}
+    P = tl.gather_product(S, ii, S, jj)
+    torch.cuda.synchronize()
+    want = tl.gather_product_plain(S, ii, S, jj)
+    err = (P - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    bits = torch.equal(torch.view_as_real(P), torch.view_as_real(want))
+    check(rel <= 1e-6, f"TL1 {label}: {rel} of its plain version's max")
+    named = np.union1d(iu[:64], ju[:64]).size
+    rec["gather_product"] = {
+        "max_abs_err": err,
+        "ms": median_ms(lambda: tl.gather_product(S, ii, S, jj)),
+        "plain_ms": median_ms(lambda: tl.gather_product_plain(S, ii, S,
+                                                               jj))}
+    rec["gather_product"].update(zip(
+        ("bound_ms", "bound_by"),
+        bound(named * M * 8 + 2 * B * 8, B * M * 8, 6.0 * B * M)[:2]))
+    r = torch.fft.irfft2(P, s=(nf, nl))
+    win = (2 * F - 1) * (2 * L - 1)
+    planted = r[:2].clone()
+    planted[0].fill_(0.5)
+    planted[0, 0, 0] = planted[0, nf - 1, nl - 1] = 2.0      # a tie
+    planted[1, nf - 1, nl - 2] = float("nan")   # lags (-1, -2): first
+    planted[1, 3 % nf, 5 % nl] = float("nan")
+    for name, m in (("batch", r), ("zero", torch.zeros_like(r[:1])),
+                    ("tie and NaN", planted)):
+        got = tl.circular_argmax(m, F, L)
+        torch.cuda.synchronize()
+        ref = tl.circular_argmax_plain(m, F, L)
+        check(torch.equal(got[1], ref[1]) and torch.equal(
+            got[0].view(torch.int32), ref[0].view(torch.int32)),
+            f"TL2 {label} {name} maps: {got} against its plain {ref}")
+    check(bool(torch.isnan(tl.circular_argmax(planted, F, L)[0][1])),
+          "TL2: the planted NaN is not the peak")
+    rec["circular_argmax"] = {
+        "max_abs_err": 0.0,
+        "ms": median_ms(lambda: tl.circular_argmax(r, F, L)),
+        "plain_ms": median_ms(lambda: tl.circular_argmax_plain(r, F, L))}
+    rec["circular_argmax"].update(zip(
+        ("bound_ms", "bound_by"), bound(B * win * 4, B * 12, B * win)[:2]))
+    for name, v in rec.items():
+        v["library_ms"] = None
+        phase(8, f"{name} at 8d's largest stack ({label}, stack {st.shape}, "
+                 f"{B} cells, nf x nl = {nf} x {nl}): max_abs_err "
+                 f"{v['max_abs_err']:.3e}"
+                 + (f" rel {rel:.3e}, bit-identical {bits}"
+                    if name == "gather_product" else
+                    " (value bits and index equal on the batch's maps, a "
+                    "zero map, a planted tie and NaNs)")
+                 + f"; kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} "
+                   f"ms bound {v['bound_ms']:.4f} ms ({v['bound_by']}), "
+                   f"{100 * v['bound_ms'] / v['ms']:.1f}% of bound")
+    del S, P, r, planted
+    return rec
+
+
+def year_stack(st):
+    """TL_YEAR spectrograms made from ``st``'s by a seeded multiplicative
+    perturbation (each a day of ``st`` times a field in [0.8, 1.25))."""
+    rng = np.random.default_rng([SEED, 85])
+    days = np.arange(TL_YEAR) % st.shape[0]
+    year = np.empty((TL_YEAR, *st.shape[1:]), np.float32)
+    for t in range(TL_YEAR):
+        year[t] = st[days[t]] * rng.uniform(0.8, 1.25, st.shape[1:])
+    return year
+
+
+def phase8e_year(run):
+    """8e: the year-size stack of ``run``'s pair and band, all
+    TL_YEAR (TL_YEAR + 1) / 2 cells on the form (counts reset just before
+    and read just after: TL1 and TL2 once per batch) and on the plain
+    form, once each, with cells/s and peak device memory above the
+    stack; every cell's peak within TL_AB_RTOL (relative) of the plain
+    form's, shifts equal but for near-ties (float64), counted; a seeded
+    sample of 256 cells reported on its own. Returns the form's launches."""
+    from xcorr_tpu_torch.ops import cells as tl
+    from xcorr_tpu_torch.scripts import timelapse as tls
+    label, st, _ = run
+    year = year_stack(st)
+    iu, ju = np.triu_indices(TL_YEAR)
+    nf, nl, h = tl_geometry(year)
+    res, secs, mem = {}, {}, {}
+    launches = None
+    for f, fn in (("form", tls.correlate_spectrograms),
+                  ("plain", tls._correlate_spectrograms_plain)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        if f == "form":
+            tl.reset_launches()
+        res[f], secs[f] = timed(lambda: fn(year, iu, ju, device="cuda"))
+        if f == "form":
+            launches = dict(tl.launches)
+        mem[f] = (torch.cuda.max_memory_allocated() - base
+                  - year.nbytes) / 1e9
+    batches = -(-iu.size // 64)
+    check(launches == dict.fromkeys(tl.KERNELS, batches),
+          f"8e: TL1 and TL2 launched {launches}, not once per batch "
+          f"({batches})")
+    got, want = res["form"], res["plain"]
+    err = rel_err(got[0], want[0])
+    check(err <= TL_AB_RTOL, f"8e: peaks {err} from the plain form's")
+    check(bool(np.isfinite(got[0]).all()), "8e: non-finite cc2")
+    n_tie = near_ties(year, iu, ju, got, want, 2 * TL_AB_RTOL, "8e")
+    pick = np.sort(np.random.default_rng([SEED, 86]).choice(
+        iu.size, 256, replace=False))
+    s_err = rel_err(got[0][pick], want[0][pick])
+    s_same = int(np.sum((got[1][pick] == want[1][pick])
+                        & (got[2][pick] == want[2][pick])))
+    same = int(np.sum((got[0] == want[0]) & (got[1] == want[1])
+                      & (got[2] == want[2])))
+    phase(8, f"8e year-size stack ({label} from 8d's {st.shape[0]} days, "
+             f"stack {year.shape}, nf x nl = {nf} x {nl}), {iu.size} cells "
+             f"once each: form {iu.size / secs['form']:.0f} cells/s "
+             f"({secs['form']:.3f} s), plain "
+             f"{iu.size / secs['plain']:.0f} cells/s ({secs['plain']:.3f} "
+             f"s), {secs['plain'] / secs['form']:.2f}x; peak device memory "
+             f"above the stack: form {mem['form']:.3f} GB (spectra "
+             f"{TL_YEAR * nf * h * 8 / 1e9:.3f} GB), plain "
+             f"{mem['plain']:.3f} GB; launches {json.dumps(launches)}; "
+             f"peaks within {err:.3e} (relative) of the plain form's, "
+             f"{same} cells bit-identical, shifts equal but for {n_tie} "
+             f"near-ties (float64); the seeded 256: peaks within "
+             f"{s_err:.3e}, shifts equal in {s_same}")
+    return launches
+
+
+def phase8e_bookkeeping():
+    """The cell bookkeeping of one pair and band at TL_YEAR times (one in
+    TL_YEAR_GAP without a spectrogram) on ``fill_cells`` and on
+    ``_fill_cells_plain``, timed on the card's host, given the same
+    precomputed cell results (the correlation is not timed); the two
+    Datasets' variables must be the same bytes."""
+    from xcorr_tpu_torch.scripts import timelapse as tls
+    times = pd.date_range(CAMPAIGN_START, periods=TL_YEAR, freq="1D").values
+    valid = [t for t in range(TL_YEAR) if t % TL_YEAR_GAP != 7]
+    iu, ju = np.triu_indices(TL_YEAR)
+    rng = np.random.default_rng([SEED, 87])
+    n = len(valid) * (len(valid) + 1) // 2
+    peaks = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    dfs = rng.integers(-80, 81, n).astype(np.int32)
+    dls = rng.integers(-9000, 9001, n).astype(np.int32)
+
+    def correlate(ii, jj):
+        check(len(ii) == n, f"bookkeeping: {len(ii)} cells, not {n}")
+        return peaks, dfs, dls
+
+    out, secs = {}, {}
+    for f, fill in (("form", tls.fill_cells),
+                    ("plain", tls._fill_cells_plain)):
+        ds = tls.init_timelapse([PAIR], times, TL_BANDS[-1:])
+        t0 = time.perf_counter()
+        fill(ds, 0, 0, iu, ju, valid, correlate)
+        secs[f] = time.perf_counter() - t0
+        out[f] = ds
+    for name in ("cc2", "delta_freq", "delta_lag", "status"):
+        a, b = out["form"][name].values, out["plain"][name].values
+        check(a.dtype == b.dtype and a.tobytes() == b.tobytes(),
+              f"bookkeeping: {name} differs between the forms")
+    phase(8, f"8e bookkeeping at T = {TL_YEAR} ({len(valid)} valid, {n} "
+             f"cells, one pair and band) on the card's host: form "
+             f"{secs['form']:.4f} s, plain {secs['plain']:.4f} s; cc2, "
+             f"delta_freq, delta_lag and status the same bytes")
 
 # -- 9. the multi-device layer on the one card -------------------------------
 
@@ -4841,7 +5201,7 @@ def main(only=None):
 
         # -- 8. the rest of the analysis tier: 8a-8c ran in 7b's day loop --
         phase8_report(p8)
-        phase8d_timelapse(xt, p8)
+        tl_rec, tl_launches, _ = phase8d_timelapse(xt, p8)
     t_end = time.perf_counter()
     phase(8, f"command time: phases 1-5 {t6 - t_start:.1f} s, phase 6 "
              f"{t7 - t6:.1f} s, 7a {t7b - t7:.1f} s, 7b "
@@ -4878,6 +5238,8 @@ def main(only=None):
                                  engine_ref, engine_wall)
     rec.update(k2_rec)
     launches.update(k2)
+    rec.update(tl_rec)
+    launches.update(tl_launches)
     t10_end = time.perf_counter()
     phase(10, "launches on this slice's path, each count reset just before "
               "its run and read just after: " + json.dumps(path10))
@@ -4910,7 +5272,7 @@ def main(only=None):
         "bound_ms": rec[name]["bound_ms"],
         "bound_by": rec[name]["bound_by"],
         "library_ms": rec[name].get("library_ms"),
-    } for name in ff.KERNELS]}))
+    } for name in (*ff.KERNELS, *TL_KERNELS)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -93,6 +93,8 @@ _SIGNATURES = {
     "xc_stageb_inv": "pppppiiiiip",
     "xc_fused_corr_acc": "ppppppppiiiiiip",
     "xc_fused_corr_full": "ppppppppppiiiiiiip",
+    "xc_gather_product": "pppppiip",
+    "xc_circular_argmax": "pppppiiiiiip",
 }
 
 

@@ -312,17 +312,18 @@ def _device_of(a, name):
     return a.device.type
 
 
-def _launch(name, device, fn, *args):
+def _launch(name, device, fn, *args, counts=launches):
     """Call a C entry point with ``device`` current (the C side sizes its
     grid on the current device, and the default stream's handle, 0,
     launches there: on another card the kernel would not be ordered with
-    the tensors' stream), raise on a CUDA error, count the launch."""
+    the tensors' stream), raise on a CUDA error, count the launch in
+    ``counts[name]`` (this module's :data:`launches` by default)."""
     with torch.cuda.device(device):
         rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     with _lock:
-        launches[name] += 1
+        counts[name] += 1
 
 
 def _ptrs(*tensors):

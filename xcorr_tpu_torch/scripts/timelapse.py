@@ -12,8 +12,13 @@ All T spectrograms of a pair are computed once
 upper-triangle cells are 2-D-correlated in batches on the torch device
 that ``--platform`` names (:func:`correlate_spectrograms`; ``cuda`` by
 default, raising without a card), or with ``mesh=`` each batch split
-over a mesh's devices (SURVEY.md §2.8 P2). The shard I/O is imported on
-use.
+over a mesh's devices (SURVEY.md §2.8 P2): each spectrogram's spectrum
+once per stack, then per batch the hand-written gather-product (TL1),
+cuFFT's inverse and the hand-written circular argmax (TL2) of
+:mod:`..ops.cells`. :func:`fill_cells` writes a (pair, band)'s cells
+with one indexed assignment per variable. :data:`FORMS` names the two
+forms; each has its plain version (``_<name>_plain``). The shard I/O is
+imported on use.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from ..util.metadata import global_attrs
 from . import utils
 
 __all__ = ["init_timelapse", "correlate_spectrograms", "pair_spectrograms",
-           "timelapse", "main"]
+           "fill_cells", "timelapse", "main", "FORMS"]
 
 
 def init_timelapse(pair, times, freq_bands, attrs: dict = None):
@@ -80,9 +85,194 @@ def _normed(a):
     return a / torch.where(n == 0, torch.ones_like(n), n)
 
 
+#: bytes of one stack's spectra that a device keeps at once. A stack
+#: whose spectra pass it walks the cell grid in tiles of times, keeping
+#: one tile's rows and one tile's columns (each at most half of it); a
+#: year of the widest band (T = 365, F = 81, L about 9,100) takes 4.3 GB,
+#: so a production stack stays whole on an 80 GB card.
+SPECTRA_BYTES = 16 << 30
+#: bytes of the zero-padded input of one ``rfft2`` over a chunk of times:
+#: the transient of taking a stack's spectra
+CHUNK_BYTES = 1 << 30
+
+
+def _spectra(sp, start: int, stop: int, nf: int, nl: int):
+    """The ``rfft2`` at ``(nf, nl)`` of the normalized spectrograms
+    ``sp[start:stop]``: ``(stop - start, nf, nl//2+1)`` complex,
+    C-contiguous, taken over chunks of :data:`CHUNK_BYTES` of padded
+    input."""
+    n = stop - start
+    step = max(1, CHUNK_BYTES // (nf * nl * sp.element_size()))
+    out = None
+    for s in range(0, n, step):
+        chunk = sp[start + s:min(start + s + step, stop)]
+        f = torch.fft.rfft2(_normed(chunk), s=(nf, nl))
+        if f.shape[0] == n:
+            return f
+        if out is None:
+            out = torch.empty((n, *f.shape[1:]), dtype=f.dtype,
+                              device=f.device)
+        out[s:s + f.shape[0]] = f
+    return out
+
+
+def _tile(T: int, nf: int, nl: int, itemsize: int) -> int:
+    """Times per tile of the cell grid: all ``T`` where the stack's
+    spectra fit :data:`SPECTRA_BYTES`, else as many as let a row tile and
+    a column tile fit it together."""
+    one = nf * (nl // 2 + 1) * 2 * itemsize
+    if T * one <= SPECTRA_BYTES:
+        return max(T, 1)
+    return max(1, SPECTRA_BYTES // (2 * one))
+
+
+def _product_peaks(prods, n1, n2, nf, nl):
+    """Peaks and flat argmaxes of a batch of cells from their conjugate
+    products (TL1's outputs, in cell order): cuFFT's ``irfft2``, TL2."""
+    r = torch.fft.irfft2(torch.cat(prods) if len(prods) > 1 else prods[0],
+                         s=(nf, nl))
+    return ops.cells.circular_argmax(r, n1, n2)
+
+
+def correlate_spectrograms(specs, i_idx, j_idx, batch: int = 64,
+                           mesh=None, device="cuda"):
+    """Batched normalized 2-D correlation peaks between spectrogram pairs,
+    on ``device`` (``'cuda'`` by default, which raises without a card).
+
+    specs: (T, F, L) stack (float32 on the card); (i_idx, j_idx): cell
+    index lists, in ``[-T, T)`` (a negative index counts from the end;
+    any other raises ``IndexError``). Returns (peak, df_shift, dl_shift)
+    arrays of len(cells), where the shifts are argmax offsets in bins
+    relative to zero lag.
+
+    Each spectrogram is normalized and transformed once (``rfft2`` at the
+    port's cuFFT-fast lengths, chunks of :data:`CHUNK_BYTES`), and its
+    spectrum kept. Then each batch of ``batch`` cells (the last at its
+    own size) takes the conjugate products of its cells' spectra by
+    index (TL1, :func:`..ops.cells.gather_product`), their ``irfft2``,
+    and the peak and flat argmax of each map's fftshifted window, read
+    in place (TL2, :func:`..ops.cells.circular_argmax`). A stack whose
+    spectra pass :data:`SPECTRA_BYTES` takes its cells tile pair by tile
+    pair of times (:func:`_tile`), keeping one row tile's and one column
+    tile's spectra at once, but for its last batch, which runs in cell
+    order: so each cell's ``irfft2`` runs in a batch of the size that
+    the plain version gives it. A batch whose cells span tile pairs
+    takes TL1 once per tile pair.
+
+    ``mesh`` (a :class:`..parallel.mesh.Mesh`, in place of ``device``):
+    the stack goes to each of its devices, and its spectra are taken on
+    each; ``batch`` is rounded to a multiple of the mesh's size, as the
+    JAX package rounds it, and each batch splits into contiguous shares,
+    one per entry, each run on the entry's device; the results come back
+    in cell order.
+
+    The plain version, :func:`_correlate_spectrograms_plain`, takes both
+    spectra of every cell; on the CPU both give the same bits.
+    """
+    if mesh is None:
+        devices = (resolve_device(device),)
+    else:
+        from ..parallel.mesh import split
+        devices = tuple(resolve_device(d) for d in mesh.devices)
+        batch = max(batch, mesh.size) // mesh.size * mesh.size
+    uniq = tuple(dict.fromkeys(devices))
+    stacks = {d: to_device(specs, d) for d in uniq}
+    sp0 = stacks[devices[0]]
+    T, (n1, n2) = sp0.shape[0], sp0.shape[-2:]
+    ii = _positions(i_idx, T, "i_idx")
+    jj = _positions(j_idx, T, "j_idx")
+    nf = ops.fft.next_fast_len(2 * n1 - 1)
+    nl = ops.fft.next_fast_len(2 * n2 - 1)
+    w = 2 * n2 - 1
+    ncells = ii.shape[0]
+    # the order the cells run in: tile pair by tile pair (cell order
+    # within each) but for the last batch, which runs as it stands, so
+    # that each cell is transformed in a share of the size the plain
+    # version gives it (a transform's bits may depend on its batch's size)
+    tile = _tile(T, nf, nl, sp0.element_size())
+    nt = -(-T // tile)
+    key = (ii // tile) * nt + jj // tile
+    head = (ncells - 1) // batch * batch if ncells else 0
+    order = np.arange(ncells)
+    if nt > 1:
+        order[:head] = np.argsort(key[:head], kind="stable")
+    key = key[order]
+    # each cell's indices in its tiles, in that order, on every device
+    local = {d: (to_device(ii[order] % tile, d),
+                 to_device(jj[order] % tile, d)) for d in uniq}
+    held = {}                        # tile -> its spectra on every device
+
+    def spectra_of(a, b):
+        """The spectra of row tile ``a`` and column tile ``b``; no other
+        tile's are kept."""
+        for t in [t for t in held if t not in (a, b)]:
+            del held[t]
+        for t in (a, b):
+            if t not in held:
+                held[t] = {d: _spectra(stacks[d], t * tile,
+                                       min(T, (t + 1) * tile), nf, nl)
+                           for d in uniq}
+        return held[a], held[b]
+
+    # each device's outputs hold, in that order, the cells it ran
+    peaks = {d: torch.empty(ncells, dtype=stacks[d].dtype, device=d)
+             for d in uniq}
+    am = {d: torch.empty(ncells, dtype=torch.int64, device=d)
+          for d in uniq}
+    owner = np.zeros(ncells, dtype=np.intp)   # index into uniq
+    for s in range(0, ncells, batch):
+        rows = min(batch, ncells - s)
+        parts = [(devices[0], 0, rows)] if mesh is None else \
+            split(mesh, rows)
+        for d, p0, p1 in parts:
+            lo, hi = s + p0, s + p1
+            prods = []
+            for k0, k1 in _runs(key[lo:hi]):
+                sa, sb = spectra_of(*divmod(int(key[lo + k0]), nt))
+                cs = slice(lo + k0, lo + k1)
+                prods.append(ops.cells.gather_product(
+                    sa[d], local[d][0][cs], sb[d], local[d][1][cs]))
+            peaks[d][lo:hi], am[d][lo:hi] = _product_peaks(
+                prods, n1, n2, nf, nl)
+            del prods
+            owner[lo:hi] = uniq.index(d)
+    held.clear()
+    pk_host = np.empty(ncells, dtype=np.float32)
+    am_host = np.empty(ncells, dtype=np.int64)
+    for k, d in enumerate(uniq):
+        mine = owner == k
+        pk_host[order[mine]] = to_numpy(peaks[d])[mine]
+        am_host[order[mine]] = to_numpy(am[d])[mine]
+    return (pk_host,
+            (am_host // w - (n1 - 1)).astype(np.int32),
+            (am_host % w - (n2 - 1)).astype(np.int32))
+
+
+def _positions(idx, T: int, name: str):
+    """The cell indices ``idx`` as int64 positions in a stack of ``T``:
+    a negative index counts from the end, as ``sp[idx]`` counts it in
+    the plain version (and numpy and the JAX package), and one outside
+    ``[-T, T)`` raises ``IndexError``, as ``sp[idx]`` does, before any
+    kernel could read past the spectra."""
+    idx = np.asarray(idx, dtype=np.int64)
+    if idx.size and (idx.min() < -T or idx.max() >= T):
+        raise IndexError(f"{name} out of range for a stack of {T} "
+                         "spectrograms")
+    return np.where(idx < 0, idx + T, idx)
+
+
+def _runs(keys):
+    """``(start, stop)`` of each run of equal values of ``keys``."""
+    if not keys.size:
+        return []
+    cut = np.flatnonzero(np.diff(keys)) + 1
+    return list(zip([0, *cut.tolist()], [*cut.tolist(), keys.size]))
+
+
 def _cell_peaks(sp, ii, jj):
-    """Peaks and flat argmaxes of the normalized 2-D correlations of the
-    cells ``(ii, jj)`` of the stack ``sp``, on ``sp``'s device."""
+    """The plain version's cells: peaks and flat argmaxes of the
+    normalized 2-D correlations of the cells ``(ii, jj)`` of the stack
+    ``sp``, on ``sp``'s device."""
     n1, n2 = sp.shape[-2], sp.shape[-1]
     nf = ops.fft.next_fast_len(2 * n1 - 1)
     nl = ops.fft.next_fast_len(2 * n2 - 1)
@@ -100,10 +290,12 @@ def _cell_peaks(sp, ii, jj):
     return torch.gather(flat, -1, k[:, None])[:, 0], k
 
 
-def correlate_spectrograms(specs, i_idx, j_idx, batch: int = 64,
-                           mesh=None, device="cuda"):
-    """Batched normalized 2-D correlation peaks between spectrogram pairs,
-    on ``device`` (``'cuda'`` by default, which raises without a card).
+def _correlate_spectrograms_plain(specs, i_idx, j_idx, batch: int = 64,
+                                  mesh=None, device="cuda"):
+    """The plain version of :func:`correlate_spectrograms` (the tests' and
+    the card's A/B, nothing on the main path): batched normalized 2-D
+    correlation peaks between spectrogram pairs, on ``device``
+    (``'cuda'`` by default, which raises without a card).
 
     specs: (T, F, L) stack; (i_idx, j_idx): cell index lists.
     Returns (peak, df_shift, dl_shift) arrays of len(cells), where the
@@ -204,6 +396,53 @@ def pair_spectrograms(datasets, times, clim=(1460.0, 1500.0),
     return specs, freq_coord
 
 
+def fill_cells(ds, ip, ifb, iu, ju, valid, correlate):
+    """Correlate and write the cells of pair ``ip`` and band ``ifb``: the
+    upper-triangle cells ``(iu, ju)`` whose two times are both in
+    ``valid`` (the times with a spectrogram, ascending), correlated by
+    ``correlate(ii, jj)`` (their positions in the stack of the valid
+    times; it returns ``(peaks, df_shifts, dl_shifts)``), and written
+    into ``cc2``, ``delta_freq``, ``delta_lag`` and ``status`` (1) of
+    ``ds`` with one indexed assignment each. Returns the number of
+    cells. The plain version, :func:`_fill_cells_plain`, scans ``valid``
+    for each cell and writes cell by cell; both write the same bits."""
+    pos = np.full(ds.sizes["time1"], -1, dtype=np.int64)
+    pos[np.asarray(valid, dtype=np.int64)] = np.arange(len(valid))
+    keep = (pos[iu] >= 0) & (pos[ju] >= 0)
+    a, b = iu[keep], ju[keep]
+    if not a.size:
+        return 0
+    peaks, dfs, dls = correlate(pos[a], pos[b])
+    for name, v in (("cc2", peaks), ("delta_freq", dfs),
+                    ("delta_lag", dls), ("status", 1)):
+        ds[name].values[ip, ifb, a, b] = v
+    return int(a.size)
+
+
+def _fill_cells_plain(ds, ip, ifb, iu, ju, valid, correlate):
+    """The plain version of :func:`fill_cells`: a scan of ``valid`` for
+    each cell and four writes per cell."""
+    cells = [(a, b) for a, b in zip(iu, ju)
+             if a in valid and b in valid]
+    if not cells:
+        return 0
+    vmap = {v: k for k, v in enumerate(valid)}
+    ii = [vmap[a] for a, b in cells]
+    jj = [vmap[b] for a, b in cells]
+    peaks, dfs, dls = correlate(ii, jj)
+    for (a, b), pk, df_, dl_ in zip(cells, peaks, dfs, dls):
+        ds["cc2"].values[ip, ifb, a, b] = pk
+        ds["delta_freq"].values[ip, ifb, a, b] = df_
+        ds["delta_lag"].values[ip, ifb, a, b] = dl_
+        ds["status"].values[ip, ifb, a, b] = 1
+    return len(cells)
+
+
+#: the forms of this module, each beside its plain version
+#: ``_<name>_plain``, so that a caller can put the plain ones in place
+FORMS = ("correlate_spectrograms", "fill_cells")
+
+
 def _read_shards(pair, times, root):
     """One shard (or None) per time, read as they are iterated."""
     from .. import io as xio
@@ -243,23 +482,14 @@ def timelapse(pairs, times, root, freq_bands=((3.0, 6.0), (6.0, 12.0)),
             if not sel.any():
                 continue
             stack = np.stack([specs[i][sel] for i in valid])
-            cells = [(a, b) for a, b in zip(iu, ju)
-                     if a in valid and b in valid]
-            if not cells:
+            ncells = fill_cells(
+                ds, ip, ifb, iu, ju, valid,
+                lambda ii, jj: correlate_spectrograms(
+                    stack, ii, jj, batch=batch, mesh=mesh, device=device))
+            if not ncells:
                 continue
-            vmap = {v: k for k, v in enumerate(valid)}
-            ii = [vmap[a] for a, b in cells]
-            jj = [vmap[b] for a, b in cells]
-            peaks, dfs, dls = correlate_spectrograms(stack, ii, jj,
-                                                     batch=batch, mesh=mesh,
-                                                     device=device)
-            for (a, b), pk, df_, dl_ in zip(cells, peaks, dfs, dls):
-                ds["cc2"].values[ip, ifb, a, b] = pk
-                ds["delta_freq"].values[ip, ifb, a, b] = df_
-                ds["delta_lag"].values[ip, ifb, a, b] = dl_
-                ds["status"].values[ip, ifb, a, b] = 1
             if verb:
-                print(f"  band {f0}-{f1} Hz: {len(cells)} cells")
+                print(f"  band {f0}-{f1} Hz: {ncells} cells")
 
     # mirror the lower triangle (cc2 symmetric; shifts antisymmetric)
     for name, sign in (("cc2", 1), ("delta_freq", -1), ("delta_lag", -1),
