@@ -150,27 +150,36 @@ line, on stderr:
    pairs H10N1-H03S1 and H10N2-H03S2 over 60 days x 4 bands (3-6, 6-9,
    9-12, 12-20 Hz; 2.5 s, padding 4): ``pair_spectrograms`` and
    ``correlate_spectrograms`` of all 14,640 cells on the card, cells/s,
-   stack shapes, peak device memory, TL1 and TL2 once per batch (counts
-   reset just before each stack's run and read just after); the CPU makes
-   12 seeded days' spectrograms per pair (within 1e-5 of their max) and 64
-   seeded cells of them per (pair, band) (``cc2`` within 1e-5, shifts equal
-   but for near-ties, counted). Then the cells' forms in turns,
+   stack shapes, peak device memory, TL1 and TL2 once per batch, TL2 on
+   the route its rows take (``ops.cells.row_plan``; 8d's take the row
+   kernel; counts reset just before each stack's run and read just
+   after); the CPU makes 12 seeded days' spectrograms per pair (within
+   1e-5 of their max) and 64 seeded cells of them per (pair, band)
+   (``cc2`` within 1e-5, shifts equal but for near-ties, counted). Then
+   the scan route on the main path: the largest stack's first 12 days at
+   15,000 lags (nl = 30,000), every cell against the plain form, TL1 and
+   the scan once per batch. Then the cells' forms in turns,
    ``TL_AB_ROUNDS`` rounds over the 8 stacks: the form (each spectrogram's
-   spectrum once per stack, TL1, cuFFT's ``irfft2``, TL2) and
-   ``_correlate_spectrograms_plain``, cells/s on each, device ms per batch
-   and share, peak device memory; the form's peaks within 1e-6 (relative)
-   of the plain form's, shifts equal but for near-ties (float64, counted),
-   bit-identical cells counted. TL1 and TL2 alone: TL1 within 1e-6 of its
-   plain version's max (bit-identity reported), TL2 its plain version's
-   value bits and index on the batch's maps, a zero map, and a planted tie
-   and planted NaNs; median ms of 20, plain ms, bound; at the largest
-   stack's first batch of 64 cells. (e) A year-size stack, 365 spectrograms
-   made from the largest stack's 60 (the widest band of the pair with the
-   longer lag window) by a seeded multiplicative perturbation: all 66,795
-   cells once on each form, cells/s, peak device memory, TL1 and TL2 once
-   per batch, every cell held to the plain form as above; and the cell
-   bookkeeping at T = 365 (``fill_cells`` and ``_fill_cells_plain``) timed
-   on the host, the Datasets the same bytes;
+   spectrum once per stack, TL1, cuFFT's column ``ifft`` and TL2's row
+   kernel) and ``_correlate_spectrograms_plain``, cells/s on each, device
+   ms per batch and share, peak device memory; the form's peaks within
+   1e-6 (relative) of the plain form's, shifts equal but for near-ties
+   (float64, counted), bit-identical cells counted. The kernels alone at
+   the largest stack's first batch of 64 cells: TL1 within 1e-6 of its
+   plain version's max (bit-identity reported); the scan its plain
+   version's value bits and index on the batch's ``irfft2`` maps, a zero
+   map, and a planted tie and planted NaNs; the row kernel's peaks within
+   1e-6 (relative) of its plain version's, indices equal but for
+   near-ties, a rerun the same bits, a zero input and a planted NaN as
+   its plain version; median ms of 20, plain ms, bound, and the row
+   kernel's library yardstick (``irfft`` of the kept rows). (e) A
+   year-size stack, 365 spectrograms made from the largest stack's 60
+   (the widest band of the pair with the longer lag window) by a seeded
+   multiplicative perturbation: all 66,795 cells once on each form,
+   cells/s, peak device memory, TL1 and TL2 once per batch, every cell
+   held to the plain form as above; and the cell bookkeeping at T = 365
+   (``fill_cells`` and ``_fill_cells_plain``) timed on the host, the
+   Datasets the same bytes;
 9. the multi-device layer on the one card, over a logical mesh that
    names ``cuda:0`` twice (so its times are the split's overhead, not a
    multi-card speed). (a) ``parallel.sharded_correlate`` of phase 4's 16
@@ -361,15 +370,17 @@ REPLACES = {
     "fused_corr_acc": "xcorr_tpu/ops/pallas_fft.py:535",
     "fused_corr_full": "xcorr_tpu/ops/pallas_fft.py:684",
 }
-#: the timelapse's cell kernels (ops/cells.py, TL1 and TL2), which
-#: replace no pallas_call: the JAX package fuses a batch of cells in XLA
-TL_KERNELS = ("gather_product", "circular_argmax")
+#: the timelapse's cell kernels (ops/cells.py: TL1; TL2's scan and its
+#: row kernel), which replace no pallas_call: the JAX package fuses a
+#: batch of cells in XLA
+TL_KERNELS = ("gather_product", "circular_argmax", "inverse_argmax")
 REPLACES.update(dict.fromkeys(
     TL_KERNELS, "xcorr_tpu/scripts/timelapse.py:86 (_corr_step, fused by "
                 "XLA; no pallas_call)"))
 SOURCES = {
     "gather_product": "xcorr_tpu_torch/csrc/cells.cu",
     "circular_argmax": "xcorr_tpu_torch/csrc/cells.cu",
+    "inverse_argmax": "xcorr_tpu_torch/csrc/cells.cu",
     "fused_corr": "xcorr_tpu_torch/csrc/fused_corr.cu",
     "stageb_fwd": "xcorr_tpu_torch/csrc/stageb.cu",
     "stageb_inv": "xcorr_tpu_torch/csrc/stageb.cu",
@@ -2719,10 +2730,10 @@ def phase8d_timelapse(xt, p8):
                 tl.reset_launches()
                 (pk, df_, dl_), t = timed(lambda: correlate_spectrograms(
                     stack, iu, ju, device="cuda"))
-                batches = -(-iu.size // 64)
-                check(tl.launches == dict.fromkeys(tl.KERNELS, batches),
-                      f"8d: TL1 and TL2 launched {tl.launches}, not once "
-                      f"per batch ({batches})")
+                want = tl_launches_of(stack, -(-iu.size // 64))
+                check(tl.launches == want,
+                      f"8d: TL1 and TL2 launched {tl.launches}, not "
+                      f"{want} (once per batch on the route of its rows)")
                 for name in tl.KERNELS:
                     launched[name] += tl.launches[name]
             ms, k, c, n, miss = device_ops(prof)
@@ -2788,23 +2799,29 @@ def phase8d_timelapse(xt, p8):
              f"{TL_SAMPLE_CELLS} cells per (pair, band): cc2 within "
              f"{err['cc2']:.2e}, delta_freq and delta_lag equal but for "
              f"{ties} near-ties")
+    # the largest stack (the widest band of the longer pair): the scan
+    # route on its days at longer rows, the kernels alone, and the
+    # year-size stack made from it
+    widest = max(runs, key=lambda r: r[1].shape[1] * r[1].shape[2])
+    t0 = time.perf_counter()
+    for name, n in phase8d_long_rows(widest).items():
+        launched[name] += n
+    t_long = time.perf_counter() - t0
     phase(8, f"8d launches on the cells' main path (the first card run of "
-             f"each stack, counts reset just before it and read just "
-             f"after): {json.dumps(launched)}")
+             f"each stack and the long-row stack, counts reset just before "
+             f"each and read just after): {json.dumps(launched)}")
     t0 = time.perf_counter()
     phase8d_ab(runs)
     t1 = time.perf_counter()
-    # the largest stack (the widest band of the longer pair): the
-    # kernels alone, and the year-size stack made from it
-    widest = max(runs, key=lambda r: r[1].shape[1] * r[1].shape[2])
     rec = phase8d_kernels(widest)
     t2 = time.perf_counter()
     year = phase8e_year(widest)
     t3 = time.perf_counter()
     phase8e_bookkeeping()
-    phase(8, f"8d-8e command time: A/B {t1 - t0:.1f} s, TL1/TL2 alone "
-             f"{t2 - t1:.1f} s, 8e year-size stack {t3 - t2:.1f} s, "
-             f"bookkeeping {time.perf_counter() - t3:.1f} s")
+    phase(8, f"8d-8e command time: long rows {t_long:.1f} s, A/B "
+             f"{t1 - t0:.1f} s, TL1/TL2 alone {t2 - t1:.1f} s, 8e year-size "
+             f"stack {t3 - t2:.1f} s, bookkeeping "
+             f"{time.perf_counter() - t3:.1f} s")
     return rec, launched, year
 
 
@@ -2833,9 +2850,21 @@ def tl_geometry(stack):
     return nf, nl, nl // 2 + 1
 
 
+def tl_launches_of(stack, batches):
+    """The cell kernels' launches a run of ``batches`` batches of
+    ``stack`` makes: TL1 once per batch, and TL2 once per batch on the
+    route its rows take (``ops.cells.row_plan``): the row kernel, or the
+    scan."""
+    from xcorr_tpu_torch.ops.cells import row_plan
+    row = row_plan(tl_geometry(stack)[1]).route == "kernel"
+    return {"gather_product": batches,
+            "circular_argmax": 0 if row else batches,
+            "inverse_argmax": batches if row else 0}
+
+
 def phase8d_ab(runs):
     """8d's cells on the form (each spectrogram's spectrum once per stack,
-    TL1, cuFFT's ``irfft2``, TL2) and on ``_correlate_spectrograms_plain``
+    TL1, TL2 on its rows' route) and on ``_correlate_spectrograms_plain``
     (both spectra of every cell and the fftshift copies) over every
     (pair, band) stack of 8d, in turns, the order swapped each round,
     TL_AB_ROUNDS rounds, unprofiled; then one profiled run of each for
@@ -2917,15 +2946,80 @@ def phase8d_ab(runs):
              f"for {n_tie} near-ties (float64)")
 
 
+#: 8d's long-row stack: days of the widest stack at a lag width whose
+#: rows pass the row kernel's shared memory (nl = 30,000; 9,100 lags is
+#: a 10,000 km pair's, so this is a pair about 16,500 km apart)
+TL_LONG_DAYS, TL_LONG_L = 12, 15000
+
+
+def long_stack(st):
+    """TL_LONG_DAYS spectrograms of ``st`` at TL_LONG_L lags: each day's
+    lags repeated, every other copy reversed, cut to TL_LONG_L."""
+    days = st[:TL_LONG_DAYS]
+    parts = [days if k % 2 == 0 else days[:, :, ::-1]
+             for k in range(-(-TL_LONG_L // st.shape[2]))]
+    return np.ascontiguousarray(
+        np.concatenate(parts, axis=2)[:, :, :TL_LONG_L])
+
+
+def phase8d_long_rows(run):
+    """The scan route on the main path: every cell of ``long_stack`` of
+    ``run``'s stack through ``correlate_spectrograms`` (counts reset just
+    before and read just after: TL1 and the scan once per batch, the row
+    kernel never) and through the plain form; peaks within TL_AB_RTOL
+    (relative), shifts equal but for near-ties (float64), counted.
+    Returns the form's launches."""
+    from xcorr_tpu_torch.ops import cells as tl
+    from xcorr_tpu_torch.scripts import timelapse as tls
+    label, st, _ = run
+    stack = long_stack(st)
+    nf, nl, _ = tl_geometry(stack)
+    iu, ju = np.triu_indices(stack.shape[0])
+    check(tl.row_plan(nl).route == "scan",
+          f"8d long rows: nl = {nl} takes the row kernel")
+    torch.cuda.synchronize()
+    tl.reset_launches()
+    got, t = timed(lambda: tls.correlate_spectrograms(stack, iu, ju,
+                                                      device="cuda"))
+    launches = dict(tl.launches)
+    want_l = tl_launches_of(stack, -(-iu.size // 64))
+    check(launches == want_l,
+          f"8d long rows: launched {launches}, not {want_l}")
+    want, t_plain = timed(lambda: tls._correlate_spectrograms_plain(
+        stack, iu, ju, device="cuda"))
+    err = rel_err(got[0], want[0])
+    check(err <= TL_AB_RTOL, f"8d long rows: peaks {err} from the plain "
+                             "form's")
+    n_tie = near_ties(stack, iu, ju, got, want, 2 * TL_AB_RTOL,
+                      "8d long rows")
+    phase(8, f"8d long rows ({label}'s first {TL_LONG_DAYS} days at "
+             f"{TL_LONG_L} lags, stack {stack.shape}, nf x nl = {nf} x "
+             f"{nl}, the scan route): {iu.size} cells, form {t:.3f} s, "
+             f"plain {t_plain:.3f} s (first calls at this shape); launches "
+             f"{json.dumps(launches)}; peaks within {err:.3e} (relative) "
+             f"of the plain form's, shifts equal but for {n_tie} "
+             f"near-ties (float64)")
+    return launches
+
+
 def phase8d_kernels(run):
-    """TL1 and TL2 alone against their plain versions on the first batch
-    of 64 cells of ``run``'s stack (8d's widest band): errors, bits,
-    median CUDA-event ms of 20 of each, and the card's bound (bytes: the
-    spectra the batch names read once and the products written once;
-    the maps' windows read once). TL2 must give its plain version's
-    value bits and index on the batch's maps, on an all-zero map and on
-    a map with a planted tie and a planted NaN. Returns each kernel's
-    record."""
+    """TL1 and both routes of TL2 alone against their plain versions on
+    the first batch of 64 cells of ``run``'s stack (8d's widest band):
+    errors, bits, median CUDA-event ms of 20 of each, and the card's
+    bound (bytes: the spectra the batch names read once and the products
+    written once; the maps' windows read once; the kept rows' half
+    spectra read once, or the row transforms' operations, 5 nl log2 nl
+    per pair of rows, where larger). The scan must give its plain
+    version's value bits and index on the batch's maps, on an all-zero
+    map and on a map with a planted tie and a planted NaN. The row
+    kernel, on the column inverses as the form lays them out: peaks
+    within TL_AB_RTOL (relative) of its plain version's, indices equal
+    but for near-ties (float64, 8d's rule), counted; a rerun the same
+    bits; an all-zero input its plain version's peak and index; a NaN
+    planted in the first kept row a NaN peak at its plain version's
+    index, in the fourth NaN at that row's first window column; its
+    library yardstick ``torch.fft.irfft`` of the same kept rows,
+    without the argmax. Returns each kernel's record."""
     from xcorr_tpu_torch.ops import cells as tl
     from xcorr_tpu_torch.scripts import timelapse as tls
     label, st, _ = run
@@ -2977,20 +3071,109 @@ def phase8d_kernels(run):
         "plain_ms": median_ms(lambda: tl.circular_argmax_plain(r, F, L))}
     rec["circular_argmax"].update(zip(
         ("bound_ms", "bound_by"), bound(B * win * 4, B * 12, B * win)[:2]))
+    del S, P, r, planted
+    # TL2's row kernel, on the column inverses as the form lays them out
+    Sc = tls._spectra(sp, 0, T, nf, nl, cols=True)
+    Y = torch.fft.ifft(tl.gather_product(Sc, ii, Sc, jj).transpose(-2, -1),
+                       dim=-2, norm="forward")
+    del Sc
+    got = tl.inverse_argmax(Y, F, L, nl)
+    again = tl.inverse_argmax(Y, F, L, nl)
+    torch.cuda.synchronize()
+    ref = tl.inverse_argmax_plain(Y, F, L, nl)
+    check(torch.equal(got[1], again[1]) and torch.equal(
+        got[0].view(torch.int32), again[0].view(torch.int32)),
+        f"row kernel {label}: a rerun differs")
+    W = 2 * L - 1
+
+    def shifts(pk, k):
+        k = k.cpu().numpy()
+        return (pk.cpu().numpy(), (k // W - (F - 1)).astype(np.int32),
+                (k % W - (L - 1)).astype(np.int32))
+    g3, w3 = shifts(*got), shifts(*ref)
+    row_err = rel_err(g3[0], w3[0])
+    check(row_err <= TL_AB_RTOL,
+          f"row kernel {label}: peaks {row_err} of its plain version's")
+    row_ties = near_ties(st, iu[:64], ju[:64], g3, w3, 2 * TL_AB_RTOL,
+                         f"row kernel {label}")
+    zero = torch.zeros_like(Y[:2])
+    gz = tl.inverse_argmax(zero, F, L, nl)
+    wz = tl.inverse_argmax_plain(zero, F, L, nl)
+    check(torch.equal(gz[1], wz[1]) and torch.equal(gz[0], wz[0]),
+          f"row kernel, zero input: {gz} against its plain {wz}")
+    # NaNs planted in kept rows: in the first against the plain version
+    # and numpy's float64 witness, in later rows (a pair's either row, and
+    # the last, alone in its block) against the witness alone, since the
+    # plain version's cuFFT may carry a NaN into a neighbouring row of
+    # its batch
+    nan = complex(float("nan"), float("nan"))
+    planted = Y[:2].clone()
+    planted[1, (0 - (F - 1)) % nf, nl // 4] = nan
+    gn = tl.inverse_argmax(planted, F, L, nl)
+    wn = tl.inverse_argmax_plain(planted, F, L, nl)
+    xk = row_witness(planted, F, L, nl)
+    check(bool(torch.isnan(gn[0][1]) and torch.isnan(wn[0][1]))
+          and torch.equal(gn[1], wn[1]) and int(gn[1][1]) == xk[1] == 0,
+          f"row kernel, planted NaN: {gn} against its plain {wn}, "
+          f"numpy's {xk}")
+    planted = Y[:2].clone()
+    for c, kept_rows in ((0, (2 * F - 2,)), (1, (5, 2, 2 * F - 2))):
+        for i in kept_rows:
+            planted[c, (i - (F - 1)) % nf, (7 * i) % h] = nan
+    gn = tl.inverse_argmax(planted, F, L, nl)
+    xk = row_witness(planted, F, L, nl)
+    check(bool(torch.isnan(gn[0]).all())
+          and list(gn[1].cpu().numpy()) == list(xk)
+          == [(2 * F - 2) * W, 2 * W],
+          f"row kernel, NaNs in later kept rows: {gn}, numpy's NaNs at "
+          f"{xk}")
+    rows = torch.from_numpy((np.arange(2 * F - 1) - (F - 1)) % nf).cuda()
+    kept = (Y[:, rows] / nf).contiguous()
+    rec["inverse_argmax"] = {
+        "max_abs_err": float(np.abs(g3[0] - w3[0]).max()),
+        "ms": median_ms(lambda: tl.inverse_argmax(Y, F, L, nl)),
+        "plain_ms": median_ms(
+            lambda: tl.inverse_argmax_plain(Y, F, L, nl)),
+        "library_ms": median_ms(
+            lambda: torch.fft.irfft(kept, n=nl, dim=-1))}
+    rec["inverse_argmax"].update(zip(("bound_ms", "bound_by"), bound(
+        B * (2 * F - 1) * h * 8, B * 12,
+        B * F * 5 * nl * math.log2(nl))[:2]))
+    del Y, kept, planted
+    notes = {
+        "gather_product": f" rel {rel:.3e}, bit-identical {bits}",
+        "circular_argmax": " (value bits and index equal on the batch's "
+                           "maps, a zero map, a planted tie and NaNs)",
+        "inverse_argmax": f" rel {row_err:.3e}, indices equal but for "
+                          f"{row_ties} near-ties (float64), a rerun the "
+                          "same bits, a zero input as its plain version, "
+                          "planted NaNs as numpy's float64 witness"}
     for name, v in rec.items():
-        v["library_ms"] = None
+        v.setdefault("library_ms", None)
+        lib = ("" if v["library_ms"] is None else
+               f", library (irfft of the kept rows) {v['library_ms']:.4f} "
+               "ms")
         phase(8, f"{name} at 8d's largest stack ({label}, stack {st.shape}, "
                  f"{B} cells, nf x nl = {nf} x {nl}): max_abs_err "
-                 f"{v['max_abs_err']:.3e}"
-                 + (f" rel {rel:.3e}, bit-identical {bits}"
-                    if name == "gather_product" else
-                    " (value bits and index equal on the batch's maps, a "
-                    "zero map, a planted tie and NaNs)")
-                 + f"; kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} "
-                   f"ms bound {v['bound_ms']:.4f} ms ({v['bound_by']}), "
-                   f"{100 * v['bound_ms'] / v['ms']:.1f}% of bound")
-    del S, P, r, planted
+                 f"{v['max_abs_err']:.3e}{notes[name]}; kernel "
+                 f"{v['ms']:.4f} ms plain {v['plain_ms']:.4f} ms bound "
+                 f"{v['bound_ms']:.4f} ms ({v['bound_by']}), "
+                 f"{100 * v['bound_ms'] / v['ms']:.1f}% of bound{lib}")
     return rec
+
+
+def row_witness(Y, n1, n2, nl):
+    """Each cell's flat argmax over the window of ``irfft(Y, n=nl) / nf``
+    from numpy's float64 ``irfft`` of each kept row on the host, with
+    ``argmax``'s rule (the first NaN, else the first maximum): a witness
+    that no batching of rows on the card touches."""
+    Yh = Y.cpu().numpy().astype(np.complex128)
+    nf = Yh.shape[1]
+    rows = (np.arange(2 * n1 - 1) - (n1 - 1)) % nf
+    cols = (np.arange(2 * n2 - 1) - (n2 - 1)) % nl
+    with np.errstate(invalid="ignore"):
+        m = np.fft.irfft(Yh[:, rows], n=nl, axis=-1)[..., cols] / nf
+    return [int(k) for k in m.reshape(len(Yh), -1).argmax(-1)]
 
 
 def year_stack(st):
@@ -3032,10 +3215,10 @@ def phase8e_year(run):
             launches = dict(tl.launches)
         mem[f] = (torch.cuda.max_memory_allocated() - base
                   - year.nbytes) / 1e9
-    batches = -(-iu.size // 64)
-    check(launches == dict.fromkeys(tl.KERNELS, batches),
-          f"8e: TL1 and TL2 launched {launches}, not once per batch "
-          f"({batches})")
+    want_l = tl_launches_of(year, -(-iu.size // 64))
+    check(launches == want_l,
+          f"8e: TL1 and TL2 launched {launches}, not {want_l} (once per "
+          "batch on the route of its rows)")
     got, want = res["form"], res["plain"]
     err = rel_err(got[0], want[0])
     check(err <= TL_AB_RTOL, f"8e: peaks {err} from the plain form's")

@@ -13,9 +13,13 @@ bars); the two bookkeeping forms give identical Datasets. TL2's plain
 version is held to a numpy model of the kernel's circular read (rows
 ``(i - (n1-1)) mod nf``, columns ``(j - (n2-1)) mod nl``, the first NaN,
 else the first maximum) exactly. The card tests (``cuda`` marker) hold
-each kernel to its plain version there: TL2 exactly, TL1 within 1e-6 of
-the largest magnitude of its plain version (the two products may round
-their sums differently).
+each kernel to its plain version there: TL2's scan exactly, TL1 within
+1e-6 of the largest magnitude of its plain version (the two products
+may round their sums differently), TL2's row kernel within 1e-6
+relative on the peaks with indices equal but for near-ties in float64
+(another inverse rounds otherwise), at an odd, an even, a small and the
+longest row of its route; the form on the card takes the route its rows
+fit, the row kernel or the scan.
 """
 import numpy as np
 import pandas as pd
@@ -185,6 +189,21 @@ def test_spectra_in_chunks_equal_whole(monkeypatch):
     assert part.is_contiguous() and part.shape == (7, 9, 13)
     assert torch.equal(part, whole)
     assert torch.equal(ttl._spectra(sp, 2, 5, 9, 24), whole[2:5])
+
+
+def test_spectra_in_columns():
+    """With ``cols`` the spectra are the same bits transposed, each
+    ``(nl//2+1, nf)`` and C-contiguous, whole or in chunks."""
+    sp = torch.from_numpy(stack((7, 5, 12)))
+    whole = ttl._spectra(sp, 0, 7, 9, 24)
+    for chunk in (ttl.CHUNK_BYTES, 2 * 9 * 24 * 4):
+        ttl.CHUNK_BYTES, keep = chunk, ttl.CHUNK_BYTES
+        try:
+            got = ttl._spectra(sp, 1, 6, 9, 24, cols=True)
+        finally:
+            ttl.CHUNK_BYTES = keep
+        assert got.is_contiguous() and got.shape == (5, 13, 9)
+        assert torch.equal(got, whole[1:6].transpose(-2, -1))
 
 
 def test_mesh_equals_no_mesh():
@@ -450,13 +469,155 @@ def test_kernels_match_plain_on_card(cuda_device, geom):
 @pytest.mark.cuda
 def test_form_on_card_matches_plain(cuda_device):
     """The form on the card: peaks within 1e-6 relative of the plain
-    form's, TL1 and TL2 launched once per batch."""
+    form's, TL1 and TL2 launched once per batch (nl = 1,200: TL2's row
+    route, its row kernel, and the scan never)."""
     sp = stack((12, 31, 600))
     ii, jj = np.triu_indices(12)
     cells.reset_launches()
     got = ttl.correlate_spectrograms(sp, ii, jj, batch=16)
     batches = -(-ii.size // 16)
     assert cells.launches == {"gather_product": batches,
-                              "circular_argmax": batches}
+                              "circular_argmax": 0,
+                              "inverse_argmax": batches}
     want = ttl._correlate_spectrograms_plain(sp, ii, jj, batch=16)
     np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=1e-7)
+
+
+def shift_value(a, b, df, dl):
+    """The float64 normalized correlation of spectrograms ``a`` and ``b``
+    at shift ``(df, dl)``."""
+    a = a / np.linalg.norm(a.astype(np.float64))
+    b = b / np.linalg.norm(b.astype(np.float64))
+    F, L = a.shape
+    return float(np.sum(
+        a[max(df, 0):F + min(df, 0), max(dl, 0):L + min(dl, 0)]
+        * b[max(-df, 0):F + min(-df, 0), max(-dl, 0):L + min(-dl, 0)],
+        dtype=np.float64))
+
+
+def row_value(Y, c, k, n1, n2, nl):
+    """The float64 value of cell ``c``'s map ``irfft(Y[c], n=nl) / nf`` at
+    the flat window index ``k``."""
+    i, j = divmod(int(k), 2 * n2 - 1)
+    row = Y[c, (i - (n1 - 1)) % Y.shape[1]].astype(np.complex128)
+    return np.fft.irfft(row, n=nl)[(j - (n2 - 1)) % nl] / Y.shape[1]
+
+
+def row_witness(Y, n1, n2, nl):
+    """Each cell's peak and flat argmax over the window of ``irfft(Y,
+    n=nl) / nf``, from numpy's float64 ``irfft`` of each kept row on the
+    CPU, with ``argmax``'s rule (the first NaN, else the first maximum):
+    a witness that no batching of rows on the card touches."""
+    Yh = Y.cpu().numpy().astype(np.complex128)
+    nf = Yh.shape[1]
+    rows = (np.arange(2 * n1 - 1) - (n1 - 1)) % nf
+    cols = (np.arange(2 * n2 - 1) - (n2 - 1)) % nl
+    with np.errstate(invalid="ignore"):
+        m = np.fft.irfft(Yh[:, rows], n=nl, axis=-1)[..., cols] / nf
+    flat = m.reshape(len(Yh), -1)
+    k = flat.argmax(-1)
+    return flat[np.arange(len(flat)), k], k
+
+
+def check_row_kernel(Y, n1, n2, nl):
+    """The row kernel against its plain version on ``Y``: peaks within
+    1e-6 relative, indices equal but for near-ties (the float64 map at
+    both indices within 2e-6 of the largest peak); a rerun the same
+    bits. Returns the near-ties."""
+    got = cells.inverse_argmax(Y, n1, n2, nl)
+    again = cells.inverse_argmax(Y, n1, n2, nl)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], again[1]) and torch.equal(
+        got[0].view(torch.int32), again[0].view(torch.int32))
+    want = cells.inverse_argmax_plain(Y, n1, n2, nl)
+    gp, gk = (t.cpu().numpy() for t in got)
+    wp, wk = (t.cpu().numpy() for t in want)
+    scale = np.abs(wp).max()
+    assert np.abs(gp - wp).max() <= 1e-6 * scale
+    Yh = Y.cpu().numpy()
+    ties = np.flatnonzero(gk != wk)
+    for c in ties:
+        assert abs(row_value(Yh, c, gk[c], n1, n2, nl)
+                   - row_value(Yh, c, wk[c], n1, n2, nl)) <= 2e-6 * scale
+    return ties.size
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", [(6, 81, 9100), (6, 81, 6993), (5, 10, 20),
+                                  (4, 81, 14336)],
+                         ids=["odd-18225", "even-14000", "small-40",
+                              "largest-28672"])
+def test_row_kernel_matches_plain_on_card(cuda_device, geom):
+    """TL2's row kernel on the column inverses of a real batch (every
+    cell of a seeded stack's triangle): at an odd nl, an even nl with 7
+    as a factor, a small nl and the longest row of its route. A zero
+    product gives the plain version's peak and index. NaNs planted in
+    kept rows give a NaN peak at the index of numpy's float64 witness
+    (:func:`row_witness`), and, in the first kept row, at the plain
+    version's. One launch counted per call."""
+    T, F, L = geom
+    nf = ttl.ops.fft.next_fast_len(2 * F - 1)
+    nl = ttl.ops.fft.next_fast_len(2 * L - 1)
+    assert cells.row_plan(nl).route == "kernel"
+    sp = torch.from_numpy(stack((T, F, L))).to(cuda_device)
+    S = ttl._spectra(sp, 0, T, nf, nl)
+    ii, jj = (torch.from_numpy(a.astype(np.int64)).to(cuda_device)
+              for a in np.triu_indices(T))
+    Y = torch.fft.ifft(cells.gather_product(S, ii, S, jj), dim=-2,
+                       norm="forward")
+    before = cells.launches["inverse_argmax"]
+    check_row_kernel(Y, F, L, nl)
+    zero = torch.zeros_like(Y[:2])
+    got = cells.inverse_argmax(zero, F, L, nl)
+    want = cells.inverse_argmax_plain(zero, F, L, nl)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    # a NaN in the first kept row: cuFFT's plain inverse may carry it
+    # into a neighbouring row of its batch (the card's run shows it), so
+    # the plain version is compared where no earlier row can take it
+    nan = complex(float("nan"), float("nan"))
+    planted = Y[:2].clone()
+    planted[1, (0 - (F - 1)) % nf, nl // 4] = nan
+    got = cells.inverse_argmax(planted, F, L, nl)
+    want = cells.inverse_argmax_plain(planted, F, L, nl)
+    wp, wk = row_witness(planted, F, L, nl)
+    assert torch.isnan(got[0][1]) and torch.isnan(want[0][1])
+    assert torch.equal(got[1], want[1]) and int(got[1][1]) == wk[1] == 0
+    # in later kept rows, a pair's either row and the last (alone in its
+    # block): numpy's witness, since the plain version's cuFFT may carry
+    # a NaN into a neighbouring row of its batch
+    planted = Y[:2].clone()
+    for c, rows in ((0, (2 * F - 2,)), (1, (5, 2, 2 * F - 2))):
+        for i in rows:
+            planted[c, (i - (F - 1)) % nf, (7 * i) % (nl // 2 + 1)] = nan
+    got = cells.inverse_argmax(planted, F, L, nl)
+    wp, wk = row_witness(planted, F, L, nl)
+    assert torch.isnan(got[0]).all() and np.isnan(wp).all()
+    np.testing.assert_array_equal(got[1].cpu().numpy(), wk)
+    assert list(wk) == [(2 * F - 2) * (2 * L - 1), 2 * (2 * L - 1)]
+    assert cells.launches["inverse_argmax"] == before + 5
+
+
+@pytest.mark.cuda
+def test_scan_route_on_card(cuda_device):
+    """A stack whose rows pass the row kernel's shared memory (L =
+    15,000, nl = 30,000) takes cuFFT's ``irfft2`` and the scan, chosen
+    from nl: peaks within 1e-6 relative of the plain form's, shifts
+    equal but for near-ties (float64), TL1 and the scan once per batch,
+    the row kernel never."""
+    T, F, L = 6, 31, 15000
+    assert cells.row_plan(ttl.ops.fft.next_fast_len(2 * L - 1)).route \
+        == "scan"
+    sp = stack((T, F, L))
+    ii, jj = np.triu_indices(T)
+    cells.reset_launches()
+    got = ttl.correlate_spectrograms(sp, ii, jj, batch=16)
+    batches = -(-ii.size // 16)
+    assert cells.launches == {"gather_product": batches,
+                              "circular_argmax": batches,
+                              "inverse_argmax": 0}
+    want = ttl._correlate_spectrograms_plain(sp, ii, jj, batch=16)
+    assert np.abs(got[0] - want[0]).max() <= 1e-6 * np.abs(want[0]).max()
+    for n in np.flatnonzero((got[1] != want[1]) | (got[2] != want[2])):
+        a, b = sp[ii[n]], sp[jj[n]]
+        assert abs(shift_value(a, b, got[1][n], got[2][n])
+                   - shift_value(a, b, want[1][n], want[2][n])) <= 2e-6

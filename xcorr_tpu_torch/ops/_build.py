@@ -95,6 +95,7 @@ _SIGNATURES = {
     "xc_fused_corr_full": "ppppppppppiiiiiiip",
     "xc_gather_product": "pppppiip",
     "xc_circular_argmax": "pppppiiiiiip",
+    "xc_inverse_argmax": "pppppppiiiiiiiiip",
 }
 
 

@@ -13,12 +13,14 @@ upper-triangle cells are 2-D-correlated in batches on the torch device
 that ``--platform`` names (:func:`correlate_spectrograms`; ``cuda`` by
 default, raising without a card), or with ``mesh=`` each batch split
 over a mesh's devices (SURVEY.md §2.8 P2): each spectrogram's spectrum
-once per stack, then per batch the hand-written gather-product (TL1),
-cuFFT's inverse and the hand-written circular argmax (TL2) of
-:mod:`..ops.cells`. :func:`fill_cells` writes a (pair, band)'s cells
-with one indexed assignment per variable. :data:`FORMS` names the two
-forms; each has its plain version (``_<name>_plain``). The shard I/O is
-imported on use.
+once per stack, then per batch the hand-written gather-product (TL1)
+and the inverse's peaks (TL2) of :mod:`..ops.cells`: cuFFT's column
+inverse and a hand-written kernel that inverts each kept row and takes
+its peak in shared memory, or, for rows too long for that, cuFFT's
+``irfft2`` and a hand-written scan of the map. :func:`fill_cells`
+writes a (pair, band)'s cells with one indexed assignment per variable.
+:data:`FORMS` names the two forms; each has its plain version
+(``_<name>_plain``). The shard I/O is imported on use.
 """
 
 from __future__ import annotations
@@ -96,19 +98,24 @@ SPECTRA_BYTES = 16 << 30
 CHUNK_BYTES = 1 << 30
 
 
-def _spectra(sp, start: int, stop: int, nf: int, nl: int):
+def _spectra(sp, start: int, stop: int, nf: int, nl: int,
+             cols: bool = False):
     """The ``rfft2`` at ``(nf, nl)`` of the normalized spectrograms
     ``sp[start:stop]``: ``(stop - start, nf, nl//2+1)`` complex,
     C-contiguous, taken over chunks of :data:`CHUNK_BYTES` of padded
-    input."""
+    input; with ``cols``, each transposed, ``(stop - start, nl//2+1,
+    nf)``, C-contiguous (the layout in which the row route's column
+    inverse needs no copy)."""
     n = stop - start
     step = max(1, CHUNK_BYTES // (nf * nl * sp.element_size()))
     out = None
     for s in range(0, n, step):
         chunk = sp[start + s:min(start + s + step, stop)]
         f = torch.fft.rfft2(_normed(chunk), s=(nf, nl))
+        if cols:
+            f = f.transpose(-2, -1)
         if f.shape[0] == n:
-            return f
+            return f.contiguous()
         if out is None:
             out = torch.empty((n, *f.shape[1:]), dtype=f.dtype,
                               device=f.device)
@@ -126,12 +133,16 @@ def _tile(T: int, nf: int, nl: int, itemsize: int) -> int:
     return max(1, SPECTRA_BYTES // (2 * one))
 
 
-def _product_peaks(prods, n1, n2, nf, nl):
+def _product_peaks(prods, n1, n2, nl, cols=False):
     """Peaks and flat argmaxes of a batch of cells from their conjugate
-    products (TL1's outputs, in cell order): cuFFT's ``irfft2``, TL2."""
-    r = torch.fft.irfft2(torch.cat(prods) if len(prods) > 1 else prods[0],
-                         s=(nf, nl))
-    return ops.cells.circular_argmax(r, n1, n2)
+    products (TL1's outputs, in cell order; with ``cols``, each
+    ``(B, nl//2+1, nf)``): TL2, :func:`..ops.cells.product_peaks`, on
+    the route its row length takes (``ops.cells.row_plan(nl)``: cuFFT's
+    column ``ifft`` and the row kernel where a row fits a block's shared
+    memory, else cuFFT's ``irfft2`` and the scan)."""
+    P = torch.cat(prods) if len(prods) > 1 else prods[0]
+    return ops.cells.product_peaks(P.transpose(-2, -1) if cols else P,
+                                   n1, n2, nl)
 
 
 def correlate_spectrograms(specs, i_idx, j_idx, batch: int = 64,
@@ -149,15 +160,22 @@ def correlate_spectrograms(specs, i_idx, j_idx, batch: int = 64,
     port's cuFFT-fast lengths, chunks of :data:`CHUNK_BYTES`), and its
     spectrum kept. Then each batch of ``batch`` cells (the last at its
     own size) takes the conjugate products of its cells' spectra by
-    index (TL1, :func:`..ops.cells.gather_product`), their ``irfft2``,
-    and the peak and flat argmax of each map's fftshifted window, read
-    in place (TL2, :func:`..ops.cells.circular_argmax`). A stack whose
-    spectra pass :data:`SPECTRA_BYTES` takes its cells tile pair by tile
-    pair of times (:func:`_tile`), keeping one row tile's and one column
-    tile's spectra at once, but for its last batch, which runs in cell
-    order: so each cell's ``irfft2`` runs in a batch of the size that
-    the plain version gives it. A batch whose cells span tile pairs
-    takes TL1 once per tile pair.
+    index (TL1, :func:`..ops.cells.gather_product`), and the peak and
+    flat argmax of the fftshifted window of each cell's ``irfft2`` (TL2,
+    :func:`..ops.cells.product_peaks`): on the card, where a row of
+    length ``nl`` fits one block's shared memory (``nl`` up to 28,672;
+    :func:`..ops.cells.row_plan`), cuFFT's column ``ifft`` and one kernel
+    that inverts each kept row and reduces it in shared memory, so no
+    map is stored; for longer rows cuFFT's ``irfft2`` and the scan of
+    the map's window in place. On the row route a card keeps each
+    spectrum transposed, ``(nl//2+1, nf)``, so that TL1's products and
+    the column inverse's output keep that layout and cuFFT copies
+    nothing. A stack whose spectra pass :data:`SPECTRA_BYTES` takes its
+    cells tile pair by tile pair of times (:func:`_tile`), keeping one
+    row tile's and one column tile's spectra at once, but for its last
+    batch, which runs in cell order: so each cell's inverse runs in a
+    batch of the size that the plain version gives it. A batch whose
+    cells span tile pairs takes TL1 once per tile pair.
 
     ``mesh`` (a :class:`..parallel.mesh.Mesh`, in place of ``device``):
     the stack goes to each of its devices, and its spectra are taken on
@@ -185,6 +203,8 @@ def correlate_spectrograms(specs, i_idx, j_idx, batch: int = 64,
     nl = ops.fft.next_fast_len(2 * n2 - 1)
     w = 2 * n2 - 1
     ncells = ii.shape[0]
+    # the spectra, and so TL1's products, in the layout TL2 takes
+    cols = {d: ops.cells.products_in_columns(nl, d) for d in uniq}
     # the order the cells run in: tile pair by tile pair (cell order
     # within each) but for the last batch, which runs as it stands, so
     # that each cell is transformed in a share of the size the plain
@@ -210,7 +230,8 @@ def correlate_spectrograms(specs, i_idx, j_idx, batch: int = 64,
         for t in (a, b):
             if t not in held:
                 held[t] = {d: _spectra(stacks[d], t * tile,
-                                       min(T, (t + 1) * tile), nf, nl)
+                                       min(T, (t + 1) * tile), nf, nl,
+                                       cols[d])
                            for d in uniq}
         return held[a], held[b]
 
@@ -233,7 +254,7 @@ def correlate_spectrograms(specs, i_idx, j_idx, batch: int = 64,
                 prods.append(ops.cells.gather_product(
                     sa[d], local[d][0][cs], sb[d], local[d][1][cs]))
             peaks[d][lo:hi], am[d][lo:hi] = _product_peaks(
-                prods, n1, n2, nf, nl)
+                prods, n1, n2, nl, cols[d])
             del prods
             owner[lo:hi] = uniq.index(d)
     held.clear()
